@@ -1,0 +1,65 @@
+"""Tuning configurations of the MSD engine, keyed by (key_bits, has_values,
+platform).
+
+PyTorch port of ``tpusort/configs.py``.  The platform is the device type of
+the tensor being sorted (``"cuda"`` or ``"cpu"``).  Every field is consumed:
+``SortConfig.plan_kwargs()`` feeds ``ops.msd.plan_msd`` directly.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+__all__ = ["SortConfig", "get_config", "register_config"]
+
+
+@dataclass(frozen=True)
+class SortConfig:
+    tile_elems: int = 1 << 14      # K: elements per tile (one CTA)
+    radix: int = 32                # R: runs per tile (digit fan-out)
+    s1: Optional[int] = None       # pass-1 padded run capacity (None = auto)
+    leaf_max: Optional[int] = None # max final segment size (None = auto)
+    min_n: int = 1 << 16           # below this the engine delegates
+    default_algorithm: str = "msd" # the only engine this port has
+
+    def plan_kwargs(self) -> dict:
+        """The ``plan_msd`` keyword arguments this config pins."""
+        kw = dict(k=self.tile_elems, r=self.radix, min_n=self.min_n)
+        if self.s1 is not None:
+            kw["s1"] = self.s1
+        if self.leaf_max is not None:
+            kw["leaf_max"] = self.leaf_max
+        return kw
+
+
+_REGISTRY: Dict[Tuple[int, bool, str], SortConfig] = {}
+
+
+def register_config(key_bits: int, has_values: bool, platform: str,
+                    cfg: SortConfig):
+    _REGISTRY[(key_bits, has_values, platform)] = cfg
+
+
+def get_config(key_bits: int, has_values: bool, platform: str) -> SortConfig:
+    for key in (
+        (key_bits, has_values, platform),
+        (key_bits, has_values, "*"),
+    ):
+        if key in _REGISTRY:
+            return _REGISTRY[key]
+    return SortConfig()
+
+
+# H100: K = 16384 keeps one tile (64 KB) and the packed leaf tile (24,576
+# keys, padded to 32,768 = 128 KB at 2^28) inside a CTA's 227 KB of shared
+# memory.  The TPU rows' K = 65536 (256 KB per tile, 327,680-key leaf
+# segments) cannot carry over.  s1 and leaf_max stay automatic: at 2^28
+# this plans 3 passes, (K, S) = (16384, 768), (16384, 512), (16384, 512).
+register_config(32, False, "cuda", SortConfig(tile_elems=1 << 14, radix=32,
+                                              default_algorithm="msd"))
+# CPU (tests): the JAX package's CPU geometry, so both packages plan alike
+_CPU = SortConfig(tile_elems=2048, radix=16, s1=256, min_n=4096)
+for _bits in (32, 64):
+    for _hv in (False, True):
+        register_config(_bits, _hv, "cpu", _CPU)

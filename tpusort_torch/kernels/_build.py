@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels with nvcc at first use; load them with ctypes.
+
+The sources under ``tpusort_torch/csrc/`` have a plain C interface, so they
+compile in seconds without PyTorch's headers.  They build into one shared
+library under ``build/tpusort_torch/`` at the repository root, named by a
+hash of the sources and flags, so an edit rebuilds and an unchanged tree
+reuses the library.  The compiler's output (``-Xptxas -v``: registers,
+shared memory, spills per kernel) is kept in ``build/tpusort_torch/build.log``.
+
+Nothing here runs at import time: the first kernel launch calls
+:func:`library`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpusort_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry points and their argument types; each returns a cudaError_t
+_SIGNATURES = {
+    # keys, counts_in, q_in, n, T, K, R, S, lo_bit, width, t_seg,
+    # sorted_run, out, counts_out, stream
+    "tpusort_partition_raw": [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P, _P, _P],
+    # keys, counts, q, offsets, n_out, T, K, P, sorted_run, out, stream
+    "tpusort_leaf_collapse": [_P, _P, _I, _P, _LL, _I, _I, _I, _I, _P, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    candidates = []
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            candidates.append(Path(os.environ[env]) / "bin" / "nvcc")
+    if shutil.which("nvcc"):
+        candidates.append(Path(shutil.which("nvcc")))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels are built from "
+        f"{CSRC} with the CUDA toolkit (set CUDA_HOME)"
+    )
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` into one shared library (cached by
+    content hash) and return its path.  Raises if nvcc fails."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    lib = BUILD_DIR / f"libtpusort_torch-{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+        capture_output=True, text=True,
+    )
+    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)     # atomic: no process loads a half-written file
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.tpusort_error_string.argtypes = [ctypes.c_int]
+        lib.tpusort_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err:
+        msg = library().tpusort_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")

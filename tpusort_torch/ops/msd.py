@@ -1,0 +1,422 @@
+"""MSD hybrid radix sort engine, keys-only raw-key path.
+
+PyTorch port of ``tpusort/ops/msd.py``.  The planning part (``PassSpec``,
+``MsdPlan``, ``plan_msd``) is copied verbatim: it is pure Python, and the
+JAX module imports jax at module level.
+
+The engine runs the raw-key keys-only main path:
+
+* each partition pass (``run_passes``) calls the fused partition kernel K1
+  (``kernels.partition.partition_pass_fused``) once: every (T, K) tile is
+  sorted by the raw key (invalid slots become 0xFFFFFFFF), cut into R digit
+  runs padded to S, and written straight into the digit-major exchanged
+  layout of the next pass;
+* validity is never stored per element: each pass returns a (T, R) counts
+  table, and the next consumer derives validity from it;
+* the leaf kernel K2 (``kernels.bitonic.sort_tiles_counts_collapsed``)
+  sorts packed tiles of whole final segments and writes each tile's valid
+  prefix to its dense output offset;
+* a run that overflows its capacity (count > S) is caught from the counts:
+  the flag is read on the host once, and the exact reference sort replaces
+  the result.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from tpusort_torch.kernels.bitonic import sort_tiles_counts_collapsed
+from tpusort_torch.kernels.partition import partition_pass_fused
+from tpusort_torch.ops.reference import sort_twiddled_reference
+
+# ---------------------------------------------------------------------------
+# Geometry planning (verbatim from tpusort/ops/msd.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PassSpec:
+    n_seg: int       # independent segments this pass operates within
+    t_seg: int       # tiles per segment
+    k: int           # tile size (elements)
+    r: int           # radix (runs per tile)
+    s: int           # padded run capacity (elements, multiple of 128)
+    lo_bit: int      # LSB position of this pass's digit
+    width: int       # digit width in bits (<= log2(r))
+
+
+@dataclass(frozen=True)
+class MsdPlan:
+    m1: int                      # padded element count entering pass 1
+    passes: Tuple[PassSpec, ...]
+    seg: int                     # final segment size (elements)
+    n_segments: int
+    m_final: int
+    rem_lo: int                  # leaf sorts bits [rem_lo, rem_lo + rem_width)
+    rem_width: int
+
+
+def plan_msd(
+    n: int,
+    begin_bit: int,
+    end_bit: int,
+    *,
+    k: int = 1 << 14,
+    r: int = 32,
+    s1: Optional[int] = None,
+    s: Optional[int] = None,
+    leaf_max: Optional[int] = None,
+    leaf_profile: str = "raw",
+    t1_force: Optional[int] = None,
+) -> Optional[MsdPlan]:
+    """Compute a static pass plan, or None if no feasible plan exists.
+
+    Geometry invariants (all checked):
+      * every pass's tiles hold exactly K elements and emit R runs of S;
+      * pass outputs regroup into next-pass tiles without straddling digit
+        segments (T_seg multiple of K/S_prev runs-per-tile, segments multiples
+        of K);
+      * the final segments are <= leaf_max and multiples of 128.
+
+    ``leaf_profile`` keys the cost model on the leaf kernel VARIANT the
+    remaining bit width will select (the ``GetSortKernel`` analog,
+    ``msb/src/sort/gpu_sort_config.h:250-264``): ``"raw"`` paths sort the
+    raw key planes (width-independent); ``"packed"`` paths pack
+    (rem, idx) into one sortkey word and fall to the ~5x multikey XLA
+    leaf when ``rem_width + idx_bits + 1 > 32`` — so near that boundary
+    the search trades an extra partition pass against the slow leaf.
+    """
+    import math
+
+    log_r = r.bit_length() - 1
+    if s1 is None:
+        s1 = ((3 * k // (2 * r)) // 128) * 128      # alpha ~ 1.5 on pass 1
+    if s is None:
+        s = k // r                                  # alpha-preserving after
+    if leaf_max is None:
+        # leaf tiles up to 2*K fit VMEM comfortably for 1-2 operand merges;
+        # a bigger leaf saves a whole partition pass at awkward sizes
+        leaf_max = max(2 * k, 1 << 15)
+    if k % (r * 128) or s % 128 or s1 % 128:
+        return None
+
+    bits = end_bit - begin_bit
+
+    import math as _math
+
+    def _cap_ok(kp: int, cap: int, density: float) -> bool:
+        """Run capacity must clear the binomial mean by ~6.5 sigma, or
+        uniform inputs would routinely trip the overflow fallback."""
+        mean = kp * density / r
+        sigma = _math.sqrt(max(mean * (1 - 1 / r), 1.0))
+        return cap >= mean + 6.5 * sigma
+
+    def _try(p: int, t1: int) -> Optional[MsdPlan]:
+        """Build a p-pass plan with T1 tiles, or None if infeasible."""
+        density = (k / r) / s1          # valid fraction after pass 0
+        if not _cap_ok(k, s1, 1.0):
+            return None
+        seg = t1 * s1
+        specs = [PassSpec(1, t1, k, r, s1, end_bit - min(log_r, bits),
+                          min(log_r, bits))]
+        n_seg = r
+        for _ in range(1, p):
+            # segments must be whole numbers of tiles (tiles may not span
+            # two digit segments — that would interleave order boundaries).
+            # When the default tile size doesn't divide the segment, shrink
+            # this pass's tile (e.g. 2^29: seg3 = 24576 = 3 * 8192).
+            kp = k
+            while kp >= r * 128 and seg % kp:
+                kp //= 2
+            if kp < r * 128 or seg % kp:
+                return None
+            sp_ = kp // r if s == k // r else s
+            if sp_ % 128 or sp_ > kp:
+                return None
+            if not _cap_ok(kp, sp_, density):
+                return None
+            t_seg = seg // kp
+            consumed = sum(q.width for q in specs)
+            width = min(log_r, bits - consumed)
+            if width <= 0:
+                return None
+            lo = end_bit - consumed - width
+            specs.append(PassSpec(n_seg, t_seg, kp, r, sp_, lo, width))
+            seg = t_seg * sp_
+            n_seg *= r
+        if seg > leaf_max or seg % 128:
+            return None
+        consumed = sum(sp.width for sp in specs)
+        return MsdPlan(
+            m1=t1 * k,
+            passes=tuple(specs),
+            seg=seg,
+            n_segments=n_seg,
+            m_final=n_seg * seg,
+            rem_lo=begin_bit,
+            rem_width=bits - consumed,
+        )
+
+    # Non-network per-pass cost (emit window slices + starts compare-reduces
+    # + exchanged-out write), in compare-exchange stage-equivalents per
+    # element.  Re-calibrated r4 (benchmarks/pass_decomp.py at the adopted
+    # k=65536 geometry, 2^28): stage price 2.39 ps/elem; starts +6.4 ms,
+    # exchanged write +5 ms per pass = ~43 ps = ~18 slots; the fused
+    # leaf+collapse runs ~17-22 ms over its slot model = ~20 slots.
+    _OH_PASS = 18.0
+    _OH_LEAF = 20.0      # fused leaf+collapse write discipline
+
+    def _leaf_slots(seg: int, run: int) -> float:
+        """Exact compare-exchange stage-slots (stages x elements) of the
+        raw-key leaf network over one ``seg``-element tile with sorted
+        ``run``-subruns: the staged f*2^a merge when it applies (its final
+        phases run on partial/padded extents — counted exactly, matching
+        kernels.bitonic._merge_sorted_runs_fpow2), else the pow2-padded
+        bitonic merge."""
+        from tpusort_torch.kernels.bitonic import merge_staged_factor
+
+        c = run.bit_length() - 1
+        f = merge_staged_factor(seg)
+        if f and (seg // f) % run == 0:
+            blk = seg // f
+            a = blk.bit_length() - 1
+            slots = sum(range(c + 1, a + 1)) * seg        # phases c..a-1
+            slots += (a + 1) * (f - 1) * blk              # phase a, front
+            if f == 5:
+                slots += (a + 2) * 4 * blk                # phase a+1, front
+            # cascade back-insertion: (f-1) directed 2-block merges of
+            # (a+1) stages each, plus ~2 block reversals
+            slots += (a + 1) * 2 * (f - 1) * blk + 2 * a * blk
+            return float(slots)
+        pow2 = 1 << (seg - 1).bit_length()
+        return float(sum(range(c + 1, pow2.bit_length())) * pow2)
+
+    def _cost(plan: MsdPlan) -> float:
+        """Stage-slot cost model (CE stages x elements + per-pass emit/HBM
+        overheads, with penalties for batching-hostile tiny t_seg)."""
+        total = 0.0
+        prev_s = None
+        for sp in plan.passes:
+            nb_pen = 1.0 if sp.t_seg % 4 == 0 else 1.35
+            lgk = sp.k.bit_length() - 1
+            if prev_s is None:
+                stages = lgk * (lgk + 1) / 2          # full sort
+            else:
+                k0 = (prev_s & -prev_s).bit_length() - 1
+                stages = sum(range(k0 + 1, lgk + 1))  # merge tail
+            total += (stages * nb_pen + _OH_PASS) * sp.n_seg * sp.t_seg * sp.k
+            prev_s = sp.s
+        # leaf: merge from the last pass's pow2 run size
+        run = prev_s & -prev_s
+        # leaf variant keyed on the remaining bit width (GetSortKernel
+        # analog): the packed-sortkey network needs rem + idx (+ tie
+        # headroom) to fit one u32 word; past that the leaf drops to the
+        # multikey XLA sort (~5x slower per element).  Raw-key leaves
+        # (keys-only / unstable pairs / composite stable) sort the key
+        # planes themselves — width-independent.
+        leaf_mult = 1.0
+        if leaf_profile == "packed":
+            idx_bits = (plan.seg - 1).bit_length()
+            if plan.seg >= (1 << idx_bits):
+                idx_bits += 1
+            leaf_mult = (
+                5.0 if plan.rem_width + idx_bits + 1 > 32 else 1.15
+            )
+        total += plan.n_segments * (
+            _leaf_slots(plan.seg, run) * leaf_mult + _OH_LEAF * plan.seg
+        )
+        return total
+
+    best = None
+    for p in range(1, 5):
+        if bits < log_r * p:
+            break
+        if t1_force is not None:
+            # fixed pass-0 tile count (the sorted-window finish: the input
+            # IS the padded physical layout, m1 = t1*k exactly)
+            plan = _try(p, t1_force)
+            if plan is not None:
+                c = _cost(plan)
+                if best is None or c < best[0]:
+                    best = (c, plan)
+            continue
+        quantum = k // math.gcd(s1, k)
+        tiles_needed = -(-n // k)
+        t1_base = -(-tiles_needed // quantum) * quantum
+        for step in range(512):
+            t1 = t1_base + step * quantum
+            if t1 * k > max(8 * n, 1 << 23):
+                break
+            plan = _try(p, t1)
+            if plan is not None:
+                c = _cost(plan)
+                if best is None or c < best[0]:
+                    best = (c, plan)
+        # keep searching other pass counts and t1 values: more passes or
+        # more padding can beat a batching-hostile shallower plan
+    return None if best is None else best[1]
+
+
+# ---------------------------------------------------------------------------
+# Route counters
+# ---------------------------------------------------------------------------
+
+# Engine routes, as plain integers.  The kernel launch counts live on the
+# kernel wrappers (``partition_pass_fused.launches``,
+# ``sort_tiles_counts_collapsed.launches``), which count only where they
+# launch a CUDA kernel; :func:`counters` reads all four.
+_ROUTES = {"reference_routes": 0, "overflow_fallbacks": 0}
+
+
+def counters() -> dict:
+    """K1/K2 launches, reference routes (n below min_n or no plan) and
+    overflow fallbacks since the last :func:`reset_counters`."""
+    return dict(
+        k1_launches=partition_pass_fused.launches,
+        k2_launches=sort_tiles_counts_collapsed.launches,
+        **_ROUTES,
+    )
+
+
+def reset_counters() -> None:
+    partition_pass_fused.launches = 0
+    sort_tiles_counts_collapsed.launches = 0
+    for key in _ROUTES:
+        _ROUTES[key] = 0
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+
+def run_passes(
+    keys: torch.Tensor, n: int, plan: MsdPlan
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, int], torch.Tensor]:
+    """All partition passes, one K1 launch each (port of
+    ``_run_passes_pallas``, keys only, without ``init_chain``).
+
+    ``keys``: the (plan.m1,) int32 twiddled keys, valid below ``n``.
+    Validity rides as counts tables: pass 0 takes it from ``n``; each pass
+    emits (T, R) counts, which :func:`next_counts_table` turns into the
+    next consumer's table.  Returns (flat runs of the last pass, (counts
+    table, q), overflow as a 0-d bool tensor on the device).
+    """
+    ctable = None
+    q = None
+    prev_s = None
+    overflow = torch.zeros((), dtype=torch.bool, device=keys.device)
+    data = keys
+    for spec in plan.passes:
+        t = spec.n_seg * spec.t_seg
+        cin = None if ctable is None else ctable.reshape(t, spec.k // q)
+        # emitted runs are monotone slices of sorted tiles, so chunks of
+        # the previous run size's pow2 part are sorted: K1 only merges
+        sorted_run = None if prev_s is None else (prev_s & -prev_s)
+        (data,), counts = partition_pass_fused(
+            [data.reshape(t, spec.k)], [], cin, q_in=q, r=spec.r, s=spec.s,
+            lo_bit=spec.lo_bit, width=spec.width,
+            n=(n if ctable is None else None), sorted_run=sorted_run,
+            t_seg=spec.t_seg,
+        )
+        prev_s = spec.s
+        overflow |= (counts > spec.s).any()
+        ctable, q = next_counts_table(counts, spec)
+    return data, (ctable, q), overflow
+
+
+def next_counts_table(
+    counts: torch.Tensor, spec: PassSpec
+) -> Tuple[torch.Tensor, int]:
+    """The validity table a pass's (T, R) counts give its consumer:
+    clipped to S, exchanged to digit-major order, and split into chunks of
+    q = s & -s slots (the largest power of two dividing S, so each chunk
+    is an ascending subrun).  Returns (flat table, q)."""
+    q = spec.s & -spec.s
+    chunks = spec.s // q
+    c = counts.clamp(max=spec.s).reshape(
+        spec.n_seg, spec.t_seg, spec.r).transpose(1, 2)
+    c = (c[..., None] - torch.arange(chunks, dtype=torch.int32,
+                                     device=counts.device) * q).clamp(0, q)
+    return c.reshape(-1), q
+
+
+def leaf_tiles(plan: MsdPlan) -> Tuple[int, int]:
+    """(number, size) of the leaf tiles: whole final segments packed up
+    to 2^15 keys per tile."""
+    pack = 1
+    while (pack * 2 * plan.seg <= (1 << 15)
+           and plan.n_segments % (pack * 2) == 0):
+        pack *= 2
+    return plan.n_segments // pack, pack * plan.seg
+
+
+@functools.lru_cache(maxsize=128)
+def _plan_cached(n: int, kwargs: Tuple[Tuple[str, int], ...]):
+    """The raw-key plan for n keys.  ``plan_msd`` is pure, and its search
+    costs about 10 ms of host Python at 2^28 (the JAX engine pays it once
+    per trace); uncached it would run before every sort's first launch."""
+    return plan_msd(n, 0, 32, leaf_profile="raw", **dict(kwargs))
+
+
+def sort_twiddled_msd(
+    planes: Tuple[torch.Tensor, ...],
+    *,
+    begin_bit: int,
+    end_bit: int,
+    total_bits: int,
+    config,
+) -> Tuple[torch.Tensor, ...]:
+    """Stable ascending sort of one full-range twiddled int32 plane, keys
+    only, on the tensor's device (port of the raw-key keys-only branch of
+    ``tpusort.ops.msd.sort_twiddled_msd``).
+
+    Delegates to the reference sort below ``config.min_n`` or when no plan
+    exists.  Otherwise runs the K1 passes and the K2 leaf, reads the
+    overflow flag on the host once, and takes the exact reference sort if
+    any run overflowed.  (The JAX engine folds that choice into the graph
+    with ``lax.cond`` and can try its equi-depth skew tier first; both
+    give the same exact output.  The skew tier is ROADMAP Queue 1 item 7.)
+    """
+    if len(planes) != 1 or not (begin_bit == 0 and end_bit == total_bits == 32):
+        raise NotImplementedError(
+            "the MSD engine is ported for one full-range 32-bit plane only: "
+            "ROADMAP Queue 1 items 4-5")
+    (keys,) = planes
+    n = keys.shape[0]
+    kwargs = config.plan_kwargs()
+    min_n = kwargs.pop("min_n")
+    plan = _plan_cached(n, tuple(sorted(kwargs.items()))) \
+        if n >= min_n else None
+    if plan is None:
+        # Below min_n or without a plan.  The JAX engine sends inputs of up
+        # to one tile to its single-tile bitonic path (K3, ops/small.py);
+        # that path is not ported yet (ROADMAP Queue 1 item 6), so every
+        # delegation goes to the reference and is counted as such.
+        _ROUTES["reference_routes"] += 1
+        sp, _ = sort_twiddled_reference(
+            planes, (), begin_bit=0, end_bit=32, total_bits=32)
+        return sp
+    # The host reads the overflow flag (JAX's on_overflow="flag" mode), so
+    # no fallback workspace is reserved in advance and the JAX engine's
+    # 2^29 in-graph cap does not apply.
+    if plan.m1 > n:
+        keys = torch.nn.functional.pad(keys, (0, plan.m1 - n))
+    data, (ctable, q_fin), overflow = run_passes(keys, n, plan)
+    nt, tile = leaf_tiles(plan)
+    last_s = plan.passes[-1].s
+    out = sort_tiles_counts_collapsed(
+        data.reshape(nt, tile), ctable.reshape(nt, tile // q_fin), q_fin, n,
+        sorted_run=(last_s & -last_s),
+    )
+    del data, ctable                     # free the pass buffers first
+    if bool(overflow):                   # the one host sync of the path
+        _ROUTES["overflow_fallbacks"] += 1
+        sp, _ = sort_twiddled_reference(
+            planes, (), begin_bit=0, end_bit=32, total_bits=32)
+        return sp
+    return (out,)
