@@ -100,16 +100,36 @@ def test_wrappers():
 
 
 def test_unsupported_arguments_raise():
+    """What is still unported raises, naming its ROADMAP item: bit-range
+    sorts, sub-range argsort and stable pairs of 64-bit keys (item 5)."""
     x = torch.zeros(10, dtype=torch.uint32)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tpusort_torch.sort(x, torch.zeros(10, dtype=torch.int32))
+    v = torch.zeros(10, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="item 5"):
         tpusort_torch.sort(x, begin_bit=4)
     with pytest.raises(NotImplementedError, match="item 5"):
         tpusort_torch.sort(x, end_bit=16)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tpusort_torch.sort_pairs(x, v, end_bit=16)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tpusort_torch.argsort(x, begin_bit=8)
     for dt in (torch.int64, torch.uint64, torch.float64):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tpusort_torch.sort(torch.zeros(10, dtype=dt))
+        k = torch.zeros(10, dtype=dt)
+        with pytest.raises(NotImplementedError, match="item 5"):
+            tpusort_torch.sort_pairs(k, v)
+        with pytest.raises(NotImplementedError, match="item 5"):
+            tpusort_torch.argsort(k)
+        with pytest.raises(NotImplementedError, match="item 5"):
+            tpusort_torch.sort(k, begin_bit=1)
+        # what used to raise (item 4) now runs
+        assert tpusort_torch.sort(k).dtype == dt
+        assert tpusort_torch.unstable_sort_pairs(k, v)[1].dtype == v.dtype
+    assert tpusort_torch.sort_pairs(x, v)[1].dtype == torch.int32
+    with pytest.raises(ValueError):
+        tpusort_torch.sort(x, torch.zeros(9, dtype=torch.int32))
+    with pytest.raises(TypeError, match="32- or 64-bit"):
+        tpusort_torch.sort(x, torch.zeros(10, dtype=torch.int16))
+    with pytest.raises(ValueError):
+        tpusort_torch.sort_planes((x,), key_dtype="uint64")
     with pytest.raises(NotImplementedError):
         tpusort_torch.sort(torch.zeros(2, 5, dtype=torch.int32))
     with pytest.raises(ValueError):
@@ -121,8 +141,10 @@ def test_unsupported_arguments_raise():
 def test_port_imports_no_jax():
     code = (
         "import sys, tpusort_torch, tpusort_torch.ops.msd, "
+        "tpusort_torch.ops.small, tpusort_torch.ops.reference, "
         "tpusort_torch.kernels.partition, tpusort_torch.kernels.bitonic, "
-        "tpusort_torch.kernels._build, tpusort_torch.utils.datagen\n"
+        "tpusort_torch.kernels._build, tpusort_torch.utils.datagen, "
+        "tpusort_torch.api, tpusort_torch.dtypes, tpusort_torch.configs\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'tpusort' or m.startswith('tpusort.') "
         "for m in sys.modules)\n"

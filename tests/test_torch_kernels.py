@@ -1,9 +1,12 @@
-"""The port's K1 and K2 (their plain PyTorch versions, which CPU tensors
+"""The port's K1, K2 and K3 (their plain PyTorch versions, which CPU tensors
 take) against the Pallas kernels in interpret mode, bit for bit.
 
 K1 is compared on its counts and on every slot the counts mark valid (pad
-slots are unspecified); K2 on its dense output.  Inputs are numpy arrays
-from a seed.  The CUDA kernels themselves are checked on the card by
+slots are unspecified); K2 on its dense output; K3 on its whole output.
+Payloads ride unstably in both packages, so the multi-operand cases use
+keys that are unique (plane 0 a scrambled permutation), where any correct
+sort gives the same payload order.  Inputs are numpy arrays from a seed.
+The CUDA kernels themselves are checked on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
@@ -14,8 +17,10 @@ import torch
 
 from tpusort.kernels import bitonic as jb
 from tpusort.kernels import partition as jp
+from tpusort.ops import small as js
 from tpusort_torch.kernels import bitonic as tb
 from tpusort_torch.kernels import partition as tp
+from tpusort_torch.ops import small as ts
 
 
 def _i32(a: np.ndarray) -> torch.Tensor:
@@ -32,6 +37,36 @@ def _sorted_chunks(rng, T, K, q):
             c = counts[t, i]
             x[t, i * q: i * q + c] = np.sort(x[t, i * q: i * q + c])
     return x, counts
+
+
+def _unique(rng, shape):
+    """uint32 keys that are all distinct: a permutation times an odd
+    constant (a bijection mod 2^32), spread over the whole range."""
+    n = int(np.prod(shape))
+    x = rng.permutation(n).astype(np.uint64) * np.uint64(0x9E3779B1)
+    return (x & np.uint64(0xFFFFFFFF)).astype(np.uint32).reshape(shape)
+
+
+def _operands(rng, T, K, nk, nv):
+    """nk key planes (plane 0 unique, so the keys are) and nv payloads."""
+    return ([_unique(rng, (T, K))]
+            + [rng.integers(0, 2**32, (T, K), dtype=np.uint32)
+               for _ in range(nk - 1 + nv)])
+
+
+def _sorted_chunks_lex(ops, nk, q, counts):
+    """Sort each q-chunk's valid prefix lexicographically by the nk key
+    planes (payloads carried), as an earlier pass would have left it."""
+    T, K = ops[0].shape
+    out = [o.copy() for o in ops]
+    for t in range(T):
+        for i in range(K // q):
+            c = counts[t, i]
+            sl = slice(i * q, i * q + c)
+            order = np.lexsort([o[t, sl] for o in ops[:nk]][::-1])
+            for o, src in zip(out, ops):
+                o[t, sl] = src[t, sl][order]
+    return out
 
 
 def _valid_slots(counts, T, r, s, t_seg):
@@ -113,20 +148,123 @@ def test_merge_staged_factor_matches(k):
     assert tb.merge_staged_factor(k) == jb.merge_staged_factor(k)
 
 
+@pytest.mark.parametrize("nk,nv,lo_bit,chain", [
+    (1, 1, 28, False),   # unstable 32-bit pairs, pass 0
+    (2, 1, 30, True),    # composite (key, position) + value; digit straddles
+    (3, 1, 92, False),   # three planes + a value (the largest CUDA mode)
+    (2, 2, 60, True),    # 64-bit keys + a 64-bit value
+])
+def test_partition_planes_payloads_match_pallas(nk, nv, lo_bit, chain):
+    """K1's raw-key branch with several key planes and payloads at
+    K = 2048: pass 0 (validity from n) or a later pass (validity from a
+    counts table, sorted subruns)."""
+    rng = np.random.default_rng(40 + 7 * nk + nv)
+    T, K, R, S, q = 2, 2048, 16, 256, 128
+    ops = _operands(rng, T, K, nk, nv)
+    kw = dict(r=R, s=S, lo_bit=lo_bit, width=4, unstable=True, t_seg=2)
+    cin = None
+    if chain:
+        cin = rng.integers(0, q + 1, (T, K // q)).astype(np.int32)
+        ops = _sorted_chunks_lex(ops, nk, q, cin)
+        kw.update(q_in=q, sorted_run=q)
+    else:
+        kw.update(n=T * K - 777)
+    jdata, jcounts = jp.partition_pass_fused(
+        [jnp.asarray(o) for o in ops[:nk]], [jnp.asarray(o) for o in ops[nk:]],
+        None if cin is None else jnp.asarray(cin), interpret=True, **kw)
+    tdata, tcounts = tp.partition_pass_fused(
+        [_i32(o) for o in ops[:nk]], [_i32(o) for o in ops[nk:]],
+        None if cin is None else torch.from_numpy(cin), **kw)
+    np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts))
+    m = _valid_slots(np.asarray(jcounts), T, R, S, 2)
+    assert len(tdata) == len(jdata) == nk + nv
+    for t_, j_ in zip(tdata, jdata):
+        np.testing.assert_array_equal(t_.numpy().view(np.uint32)[m],
+                                      np.asarray(j_)[m])
+
+
+@pytest.mark.parametrize("nk,nv,K", [(2, 1, 2048), (3, 1, 2048),
+                                     (2, 2, 1536)])
+def test_leaf_collapse_planes_payloads_match_pallas(nk, nv, K):
+    """K2 with num_keys 2-3 and payloads, from sorted 128-runs (1536 is
+    the Pallas staged 3 * 2^9 merge; K2 pads it virtually)."""
+    rng = np.random.default_rng(70 + K + nk + nv)
+    T, q = 3, 128
+    counts = rng.integers(0, q + 1, (T, K // q)).astype(np.int32)
+    ops = _sorted_chunks_lex(_operands(rng, T, K, nk, nv), nk, q, counts)
+    n_out = int(counts.sum())
+    want = jb.sort_tiles_counts_collapsed(
+        [jnp.asarray(o) for o in ops], jnp.asarray(counts), q, n_out,
+        sorted_run=q, num_keys=nk, interpret=True)
+    got = tb.sort_tiles_counts_collapsed(
+        [_i32(o) for o in ops], torch.from_numpy(counts), q, n_out,
+        sorted_run=q, num_keys=nk)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.uint32),
+                                      np.asarray(w))
+
+
+@pytest.mark.parametrize("T,K,nv", [(1, 2048, 0), (1, 2048, 2),
+                                    (1, 1920, 1), (4, 384, 1),
+                                    (2, 640, 0)])
+def test_sort_tiles_matches_pallas(T, K, nv):
+    """K3: rows sorted by operand 0, payloads along; K not a power of two
+    takes the virtual pad."""
+    rng = np.random.default_rng(90 + K + nv)
+    ops = _operands(rng, T, K, 1, nv)
+    want = jb.sort_tiles([jnp.asarray(o) for o in ops], interpret=True)
+    got = tb.sort_tiles([_i32(o) for o in ops])
+    assert len(got) == len(want) == 1 + nv
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.uint32),
+                                      np.asarray(w))
+
+
+@pytest.mark.parametrize("n,nv", [(2048, 0), (2048, 1), (1000, 0),
+                                  (1, 0), (1280, 1), (1000, 1)])
+def test_single_tile_path_matches_jax(n, nv):
+    """ops/small.py against ``tpusort.ops.small.sort_twiddled_bitonic``:
+    K3 where it applies (keys, or pairs with n a multiple of 128), the
+    reference sort otherwise (1000 pairs would need pad slots)."""
+    rng = np.random.default_rng(110 + n + nv)
+    key = _unique(rng, (n,)) if nv else \
+        rng.integers(0, 2**32, n, dtype=np.uint32)
+    vals = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(nv)]
+    bits = dict(begin_bit=0, end_bit=32, total_bits=32)
+    (jk,), jv = js.sort_twiddled_bitonic(
+        (jnp.asarray(key),), [jnp.asarray(v) for v in vals], **bits)
+    (tk,), tv = ts.sort_twiddled_bitonic(
+        (_i32(key),), [_i32(v) for v in vals], **bits)
+    np.testing.assert_array_equal(tk.numpy().view(np.uint32), np.asarray(jk))
+    for t_, j_ in zip(tv, jv):
+        np.testing.assert_array_equal(t_.numpy().view(np.uint32),
+                                      np.asarray(j_))
+    applies = ts.single_tile_ok((_i32(key),), [_i32(v) for v in vals],
+                                **bits)
+    assert applies == (nv == 0 or n % 128 == 0)
+
+
 def test_unported_modes_raise():
+    """What K1 still lacks raises, naming its ROADMAP item: the general
+    branch (K1c: digit=, stable payloads, more than 3 key planes) and the
+    splitter mode (K1b)."""
     x = torch.zeros(2, 512, dtype=torch.int32)
     kw = dict(r=8, s=256, lo_bit=29, width=3, n=1024)
     with pytest.raises(NotImplementedError, match="item 5"):
         tp.partition_pass_fused([x], [], None, digit=x, **kw)
     with pytest.raises(NotImplementedError, match="item 7"):
         tp.partition_pass_fused([x], [], None, splitters=x, **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tp.partition_pass_fused([x], [x], None, unstable=True, **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tp.partition_pass_fused([x, x], [], None, **kw)
-    c = torch.zeros(2, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tb.sort_tiles_counts_collapsed([x, x], c, 128, 10)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tp.partition_pass_fused([x], [x], None, unstable=False, **kw)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tp.partition_pass_fused([x] * 4, [], None, **kw)
+    # the raw modes that used to raise now run
+    (a, b), _ = tp.partition_pass_fused([x], [x], None, unstable=True, **kw)
+    assert a.shape == b.shape == (2, 8 * 256)
+    c = torch.full((2, 4), 128, dtype=torch.int32)
+    outs = tb.sort_tiles_counts_collapsed([x, x, x], c, 128, 1024,
+                                          num_keys=2)
+    assert len(outs) == 3 and all(o.shape == (1024,) for o in outs)
 
 
 def test_bad_geometry_raises():
@@ -145,6 +283,14 @@ def test_bad_geometry_raises():
     with pytest.raises(ValueError):
         tb.sort_tiles_counts_collapsed(x, torch.zeros(2, 1, dtype=torch.int32),
                                        0, 10)
+    with pytest.raises(ValueError, match="num_keys"):
+        tb.sort_tiles_counts_collapsed([x], torch.zeros(2, 4, dtype=torch.int32),
+                                       128, 10, num_keys=2)
+    with pytest.raises(ValueError):          # K not a multiple of 128
+        tb.sort_tiles([torch.zeros(2, 100, dtype=torch.int32)])
+    with pytest.raises(ValueError, match="digit bits"):   # past 64 bits
+        tp.partition_pass_fused([x, x], [], None, r=8, s=128, lo_bit=62,
+                                width=3, n=10)
 
 
 def test_no_plain_route_off_the_cpu():
@@ -157,11 +303,15 @@ def test_no_plain_route_off_the_cpu():
     c = torch.zeros(2, 4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         tb.sort_tiles_counts_collapsed(x, c, 128, 10)
+    with pytest.raises(ValueError, match="device"):
+        tb.sort_tiles([x, x])
     before = (tp.partition_pass_fused.launches,
-              tb.sort_tiles_counts_collapsed.launches)
+              tb.sort_tiles_counts_collapsed.launches, tb.sort_tiles.launches)
     x, c = torch.zeros_like(x, device="cpu"), torch.zeros_like(c, device="cpu")
-    tp.partition_pass_fused([x], [], None, r=8, s=256, lo_bit=29, width=3,
-                            n=1024)
-    tb.sort_tiles_counts_collapsed(x, c, 128, 10)
+    tp.partition_pass_fused([x], [x], None, r=8, s=256, lo_bit=29, width=3,
+                            n=1024, unstable=True)
+    tb.sort_tiles_counts_collapsed([x, x], c, 128, 10)
+    tb.sort_tiles([x, x])
     assert before == (tp.partition_pass_fused.launches,
-                      tb.sort_tiles_counts_collapsed.launches)
+                      tb.sort_tiles_counts_collapsed.launches,
+                      tb.sort_tiles.launches)

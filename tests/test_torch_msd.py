@@ -1,7 +1,8 @@
 """The port's MSD engine against ``tpusort.ops.msd``: the same plans, and
-the same passes, counts chain and leaf output on one small slice run in
-Pallas interpret mode.  Inputs are numpy arrays from a seed; keys compare
-bit for bit.
+the same passes, counts chain and leaf output on one small keys-only slice
+and one composite stable-pairs slice run in Pallas interpret mode.  Inputs
+are numpy arrays from a seed; keys compare bit for bit, and stable payloads
+exactly.
 """
 
 import dataclasses
@@ -14,6 +15,7 @@ import torch
 from tpusort.kernels.bitonic import sort_tiles_counts_collapsed as j_leaf
 from tpusort.ops import msd as jm
 from tpusort_torch.configs import SortConfig
+from tpusort_torch.kernels import _build
 from tpusort_torch.kernels.bitonic import sort_tiles_counts_collapsed
 from tpusort_torch.ops import msd as tm
 from tpusort_torch.ops.reference import sort_twiddled_reference
@@ -45,6 +47,23 @@ def test_cuda_plan_at_2_28():
         (16384, 768), (16384, 512), (16384, 512)]
     assert plan.seg == 12288
     assert tm.leaf_tiles(plan) == (16384, 24576)
+    # one plane with payloads still packs two segments (32,768 slots with
+    # a 2-byte index fit); two or three planes keep one segment a tile
+    assert tm.leaf_tiles(plan, 1, True) == (16384, 24576)
+    for nplanes in (2, 3):
+        assert tm.leaf_tiles(plan, nplanes, False) == (32768, 12288)
+
+
+@pytest.mark.parametrize("end_bit", [64, 96])
+@pytest.mark.parametrize("n", [1 << 16, (1 << 20) + 7, 1 << 24, 1 << 27,
+                               1 << 28])
+def test_multi_plane_cuda_plans(n, end_bit):
+    """The multi-plane CUDA rows (leaf_max 16384) plan at these sizes, and
+    every leaf tile fits K2 with two or three key planes and payloads."""
+    plan = tm.plan_msd(n, 0, end_bit, leaf_max=16384, **CUDA_ROW)
+    assert plan is not None and plan.seg <= 16384
+    _, tile = tm.leaf_tiles(plan, end_bit // 32, True)
+    assert tile <= 16384
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +78,7 @@ def small_slice():
     tplan = tm.plan_msd(n, 0, 32, **SMALL)
     keys = torch.nn.functional.pad(torch.from_numpy(x.view(np.int32)),
                                    (0, plan.m1 - n))
-    tdata, (tct, tq), tovf = tm.run_passes(keys, n, tplan)
+    (tdata,), (tct, tq), tovf = tm.run_passes([keys], 1, n, tplan)
     nt, tile = tm.leaf_tiles(tplan)
     run = plan.passes[-1].s & -plan.passes[-1].s
     jout = j_leaf(jdata.reshape(nt, tile), jct.reshape(nt, tile // jq), jq,
@@ -98,7 +117,7 @@ def test_slice_leaf_output(small_slice):
 
 
 def _twiddled_sort(x: np.ndarray, config: SortConfig) -> np.ndarray:
-    (out,) = tm.sort_twiddled_msd(
+    (out,), _ = tm.sort_twiddled_msd(
         (torch.from_numpy(x.view(np.int32)),), begin_bit=0, end_bit=32,
         total_bits=32, config=config)
     return out.numpy().view(np.uint32)
@@ -137,17 +156,91 @@ def test_plan_is_planned_once_per_size():
     hits = tm._plan_cached.cache_info().hits
     np.testing.assert_array_equal(_twiddled_sort(x, cfg), np.sort(x))
     assert tm._plan_cached.cache_info().hits == hits + 1
-    assert tm._plan_cached(7000, (("k", 2048), ("r", 16), ("s1", 256))) == want
+    assert tm._plan_cached(7000, 32, (("k", 2048), ("r", 16), ("s1", 256))) \
+        == want
 
 
 def test_reference_route_below_min_n():
+    """Below min_n and above the single-tile threshold (the CPU row's
+    2048): the reference sort, counted as such."""
     x = random_keys(np.random.default_rng(5), 3000)
     tm.reset_counters()
     got = _twiddled_sort(x, SortConfig(tile_elems=2048, radix=16, s1=256,
-                                       min_n=4096))
+                                       min_n=4096, small_n_threshold=2048))
     np.testing.assert_array_equal(got, np.sort(x))
     assert tm.counters() == dict(k1_launches=0, k2_launches=0,
-                                 reference_routes=1, overflow_fallbacks=0)
+                                 k3_launches=0, reference_routes=1,
+                                 overflow_fallbacks=0)
+
+
+def test_mode_counters():
+    """A CPU sort counts no launch; a launch counts on its kernel's total
+    and on its (planes, payload words) mode, and reset clears both."""
+    x = random_keys(np.random.default_rng(6), 7000)
+    tm.reset_counters()
+    _twiddled_sort(x, SortConfig(tile_elems=2048, radix=16, s1=256,
+                                 min_n=4096))
+    assert tm.mode_counters() == {}
+    _build.count_launch(tm.sort_tiles, 1, 2)
+    _build.count_launch(tm.partition_pass_fused, 2, 0)
+    _build.count_launch(tm.partition_pass_fused, 2, 0)
+    assert tm.mode_counters() == {("K1", 2, 0): 2, ("K3", 1, 2): 1}
+    assert tm.counters()["k1_launches"] == 2
+    assert tm.counters()["k3_launches"] == 1
+    tm.reset_counters()
+    assert tm.mode_counters() == {} and tm.counters()["k1_launches"] == 0
+
+
+@pytest.mark.parametrize("n,nv,stable,k3", [
+    (3000, 0, True, True),      # keys: one tile (padded to 3072)
+    (2944, 1, False, True),     # unstable pairs, n a multiple of 128
+    (3000, 1, False, False),    # unstable pairs needing pad slots
+    (2944, 1, True, False),     # stable pairs never take the tile
+])
+def test_single_tile_route_below_min_n(n, nv, stable, k3):
+    """Below min_n and within the default threshold (2^14), the engine
+    routes to the single-tile path where ``ops/small.py`` takes it; K3 runs
+    its plain version here, so only the reference route is counted."""
+    rng = np.random.default_rng(n + nv)
+    x = random_keys(rng, n)
+    vals = [torch.from_numpy(np.arange(n, dtype=np.int32))] * nv
+    tm.reset_counters()
+    (got,), gv = tm.sort_twiddled_msd(
+        (torch.from_numpy(x.view(np.int32)),), vals, begin_bit=0, end_bit=32,
+        total_bits=32, stable=stable,
+        config=SortConfig(tile_elems=2048, radix=16, s1=256, min_n=4096))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), np.sort(x))
+    if nv:
+        np.testing.assert_array_equal(x[gv[0].numpy()], np.sort(x))
+    assert tm.counters()["reference_routes"] == int(not k3)
+
+
+def test_composite_pairs_slice_matches_pallas():
+    """Stable 32-bit pairs at n = 6000 under SMALL: the composite
+    (key, position) planes through K1 and K2 in both packages (JAX in
+    Pallas interpret mode, flag mode), keys and values exact."""
+    n = 6000
+    rng = np.random.default_rng(31)
+    # 2048 distinct keys spread over the top bits, each ~3 times: ties
+    x = (rng.integers(0, 2048, n) << 21).astype(np.uint32)
+    v = rng.integers(0, 2**32, n, dtype=np.uint32)
+    (jk,), (jv,), jovf = jm.sort_twiddled_msd(
+        (jnp.asarray(x),), (jnp.asarray(v),), begin_bit=0, end_bit=32,
+        total_bits=32, use_pallas=True, plan_kwargs=dict(SMALL, min_n=4096),
+        on_overflow="flag")
+    assert not bool(jovf)
+    cfg = SortConfig(tile_elems=2048, radix=8, s1=384, leaf_max=2048,
+                     min_n=4096)
+    tm.reset_counters()
+    (tk,), (tv,) = tm.sort_twiddled_msd(
+        (torch.from_numpy(x.view(np.int32)),),
+        (torch.from_numpy(v.view(np.int32)),), begin_bit=0, end_bit=32,
+        total_bits=32, config=cfg)
+    assert tm.counters()["overflow_fallbacks"] == 0
+    np.testing.assert_array_equal(tk.numpy().view(np.uint32), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy().view(np.uint32), np.asarray(jv))
+    perm = np.argsort(x, kind="stable")
+    np.testing.assert_array_equal(np.asarray(jv), v[perm])
 
 
 def test_reference_is_stable_and_masks_bits():

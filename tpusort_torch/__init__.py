@@ -1,17 +1,24 @@
 """tpusort_torch: the PyTorch + CUDA (Hopper) port of tpusort.
 
-The keys-only MSD radix sort of 1-D uint32/int32/float32 tensors.  On a CUDA
-tensor the partition passes and the leaf run as hand-written sm_90a kernels
-(``tpusort_torch/csrc``), built with nvcc at first use; on a CPU tensor they
-run as their plain PyTorch versions.  The JAX package ``tpusort`` is the
+The MSD radix sort of 1-D uint32/int32/float32 and uint64/int64/float64
+tensors, keys only or with 32- and 64-bit payloads, stable or unstable,
+plus ``argsort`` and the plane interface ``sort_planes``.  On a CUDA tensor
+the partition passes, the leaf and the single-tile sort run as hand-written
+sm_90a kernels (``tpusort_torch/csrc``), built with nvcc at first use; on a
+CPU tensor they run as their plain PyTorch versions.  The JAX package ``tpusort`` is the
 reference the port is tested against; this package never imports jax.
 """
 
 from tpusort_torch.api import (
+    argsort,
     sort,
     sort_keys,
     sort_keys_descending,
+    sort_pairs,
+    sort_pairs_descending,
+    sort_planes,
     unstable_sort_keys,
+    unstable_sort_pairs,
 )
 from tpusort_torch.configs import SortConfig, get_config, register_config
 

@@ -21,6 +21,7 @@ class SortConfig:
     s1: Optional[int] = None       # pass-1 padded run capacity (None = auto)
     leaf_max: Optional[int] = None # max final segment size (None = auto)
     min_n: int = 1 << 16           # below this the engine delegates
+    small_n_threshold: int = 1 << 14  # single-tile path (K3) up to this n
     default_algorithm: str = "msd" # the only engine this port has
 
     def plan_kwargs(self) -> dict:
@@ -58,8 +59,20 @@ def get_config(key_bits: int, has_values: bool, platform: str) -> SortConfig:
 # this plans 3 passes, (K, S) = (16384, 768), (16384, 512), (16384, 512).
 register_config(32, False, "cuda", SortConfig(tile_elems=1 << 14, radix=32,
                                               default_algorithm="msd"))
+# Pairs and 64-bit keys: the kernels hold every key plane in shared memory
+# (4 bytes a slot each) plus a 2-byte slot index when payloads ride, so the
+# leaf must stay at 16,384 slots once a second plane appears (2 planes:
+# 160 KB; 3 planes: 224 KB).  Stable 32-bit pairs sort the composite
+# (key, position) planes under the (32, True) row, and argsort the
+# (key, index) planes under (64, False).  At 2^28 each plans the same
+# 3 passes as above with 12,288-key final segments.
+_CUDA_MULTI = SortConfig(tile_elems=1 << 14, radix=32, leaf_max=1 << 14,
+                         default_algorithm="msd")
+for _bits, _hv in ((32, True), (64, False), (64, True)):
+    register_config(_bits, _hv, "cuda", _CUDA_MULTI)
 # CPU (tests): the JAX package's CPU geometry, so both packages plan alike
-_CPU = SortConfig(tile_elems=2048, radix=16, s1=256, min_n=4096)
+_CPU = SortConfig(tile_elems=2048, radix=16, s1=256, min_n=4096,
+                  small_n_threshold=2048)
 for _bits in (32, 64):
     for _hv in (False, True):
         register_config(_bits, _hv, "cpu", _CPU)

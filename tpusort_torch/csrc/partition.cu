@@ -1,29 +1,37 @@
-// K1: one fused MSD partition pass, raw-key keys-only mode.
+// K1: one fused MSD partition pass, raw-key mode: 1-3 key planes, payloads
+// unstable.
 //
 // Replaces the raw-key branch of the Pallas kernel _fused_kernel behind
 // tpusort/kernels/partition.py:partition_pass_fused.  One CTA owns one
-// K-element tile (K = 16384 on the main path, 64 KB of dynamic shared memory):
+// K-element tile (K = 16384 on the main path):
 //
-//   1. load the tile; a slot is valid iff its global index < n (pass 0) or
-//      slot % q_in < counts_in[t, slot / q_in] (later passes); invalid keys
-//      become 0xFFFFFFFF, which sorts last and ties only equal keys, so the
-//      keys-only multiset stays exact;
-//   2. sort the tile ascending (merge levels above sorted_run only);
-//   3. histogram the digit bits [lo_bit, lo_bit + width) of the sorted tile
-//      (warp-aggregated shared atomics; sorted input gives ~one atomic per
+//   1. load the tile's key planes into shared memory; a slot is valid iff
+//      its global index < n (pass 0) or slot % q_in < counts_in[t, slot /
+//      q_in] (later passes); invalid slots become 0xFFFFFFFF in every plane,
+//      which sorts last and ties only equal keys, so the keys-only multiset
+//      stays exact (with payloads the engine checks that no valid key is
+//      all-ones);
+//   2. sort the tile ascending, lexicographically over the planes (merge
+//      levels above sorted_run only); with payloads a 16-bit slot index
+//      rides the network in place of the payload words;
+//   3. histogram the digit bits [lo_bit, lo_bit + width) of the sorted tile,
+//      counted across the planes (plane 0 the most significant 32 bits), with
+//      warp-aggregated shared atomics (sorted input gives ~one atomic per
 //      warp step); start[d] = #(digit < d), count[d] = start[d+1] - start[d]
 //      and, for the top digit, n_valid - start[R-1];
 //   4. write run d of tile t = seg * t_seg + j to
 //      out[((seg * R + d) * t_seg + j) * S + [0, min(count, S))], the
-//      digit-major layout of the next pass (the fused exchange), and the
-//      unclamped counts to counts_out[t, :].  Slots past a run's count are
-//      left unwritten.
+//      digit-major layout of the next pass (the fused exchange), for every
+//      key plane from shared memory and every payload word gathered from the
+//      tile's input by the slot index; write the unclamped counts to
+//      counts_out[t, :].  Slots past a run's count are left unwritten.
 //
-// Bound: a pass reads the keys once and writes 1.5x (S1 = 1.5 K / R) or 1x
-// of them, 2.5 bytes moved per key byte, so at HBM speed the pass is
-// memory-bound; this first version is bound instead by the shared-memory
-// sort network (105 stages for a full 16384 sort, 69 for a merge from
-// 256-runs), which later work moves into registers and warp shuffles.
+// Bound: a pass reads the operands once and writes 1.5x (S1 = 1.5 K / R) or
+// 1x of them, so at HBM speed it is memory-bound; this first version is
+// bound instead by the shared-memory sort network (105 stages for a full
+// 16384 sort, 69 for a merge from 256-runs), whose cost grows with the key
+// planes.  Shared memory: 64 KB a key plane plus 32 KB of slot index at
+// K = 16384, so 3 planes with payloads (224 KB) is the largest mode.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -34,17 +42,36 @@ namespace tpusort {
 
 constexpr int kMaxRadix = 256;
 
+// Bits [lo, lo + width) of slot i's NK-plane key, width <= 8.
+template <int NK, bool IDX>
+__device__ inline int digit_of(const SmemTile<NK, IDX>& t, int i, int lo,
+                               int width) {
+  uint32_t d = 0;
+#pragma unroll
+  for (int p = 0; p < NK; ++p) {
+    const int base = 32 * (NK - 1 - p);
+    const int ov_lo = max(lo, base);
+    const int ov_hi = min(lo + width, base + 32);
+    if (ov_hi > ov_lo) {
+      const uint32_t m = (1u << (ov_hi - ov_lo)) - 1u;
+      d |= ((t.key[p][i] >> (ov_lo - base)) & m) << (ov_lo - lo);
+    }
+  }
+  return (int)d;
+}
+
+template <int NK, bool IDX>
 __global__ void __launch_bounds__(kThreads)
-partition_raw_kernel(const uint32_t* __restrict__ keys,
+partition_raw_kernel(Planes planes, Values vals,
                      const int32_t* __restrict__ counts_in, int q_in,
                      long long n, int K, int log_k, int R, int S, int lo_bit,
                      int width, int t_seg, int log_run,
-                     uint32_t* __restrict__ out,
                      int32_t* __restrict__ counts_out) {
-  extern __shared__ uint32_t tile[];
+  extern __shared__ uint32_t smem[];
   __shared__ int hist[kMaxRadix];
   __shared__ int start[kMaxRadix];
   __shared__ int n_valid;
+  const SmemTile<NK, IDX> tile(smem, K);
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -52,13 +79,12 @@ partition_raw_kernel(const uint32_t* __restrict__ keys,
   if (tid == 0) n_valid = 0;
   __syncthreads();
 
-  const uint32_t* src = keys + (size_t)t * K;
-  const long long first = (long long)t * K;
+  const size_t first = (size_t)t * K;
   const int32_t* cin = counts_in ? counts_in + (size_t)t * (K / q_in) : nullptr;
   int mine = 0;
   for (int i = tid; i < K; i += blockDim.x) {
-    const bool v = cin ? (i % q_in) < cin[i / q_in] : first + i < n;
-    tile[i] = v ? src[i] : 0xFFFFFFFFu;
+    const bool v = cin ? (i % q_in) < cin[i / q_in] : (long long)(first + i) < n;
+    tile.load(i, planes.in, first, v);
     mine += v;
   }
   mine = __reduce_add_sync(0xFFFFFFFFu, mine);
@@ -67,9 +93,8 @@ partition_raw_kernel(const uint32_t* __restrict__ keys,
 
   block_sort(tile, log_k, log_run);
 
-  const uint32_t dmask = (1u << width) - 1u;
   for (int i = tid; i < K; i += blockDim.x) {
-    const int d = (int)((tile[i] >> lo_bit) & dmask);
+    const int d = digit_of(tile, i, lo_bit, width);
     const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
     if ((tid & 31) == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
   }
@@ -95,28 +120,58 @@ partition_raw_kernel(const uint32_t* __restrict__ keys,
     const int d = e / S;
     const int i = e - d * S;
     if (i < hist[d]) {
-      out[((size_t)(seg * R + d) * t_seg + j) * S + i] = tile[start[d] + i];
+      const size_t o = ((size_t)(seg * R + d) * t_seg + j) * S + i;
+      const int pos = start[d] + i;
+#pragma unroll
+      for (int p = 0; p < NK; ++p) planes.out[p][o] = tile.key[p][pos];
+      if (IDX) {
+        const size_t src = first + tile.idx[pos];
+        for (int v = 0; v < vals.count; ++v) vals.out[v][o] = vals.in[v][src];
+      }
     }
   }
 }
 
+template <int NK, bool IDX>
+int launch_partition(const Planes& planes, const Values& vals,
+                     const int32_t* counts_in, int q_in, long long n, int T,
+                     int K, int R, int S, int lo_bit, int width, int t_seg,
+                     int log_run, int32_t* counts_out, cudaStream_t stream) {
+  const int log_k = 31 - __builtin_clz(K);
+  const size_t smem = SmemTile<NK, IDX>::bytes(K);
+  cudaError_t err = cudaFuncSetAttribute(
+      partition_raw_kernel<NK, IDX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  partition_raw_kernel<NK, IDX><<<T, kThreads, smem, stream>>>(
+      planes, vals, counts_in, q_in, n, K, log_k, R, S, lo_bit, width, t_seg,
+      log_run, counts_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tpusort
 
-extern "C" int tpusort_partition_raw(const void* keys, const void* counts_in,
-                                     int q_in, long long n, int T, int K,
-                                     int R, int S, int lo_bit, int width,
-                                     int t_seg, int sorted_run, void* out,
-                                     void* counts_out, void* stream) {
-  const int log_k = 31 - __builtin_clz(K);
+// keys_in/keys_out: n_planes (1-3) device pointers each; vals_in/vals_out:
+// n_vals (0-8) device pointers each.  Returns a cudaError_t.
+extern "C" int tpusort_partition_raw(
+    const void* const* keys_in, void* const* keys_out, int n_planes,
+    const void* const* vals_in, void* const* vals_out, int n_vals,
+    const void* counts_in, int q_in, long long n, int T, int K, int R, int S,
+    int lo_bit, int width, int t_seg, int sorted_run, void* counts_out,
+    void* stream) {
+  using namespace tpusort;
+  Planes planes;
+  Values vals;
+  if (!make_operands(keys_in, keys_out, n_planes, vals_in, vals_out, n_vals,
+                     &planes, &vals)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int log_run = sorted_run > 0 ? 31 - __builtin_clz(sorted_run) : 0;
-  const int smem = K * (int)sizeof(uint32_t);
-  cudaFuncSetAttribute(tpusort::partition_raw_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  tpusort::partition_raw_kernel<<<T, tpusort::kThreads, smem,
-                                  (cudaStream_t)stream>>>(
-      (const uint32_t*)keys, (const int32_t*)counts_in, q_in, n, K, log_k, R,
-      S, lo_bit, width, t_seg, log_run, (uint32_t*)out, (int32_t*)counts_out);
-  return (int)cudaGetLastError();
+  return dispatch_mode(n_planes, n_vals > 0, [&](auto nk, auto idx) {
+    return launch_partition<decltype(nk)::value, decltype(idx)::value>(
+        planes, vals, (const int32_t*)counts_in, q_in, n, T, K, R, S, lo_bit,
+        width, t_seg, log_run, (int32_t*)counts_out, (cudaStream_t)stream);
+  });
 }
 
 extern "C" const char* tpusort_error_string(int err) {

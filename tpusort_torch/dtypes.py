@@ -11,8 +11,11 @@ onto 32-bit unsigned words (CUB's ``Traits<T>::TwiddleIn/TwiddleOut``):
 Descending order complements the twiddled bits, so every kernel below sorts
 ascending.
 
-Each 32-bit plane is carried as a ``torch.int32`` tensor holding the bit
-pattern (PyTorch's CPU ``uint32`` lacks shifts, comparisons and ``where``).
+A 64-bit key becomes two planes, (hi, lo), plane 0 the most significant
+word, compared lexicographically; the split and the join are views on the
+device.  Each 32-bit plane is carried as a ``torch.int32`` tensor holding
+the bit pattern (PyTorch's CPU ``uint32`` lacks shifts, comparisons and
+``where``).
 Code that needs the unsigned order compares planes widened to int64
 (``x.to(torch.int64) & 0xFFFFFFFF``) or with the sign bit flipped.
 """
@@ -30,6 +33,10 @@ __all__ = [
     "key_bits",
     "twiddle_in",
     "twiddle_out",
+    "twiddle_planes_in",
+    "twiddle_planes_out",
+    "split64",
+    "join64",
     "SUPPORTED_KEY_DTYPES",
 ]
 
@@ -91,24 +98,81 @@ def _twiddle32_out(t: torch.Tensor, traits: KeyTraits) -> torch.Tensor:
     return t
 
 
-def _require_32bit(traits: KeyTraits) -> None:
-    if traits.planes != 1:
-        raise NotImplementedError(
-            f"{traits.name} keys are not ported yet (ROADMAP Queue 1 item 4: "
-            "64-bit keys as two planes)"
-        )
+def split64(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) int32 bit-pattern planes of a 1-D 64-bit tensor, by views:
+    the same words as ``tpusort.dtypes.split64_host``, without a trip
+    through the host (little-endian: word 1 of each element is hi)."""
+    if keys.element_size() != 8:
+        raise ValueError(f"split64 expects a 64-bit dtype, got {keys.dtype}")
+    if keys.numel() == 0:         # an empty tensor's stride may not view
+        empty = torch.empty(0, dtype=torch.int32, device=keys.device)
+        return empty, empty.clone()
+    words = keys.contiguous().view(torch.int32).reshape(-1, 2)
+    return words[:, 1].contiguous(), words[:, 0].contiguous()
+
+
+def join64(hi: torch.Tensor, lo: torch.Tensor,
+           dtype: torch.dtype = torch.uint64) -> torch.Tensor:
+    """Inverse of :func:`split64`: a 1-D tensor of the 64-bit ``dtype``."""
+    return torch.stack((lo.view(torch.int32), hi.view(torch.int32)),
+                       dim=1).view(torch.int64).reshape(-1).view(dtype)
+
+
+def twiddle_planes_in(
+    planes: Tuple[torch.Tensor, ...], traits: KeyTraits, *,
+    descending: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Twiddle raw int32 bit-pattern plane(s) of a key (plane 0 = most
+    significant word) into planes whose unsigned lexicographic order is the
+    requested key order."""
+    if traits.planes == 1:
+        (u,) = planes
+        t = _twiddle32_in(u.view(torch.int32), traits)
+        return (~t,) if descending else (t,)
+    hi, lo = (p.view(torch.int32) for p in planes)
+    if traits.is_float:
+        # negative (hi sign bit set): flip every bit; else the sign bit
+        sign = hi >> 31
+        hi, lo = hi ^ (sign | INT32_MIN), lo ^ sign
+    elif traits.is_signed:
+        hi = hi ^ INT32_MIN
+    if descending:
+        hi, lo = ~hi, ~lo
+    return (hi, lo)
+
+
+def twiddle_planes_out(
+    planes: Tuple[torch.Tensor, ...], traits: KeyTraits, *,
+    descending: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Inverse of :func:`twiddle_planes_in` (returns raw int32 planes)."""
+    if traits.planes == 1:
+        (t,) = planes
+        if descending:
+            t = ~t
+        return (_twiddle32_out(t, traits),)
+    hi, lo = planes
+    if descending:
+        hi, lo = ~hi, ~lo
+    if traits.is_float:
+        # originally negative keys have the hi sign bit clear by now
+        keep = ~(hi >> 31)
+        hi, lo = hi ^ (keep | INT32_MIN), lo ^ keep
+    elif traits.is_signed:
+        hi = hi ^ INT32_MIN
+    return (hi, lo)
 
 
 def twiddle_in(
     keys: torch.Tensor, *, descending: bool = False
 ) -> Tuple[Tuple[torch.Tensor, ...], KeyTraits]:
     """Map keys to int32 bit-pattern plane(s) whose ascending *unsigned*
-    order equals the requested key order.  Returns ``((plane,), traits)``;
-    the bits are preserved exactly (NaN payloads, -0.0 and +0.0)."""
+    lexicographic order equals the requested key order.  Returns
+    ``((plane,) | (hi, lo), traits)``; the bits are preserved exactly (NaN
+    payloads, -0.0 and +0.0)."""
     traits = traits_for(keys.dtype)
-    _require_32bit(traits)
-    t = _twiddle32_in(keys.view(torch.int32), traits)
-    return ((~t,) if descending else (t,)), traits
+    raw = (keys.view(torch.int32),) if traits.planes == 1 else split64(keys)
+    return twiddle_planes_in(raw, traits, descending=descending), traits
 
 
 def twiddle_out(
@@ -118,8 +182,8 @@ def twiddle_out(
     descending: bool = False,
 ) -> torch.Tensor:
     """Inverse of :func:`twiddle_in`; returns keys of ``traits``' dtype."""
-    _require_32bit(traits)
-    (t,) = planes
-    if descending:
-        t = ~t
-    return _twiddle32_out(t, traits).view(_DTYPE_OF[traits.name])
+    raw = twiddle_planes_out(planes, traits, descending=descending)
+    dtype = _DTYPE_OF[traits.name]
+    if traits.planes == 1:
+        return raw[0].view(dtype)
+    return join64(raw[0], raw[1], dtype)

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc at first use; load them with ctypes.
 
 The sources under ``tpusort_torch/csrc/`` have a plain C interface, so they
-compile in seconds without PyTorch's headers.  They build into one shared
-library under ``build/tpusort_torch/`` at the repository root, named by a
-hash of the sources and flags, so an edit rebuilds and an unchanged tree
-reuses the library.  The compiler's output (``-Xptxas -v``: registers,
+compile in seconds without PyTorch's headers.  Each ``.cu`` compiles in its
+own nvcc process, all started together, and one link makes a shared library
+under ``build/tpusort_torch/`` at the repository root, named by a hash of
+the sources and flags, so an edit rebuilds and an unchanged tree reuses the
+library.  The compiler's output (``-Xptxas -v``: registers,
 shared memory, spills per kernel) is kept in ``build/tpusort_torch/build.log``.
 
 Nothing here runs at import time: the first kernel launch calls
@@ -25,18 +26,24 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpusort_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)
 # C entry points and their argument types; each returns a cudaError_t
 _SIGNATURES = {
-    # keys, counts_in, q_in, n, T, K, R, S, lo_bit, width, t_seg,
-    # sorted_run, out, counts_out, stream
-    "tpusort_partition_raw": [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _P, _P, _P],
-    # keys, counts, q, offsets, n_out, T, K, P, sorted_run, out, stream
-    "tpusort_leaf_collapse": [_P, _P, _I, _P, _LL, _I, _I, _I, _I, _P, _P],
+    # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts_in,
+    # q_in, n, T, K, R, S, lo_bit, width, t_seg, sorted_run, counts_out,
+    # stream
+    "tpusort_partition_raw": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _LL, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts, q,
+    # offsets, n_out, T, K, P, sorted_run, stream
+    "tpusort_leaf_collapse": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _P, _LL,
+                              _I, _I, _I, _I, _P],
+    # keys_in, keys_out, vals_in, vals_out, n_vals, T, K, P, stream
+    "tpusort_sort_tiles": [_P, _P, _PP, _PP, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -60,26 +67,45 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile every ``csrc/*.cu`` into one shared library (cached by
-    content hash) and return its path.  Raises if nvcc fails."""
+    """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link
+    them into one shared library (cached by content hash); return its
+    path.  Raises if nvcc fails."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
-    lib = BUILD_DIR / f"libtpusort_torch-{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    lib = BUILD_DIR / f"libtpusort_torch-{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.{os.getpid()}.o" for src in sources]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-        capture_output=True, text=True,
-    )
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    failed = [(s.name, p.returncode) for s, p in zip(sources, procs)
+              if p.returncode]
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(link.stdout)
+        if link.returncode:
+            failed.append(("link", link.returncode))
+    (BUILD_DIR / "build.log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed {failed}:\n"
+                           f"{''.join(logs)[-4000:]}")
     os.replace(tmp, lib)     # atomic: no process loads a half-written file
     return lib
 
@@ -97,6 +123,20 @@ def library() -> ctypes.CDLL:
         lib.tpusort_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def pointers(tensors) -> ctypes.Array:
+    """A C array of the tensors' device pointers (for ``void* const*``)."""
+    return (ctypes.c_void_p * max(len(tensors), 1))(
+        *[t.data_ptr() for t in tensors])
+
+
+def count_launch(wrapper, n_planes: int, n_vals: int) -> None:
+    """Count one kernel launch on its Python wrapper: in all
+    (``wrapper.launches``) and by mode (``wrapper.modes[(key planes,
+    payload words)]``)."""
+    wrapper.launches += 1
+    wrapper.modes[(n_planes, n_vals)] += 1
 
 
 def check(err: int, what: str) -> None:

@@ -1,20 +1,26 @@
-"""K2: the fused raw-key leaf sort + dense collapse.
+"""K2 (the fused raw-key leaf sort + dense collapse) and K3 (the row tile
+sort).
 
 PyTorch port of ``tpusort/kernels/bitonic.py:sort_tiles_counts_collapsed``
-(``_counts_sort_collapse_kernel``).  On a CUDA tensor the wrapper launches
-the hand-written kernel in ``csrc/bitonic.cu`` (one CTA per leaf tile; see
-that file for the design and what bounds it).  On a CPU tensor it runs
-:func:`sort_tiles_counts_collapsed_plain`, the plain PyTorch version of the
-same contract.
+(``_counts_sort_collapse_kernel``, 1-3 key planes and payloads) and
+``sort_tiles`` (``_sort_kernel``).  On a CUDA tensor each wrapper launches
+its hand-written kernel (``csrc/bitonic.cu``, ``csrc/sort_tiles.cu``; one
+CTA per tile, see those files for the design and what bounds it).  On a
+CPU tensor it runs the plain PyTorch version of the same contract
+(``*_plain``).
 """
 
 from __future__ import annotations
 
+import collections
+from typing import Sequence, Tuple
+
 import torch
 
 from tpusort_torch.kernels import _build
-from tpusort_torch.kernels.partition import MAX_TILE, _valid
-from tpusort_torch.ops.reference import sort_rows_unsigned
+from tpusort_torch.kernels.partition import (
+    MAX_TILE, SMEM_MAX, _valid, check_fits, tile_smem_bytes)
+from tpusort_torch.ops.reference import sort_rows_lex
 
 LANES = 128
 
@@ -29,46 +35,79 @@ def merge_staged_factor(k_real: int) -> int:
     return 0
 
 
+def _pow2(k: int) -> int:
+    return 1 << (k - 1).bit_length()
+
+
+def leaf_tile_cap(num_keys: int, has_values: bool) -> int:
+    """The largest power-of-two tile K2 holds in one CTA's shared memory
+    with ``num_keys`` key planes (plus the slot index with payloads)."""
+    cap = MAX_TILE
+    while tile_smem_bytes(cap, num_keys, has_values) > SMEM_MAX:
+        cap //= 2
+    return cap
+
+
+def _check_ops(ops, what: str) -> Tuple[int, int]:
+    if not ops or any(o.dtype != torch.int32 or o.dim() != 2 for o in ops):
+        raise ValueError(f"{what} operands must be (T, K) int32 "
+                         "bit-pattern tensors")
+    if any(o.shape != ops[0].shape or o.device != ops[0].device
+           for o in ops):
+        raise ValueError(f"{what} operands must share shape and device")
+    return tuple(ops[0].shape)
+
+
 def sort_tiles_counts_collapsed_plain(
-    keys: torch.Tensor, counts: torch.Tensor, q: int, n_out: int
-) -> torch.Tensor:
-    """Plain PyTorch K2 on (T, K) int32 keys: each tile's valid slots
-    sorted, and the tiles' valid prefixes concatenated in tile order into
-    (n_out,).  Slots past the total valid count are zero."""
-    valid = _valid(keys, counts, q, None)
-    tile = sort_rows_unsigned(torch.where(valid, keys, -1))
-    K = keys.shape[1]
+    ops: Sequence[torch.Tensor], counts: torch.Tensor, q: int, n_out: int,
+    num_keys: int = 1,
+) -> list:
+    """Plain PyTorch K2 on (T, K) int32 operands (``num_keys`` key planes,
+    then payloads): each tile's valid slots sorted, and the tiles' valid
+    prefixes concatenated in tile order into (n_out,) per operand.  Slots
+    past the total valid count are zero."""
+    valid = _valid(ops[0], counts, q, None)
+    sp, sv = sort_rows_lex([torch.where(valid, p, -1)
+                            for p in ops[:num_keys]], ops[num_keys:])
+    K = ops[0].shape[1]
     tile_counts = counts.sum(dim=1)
-    keep = torch.arange(K, device=keys.device)[None, :] < tile_counts[:, None]
-    dense = tile[keep][:n_out]
-    out = torch.zeros(n_out, dtype=torch.int32, device=keys.device)
-    out[: dense.numel()] = dense
-    return out
+    keep = torch.arange(K, device=ops[0].device)[None, :] < \
+        tile_counts[:, None]
+    outs = []
+    for o in (*sp, *sv):
+        dense = o[keep][:n_out]
+        out = torch.zeros(n_out, dtype=torch.int32, device=o.device)
+        out[: dense.numel()] = dense
+        outs.append(out)
+    return outs
 
 
 def _sort_tiles_counts_collapsed_cuda(
-    keys: torch.Tensor, counts: torch.Tensor, q: int, n_out: int,
-    sorted_run: int,
-) -> torch.Tensor:
-    T, K = keys.shape
-    p = 1 << (K - 1).bit_length()          # virtual power-of-two pad
-    if p > MAX_TILE:
-        raise ValueError(f"leaf tile K={K} exceeds the kernel's shared memory")
+    ops: Sequence[torch.Tensor], counts: torch.Tensor, q: int, n_out: int,
+    sorted_run: int, num_keys: int,
+) -> list:
+    T, K = ops[0].shape
+    p = _pow2(K)                           # virtual power-of-two pad
+    n_vals = len(ops) - num_keys
+    check_fits("sort_tiles_counts_collapsed", p, num_keys, n_vals)
     if sorted_run and (K % sorted_run or (p - K) % sorted_run):
         sorted_run = 0
     counts = counts.to(torch.int32).contiguous()
+    dev = ops[0].device
     # dense offset of each tile: exclusive cumsum of the valid counts
-    offsets = torch.zeros(T + 1, dtype=torch.int64, device=keys.device)
+    offsets = torch.zeros(T + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts.sum(dim=1, dtype=torch.int64), dim=0, out=offsets[1:])
-    out = torch.empty(n_out, dtype=torch.int32, device=keys.device)
+    outs = [torch.empty(n_out, dtype=torch.int32, device=dev) for _ in ops]
     err = _build.library().tpusort_leaf_collapse(
-        keys.data_ptr(), counts.data_ptr(), q, offsets.data_ptr(), n_out, T,
-        K, p, sorted_run, out.data_ptr(),
-        torch.cuda.current_stream(keys.device).cuda_stream,
+        _build.pointers(ops[:num_keys]), _build.pointers(outs[:num_keys]),
+        num_keys, _build.pointers(ops[num_keys:]),
+        _build.pointers(outs[num_keys:]), n_vals, counts.data_ptr(), q,
+        offsets.data_ptr(), n_out, T, K, p, sorted_run,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "sort_tiles_counts_collapsed")
-    sort_tiles_counts_collapsed.launches += 1
-    return out
+    _build.count_launch(sort_tiles_counts_collapsed, num_keys, n_vals)
+    return outs
 
 
 def sort_tiles_counts_collapsed(
@@ -81,41 +120,93 @@ def sort_tiles_counts_collapsed(
     num_keys: int = 1,
 ):
     """Sort each (T, K) int32 tile by its valid slots (slot i valid iff
-    i % q < counts[t, i // q]) and write each tile's valid prefix to the
-    dense (n_out,) output at the exclusive cumsum of the tiles' valid
-    counts.  ``sorted_run``: the tile already consists of ascending runs
-    of that power-of-two length once invalid slots are 0xFFFFFFFF.
+    i % q < counts[t, i // q]; invalid slots become 0xFFFFFFFF in every key
+    plane) and write each tile's valid prefix to the dense (n_out,) output
+    at the exclusive cumsum of the tiles' valid counts.  The first
+    ``num_keys`` operands are key planes (plane 0 most significant); the
+    rest are payload words that ride unstably.  ``sorted_run``: the tile
+    already consists of ascending runs of that power-of-two length once
+    invalid slots are rewritten.
 
-    ``op`` is one tensor (returns one) or a one-element list (returns a
-    list), as in the JAX wrapper; payload operands are not ported yet.
+    ``op`` is one tensor (returns one) or a list (returns a list), as in
+    the JAX wrapper.
     """
     single = not isinstance(op, (list, tuple))
     ops = [op] if single else list(op)
-    if len(ops) != 1 or num_keys != 1:
-        raise NotImplementedError(
-            "payload operands and multi-plane keys are not ported yet: "
-            "ROADMAP Queue 1 item 4")
-    keys = ops[0]
-    if keys.dtype != torch.int32 or keys.dim() != 2:
-        raise ValueError("keys must be a (T, K) int32 bit-pattern tensor")
-    keys = keys.contiguous()
-    T, K = keys.shape
+    if not 1 <= num_keys <= len(ops):
+        raise ValueError(f"num_keys={num_keys} for {len(ops)} operand(s)")
+    T, K = _check_ops(ops, "sort_tiles_counts_collapsed")
+    ops = [o.contiguous() for o in ops]
     if K % LANES or q <= 0 or q % LANES or K % q or n_out < 0:
         raise ValueError(f"bad tile geometry K={K} q={q} n_out={n_out}")
     if tuple(counts.shape) != (T, K // q):
         raise ValueError(f"counts must be ({T}, {K // q})")
-    if counts.device != keys.device:
+    dev = ops[0].device
+    if counts.device != dev:
         raise ValueError("counts must be on the keys' device")
     if sorted_run & (sorted_run - 1):
         raise ValueError(f"sorted_run={sorted_run} must be a power of two")
-    if keys.device.type == "cpu":
-        out = sort_tiles_counts_collapsed_plain(keys, counts, q, n_out)
-    elif keys.device.type == "cuda":
-        out = _sort_tiles_counts_collapsed_cuda(keys, counts, q, n_out,
-                                                sorted_run)
+    if dev.type == "cpu":
+        outs = sort_tiles_counts_collapsed_plain(ops, counts, q, n_out,
+                                                 num_keys)
+    elif dev.type == "cuda":
+        outs = _sort_tiles_counts_collapsed_cuda(ops, counts, q, n_out,
+                                                 sorted_run, num_keys)
     else:
-        raise ValueError(f"no K2 for device {keys.device}")
-    return out if single else [out]
+        raise ValueError(f"no K2 for device {dev}")
+    return outs[0] if single else outs
 
 
 sort_tiles_counts_collapsed.launches = 0
+sort_tiles_counts_collapsed.modes = collections.Counter()
+
+
+def sort_tiles_plain(operands: Sequence[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch K3: each row sorted by operand 0 as unsigned, the
+    other operands carried along, stably."""
+    sp, sv = sort_rows_lex(operands[:1], operands[1:])
+    return (*sp, *sv)
+
+
+def _sort_tiles_cuda(operands: Sequence[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, ...]:
+    T, K = operands[0].shape
+    p = _pow2(K)
+    vals = operands[1:]
+    check_fits("sort_tiles", p, 1, len(vals))
+    outs = [torch.empty_like(o) for o in operands]
+    if T:
+        dev = operands[0].device
+        err = _build.library().tpusort_sort_tiles(
+            operands[0].data_ptr(), outs[0].data_ptr(),
+            _build.pointers(vals), _build.pointers(outs[1:]), len(vals), T,
+            K, p, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(err, "sort_tiles")
+        _build.count_launch(sort_tiles, 1, len(vals))
+    return tuple(outs)
+
+
+def sort_tiles(operands: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Sort each row-tile of the (T, K) int32 operands ascending by
+    operand 0 as unsigned; the other operands ride along (unstable on
+    ties).  K is a multiple of 128; a K that is not a power of two is
+    padded virtually with 0xFFFFFFFF keys.  With payloads the pad slots
+    lose every tie with a genuine 0xFFFFFFFF key, so each row's payloads
+    come back a permutation of its own.  Returns the sorted operands."""
+    ops = [o.contiguous() for o in operands]
+    T, K = _check_ops(ops, "sort_tiles")
+    if K % LANES or K == 0:
+        raise ValueError(f"tile size {K} must be a positive multiple of "
+                         f"{LANES}")
+    dev = ops[0].device
+    if dev.type == "cpu":
+        return sort_tiles_plain(ops)
+    if dev.type == "cuda":
+        return _sort_tiles_cuda(ops)
+    raise ValueError(f"no K3 for device {dev}")
+
+
+sort_tiles.launches = 0
+sort_tiles.modes = collections.Counter()

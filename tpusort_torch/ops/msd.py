@@ -1,37 +1,42 @@
-"""MSD hybrid radix sort engine, keys-only raw-key path.
+"""MSD hybrid radix sort engine, raw-key paths.
 
 PyTorch port of ``tpusort/ops/msd.py``.  The planning part (``PassSpec``,
 ``MsdPlan``, ``plan_msd``) is copied verbatim: it is pure Python, and the
 JAX module imports jax at module level.
 
-The engine runs the raw-key keys-only main path:
+The engine runs the raw-key paths: keys only (1-3 planes), unstable pairs,
+and stable 32-bit pairs through the composite (key, position) planes:
 
 * each partition pass (``run_passes``) calls the fused partition kernel K1
   (``kernels.partition.partition_pass_fused``) once: every (T, K) tile is
-  sorted by the raw key (invalid slots become 0xFFFFFFFF), cut into R digit
-  runs padded to S, and written straight into the digit-major exchanged
-  layout of the next pass;
+  sorted by the raw key planes (invalid slots become 0xFFFFFFFF), cut into
+  R digit runs padded to S, and written with its payloads straight into the
+  digit-major exchanged layout of the next pass;
 * validity is never stored per element: each pass returns a (T, R) counts
   table, and the next consumer derives validity from it;
 * the leaf kernel K2 (``kernels.bitonic.sort_tiles_counts_collapsed``)
   sorts packed tiles of whole final segments and writes each tile's valid
   prefix to its dense output offset;
-* a run that overflows its capacity (count > S) is caught from the counts:
-  the flag is read on the host once, and the exact reference sort replaces
-  the result.
+* a run that overflows its capacity (count > S), or with payloads a valid
+  key equal to the all-ones sentinel, is caught on the device: the flag is
+  read on the host once, and the exact reference sort replaces the result;
+* inputs too small for a plan go to the single-tile path (K3,
+  ``ops/small.py``) where it applies, and to the reference sort otherwise.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from tpusort_torch.kernels.bitonic import sort_tiles_counts_collapsed
+from tpusort_torch.kernels.bitonic import (
+    leaf_tile_cap, sort_tiles, sort_tiles_counts_collapsed)
 from tpusort_torch.kernels.partition import partition_pass_fused
 from tpusort_torch.ops.reference import sort_twiddled_reference
+from tpusort_torch.ops.small import single_tile_ok, sort_twiddled_bitonic
 
 # ---------------------------------------------------------------------------
 # Geometry planning (verbatim from tpusort/ops/msd.py)
@@ -267,24 +272,32 @@ def plan_msd(
 
 # Engine routes, as plain integers.  The kernel launch counts live on the
 # kernel wrappers (``partition_pass_fused.launches``,
-# ``sort_tiles_counts_collapsed.launches``), which count only where they
-# launch a CUDA kernel; :func:`counters` reads all four.
+# ``sort_tiles_counts_collapsed.launches``, ``sort_tiles.launches``, and
+# ``.modes`` by key planes and payload words), which count only where they
+# launch a CUDA kernel; :func:`counters` and :func:`mode_counters` read them.
 _ROUTES = {"reference_routes": 0, "overflow_fallbacks": 0}
+_KERNELS = {"k1_launches": partition_pass_fused,
+            "k2_launches": sort_tiles_counts_collapsed,
+            "k3_launches": sort_tiles}
 
 
 def counters() -> dict:
-    """K1/K2 launches, reference routes (n below min_n or no plan) and
-    overflow fallbacks since the last :func:`reset_counters`."""
-    return dict(
-        k1_launches=partition_pass_fused.launches,
-        k2_launches=sort_tiles_counts_collapsed.launches,
-        **_ROUTES,
-    )
+    """K1/K2/K3 launches, reference routes (no plan and no single-tile
+    path) and overflow fallbacks since the last :func:`reset_counters`."""
+    return dict({k: fn.launches for k, fn in _KERNELS.items()}, **_ROUTES)
+
+
+def mode_counters() -> dict:
+    """Launches since the last :func:`reset_counters` by kernel and mode:
+    {("K1" | "K2" | "K3", key planes, payload words): launches}."""
+    return {(f"K{k[1]}", *mode): c for k, fn in _KERNELS.items()
+            for mode, c in fn.modes.items() if c}
 
 
 def reset_counters() -> None:
-    partition_pass_fused.launches = 0
-    sort_tiles_counts_collapsed.launches = 0
+    for fn in _KERNELS.values():
+        fn.launches = 0
+        fn.modes.clear()
     for key in _ROUTES:
         _ROUTES[key] = 0
 
@@ -295,38 +308,41 @@ def reset_counters() -> None:
 
 
 def run_passes(
-    keys: torch.Tensor, n: int, plan: MsdPlan
-) -> Tuple[torch.Tensor, Tuple[torch.Tensor, int], torch.Tensor]:
+    ops: Sequence[torch.Tensor], nplanes: int, n: int, plan: MsdPlan,
+    unstable: bool = False,
+) -> Tuple[List[torch.Tensor], Tuple[torch.Tensor, int], torch.Tensor]:
     """All partition passes, one K1 launch each (port of
-    ``_run_passes_pallas``, keys only, without ``init_chain``).
+    ``_run_passes_pallas``, without ``init_chain``).
 
-    ``keys``: the (plan.m1,) int32 twiddled keys, valid below ``n``.
-    Validity rides as counts tables: pass 0 takes it from ``n``; each pass
-    emits (T, R) counts, which :func:`next_counts_table` turns into the
-    next consumer's table.  Returns (flat runs of the last pass, (counts
-    table, q), overflow as a 0-d bool tensor on the device).
+    ``ops``: the (plan.m1,) int32 operands, ``nplanes`` key planes then
+    payload words, valid below ``n``.  Validity rides as counts tables:
+    pass 0 takes it from ``n``; each pass emits (T, R) counts, which
+    :func:`next_counts_table` turns into the next consumer's table.
+    Returns (flat runs of the last pass per operand, (counts table, q),
+    overflow as a 0-d bool tensor on the device).
     """
     ctable = None
     q = None
     prev_s = None
-    overflow = torch.zeros((), dtype=torch.bool, device=keys.device)
-    data = keys
+    ops = list(ops)
+    overflow = torch.zeros((), dtype=torch.bool, device=ops[0].device)
     for spec in plan.passes:
         t = spec.n_seg * spec.t_seg
+        tiled = [o.reshape(t, spec.k) for o in ops]
         cin = None if ctable is None else ctable.reshape(t, spec.k // q)
         # emitted runs are monotone slices of sorted tiles, so chunks of
         # the previous run size's pow2 part are sorted: K1 only merges
         sorted_run = None if prev_s is None else (prev_s & -prev_s)
-        (data,), counts = partition_pass_fused(
-            [data.reshape(t, spec.k)], [], cin, q_in=q, r=spec.r, s=spec.s,
-            lo_bit=spec.lo_bit, width=spec.width,
+        ops, counts = partition_pass_fused(
+            tiled[:nplanes], tiled[nplanes:], cin, q_in=q, r=spec.r,
+            s=spec.s, lo_bit=spec.lo_bit, width=spec.width,
             n=(n if ctable is None else None), sorted_run=sorted_run,
-            t_seg=spec.t_seg,
+            unstable=unstable, t_seg=spec.t_seg,
         )
         prev_s = spec.s
         overflow |= (counts > spec.s).any()
         ctable, q = next_counts_table(counts, spec)
-    return data, (ctable, q), overflow
+    return ops, (ctable, q), overflow
 
 
 def next_counts_table(
@@ -345,78 +361,115 @@ def next_counts_table(
     return c.reshape(-1), q
 
 
-def leaf_tiles(plan: MsdPlan) -> Tuple[int, int]:
+def leaf_tiles(plan: MsdPlan, nplanes: int = 1,
+               has_values: bool = False) -> Tuple[int, int]:
     """(number, size) of the leaf tiles: whole final segments packed up
-    to 2^15 keys per tile."""
+    to 2^15 slots per tile, or fewer where K2 holds more operands (its
+    shared-memory tile cap).  Packing whole segments leaves the dense
+    output unchanged."""
+    cap = min(1 << 15, leaf_tile_cap(nplanes, has_values))
     pack = 1
-    while (pack * 2 * plan.seg <= (1 << 15)
+    while (pack * 2 * plan.seg <= cap
            and plan.n_segments % (pack * 2) == 0):
         pack *= 2
     return plan.n_segments // pack, pack * plan.seg
 
 
 @functools.lru_cache(maxsize=128)
-def _plan_cached(n: int, kwargs: Tuple[Tuple[str, int], ...]):
-    """The raw-key plan for n keys.  ``plan_msd`` is pure, and its search
-    costs about 10 ms of host Python at 2^28 (the JAX engine pays it once
-    per trace); uncached it would run before every sort's first launch."""
-    return plan_msd(n, 0, 32, leaf_profile="raw", **dict(kwargs))
+def _plan_cached(n: int, end_bit: int, kwargs: Tuple[Tuple[str, int], ...]):
+    """The raw-key plan for n keys of ``end_bit`` bits.  ``plan_msd`` is
+    pure, and its search costs about 10 ms of host Python at 2^28 (the JAX
+    engine pays it once per trace); uncached it would run before every
+    sort's first launch."""
+    return plan_msd(n, 0, end_bit, leaf_profile="raw", **dict(kwargs))
+
+
+def _reference(planes, values, bits):
+    _ROUTES["reference_routes"] += 1
+    return sort_twiddled_reference(planes, values, **bits)
 
 
 def sort_twiddled_msd(
     planes: Tuple[torch.Tensor, ...],
+    values: Sequence[torch.Tensor] = (),
     *,
     begin_bit: int,
     end_bit: int,
     total_bits: int,
     config,
-) -> Tuple[torch.Tensor, ...]:
-    """Stable ascending sort of one full-range twiddled int32 plane, keys
-    only, on the tensor's device (port of the raw-key keys-only branch of
-    ``tpusort.ops.msd.sort_twiddled_msd``).
+    stable: bool = True,
+) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    """Ascending sort of full-range twiddled int32 planes (plane 0 most
+    significant) with int32 payload words, on the tensors' device (port of
+    the raw-key branches of ``tpusort.ops.msd.sort_twiddled_msd``).
+    Returns (sorted planes, sorted values).
 
-    Delegates to the reference sort below ``config.min_n`` or when no plan
-    exists.  Otherwise runs the K1 passes and the K2 leaf, reads the
-    overflow flag on the host once, and takes the exact reference sort if
-    any run overflowed.  (The JAX engine folds that choice into the graph
-    with ``lax.cond`` and can try its equi-depth skew tier first; both
-    give the same exact output.  The skew tier is ROADMAP Queue 1 item 7.)
+    Keys only (1-3 planes) and unstable pairs (``stable=False``) run K1 and
+    K2 on the raw key planes.  Stable 32-bit pairs sort the composite
+    (key, position) planes unstably, which is stable by key.  Delegates to
+    the single-tile path or the reference sort below ``config.min_n`` or
+    when no plan exists.  Otherwise runs the K1 passes and the K2 leaf,
+    reads the overflow flag on the host once, and takes the exact reference
+    sort if any run overflowed or a valid key of a pair equals the all-ones
+    sentinel.  (The JAX engine folds that choice into the graph with
+    ``lax.cond`` and can try its equi-depth skew tier first; both give the
+    same exact output.  The skew tier is ROADMAP Queue 1 item 7.)
     """
-    if len(planes) != 1 or not (begin_bit == 0 and end_bit == total_bits == 32):
+    nplanes = len(planes)
+    full = begin_bit == 0 and end_bit == total_bits == 32 * nplanes
+    composite = bool(stable and values and nplanes == 1 and full)
+    raw = full and nplanes <= 3 and (not values or not stable)
+    if not (raw or composite):
         raise NotImplementedError(
-            "the MSD engine is ported for one full-range 32-bit plane only: "
-            "ROADMAP Queue 1 items 4-5")
-    (keys,) = planes
-    n = keys.shape[0]
+            "bit-range sorts, stable pairs of multi-plane keys (stable "
+            "64-bit pairs) and keys of more than 3 planes take the general "
+            "(digit, idx) path, which is not ported yet: ROADMAP Queue 1 "
+            "item 5")
+    n = planes[0].shape[0]
+    if composite:
+        # stable pairs via the composite 64-bit key (key, position): the
+        # position plane is unique, so the unstable 2-plane raw path is
+        # stable by key, and its sentinel pre-check never fires on it
+        gidx = torch.arange(n, dtype=torch.int32, device=planes[0].device)
+        sp, sv = sort_twiddled_msd(
+            (planes[0], gidx), values, begin_bit=0, end_bit=64,
+            total_bits=64, config=config, stable=False)
+        return (sp[0],), sv
+    bits = dict(begin_bit=begin_bit, end_bit=end_bit, total_bits=total_bits)
     kwargs = config.plan_kwargs()
     min_n = kwargs.pop("min_n")
-    plan = _plan_cached(n, tuple(sorted(kwargs.items()))) \
+    plan = _plan_cached(n, end_bit, tuple(sorted(kwargs.items()))) \
         if n >= min_n else None
     if plan is None:
-        # Below min_n or without a plan.  The JAX engine sends inputs of up
-        # to one tile to its single-tile bitonic path (K3, ops/small.py);
-        # that path is not ported yet (ROADMAP Queue 1 item 6), so every
-        # delegation goes to the reference and is counted as such.
-        _ROUTES["reference_routes"] += 1
-        sp, _ = sort_twiddled_reference(
-            planes, (), begin_bit=0, end_bit=32, total_bits=32)
-        return sp
+        # keys, or unstable pairs: stable pairs took the composite branch
+        if single_tile_ok(planes, values, config=config, **bits):
+            return sort_twiddled_bitonic(planes, values, config=config,
+                                         **bits)
+        return _reference(planes, values, bits)
     # The host reads the overflow flag (JAX's on_overflow="flag" mode), so
     # no fallback workspace is reserved in advance and the JAX engine's
     # 2^29 in-graph cap does not apply.
-    if plan.m1 > n:
-        keys = torch.nn.functional.pad(keys, (0, plan.m1 - n))
-    data, (ctable, q_fin), overflow = run_passes(keys, n, plan)
-    nt, tile = leaf_tiles(plan)
+    ops = [torch.nn.functional.pad(o, (0, plan.m1 - n))
+           if plan.m1 > n else o for o in (*planes, *values)]
+    data, (ctable, q_fin), overflow = run_passes(
+        ops, nplanes, n, plan, unstable=bool(values))
+    del ops
+    if values:
+        # raw-key pairs: a valid key equal to the invalid-slot sentinel
+        # would tie it and could swap payloads with a dropped pad slot
+        is_max = planes[0] == -1
+        for p in planes[1:]:
+            is_max &= p == -1
+        overflow |= is_max.any()
+    nt, tile = leaf_tiles(plan, nplanes, bool(values))
     last_s = plan.passes[-1].s
-    out = sort_tiles_counts_collapsed(
-        data.reshape(nt, tile), ctable.reshape(nt, tile // q_fin), q_fin, n,
-        sorted_run=(last_s & -last_s),
+    ct = ctable.reshape(nt, tile // q_fin)
+    outs = sort_tiles_counts_collapsed(
+        [o.reshape(nt, tile) for o in data], ct, q_fin, n,
+        sorted_run=(last_s & -last_s), num_keys=nplanes,
     )
-    del data, ctable                     # free the pass buffers first
+    del data, ctable, ct                 # free the pass buffers first
     if bool(overflow):                   # the one host sync of the path
         _ROUTES["overflow_fallbacks"] += 1
-        sp, _ = sort_twiddled_reference(
-            planes, (), begin_bit=0, end_bit=32, total_bits=32)
-        return sp
-    return (out,)
+        return sort_twiddled_reference(planes, values, **bits)
+    return tuple(outs[:nplanes]), tuple(outs[nplanes:])

@@ -64,8 +64,21 @@ def sort_twiddled_reference(
     )
 
 
-def sort_rows_unsigned(x: torch.Tensor) -> torch.Tensor:
-    """Each row of a 2-D int32 bit-pattern tensor sorted by unsigned value:
-    the tile sort of the kernels' plain versions.  Flipping the sign bit
-    maps unsigned order onto int32 order without widening."""
-    return torch.sort(x ^ INT32_MIN, dim=1).values ^ INT32_MIN
+def sort_rows_lex(
+    planes: Sequence[torch.Tensor], values: Sequence[torch.Tensor] = (),
+) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    """Each row of 2-D int32 bit-pattern planes sorted by the planes'
+    unsigned lexicographic value (plane 0 most significant), the value
+    rows carried along: the tile sort of the kernels' plain versions.
+    Stable, by stable sorts from the least significant plane up; an
+    unstable kernel may order ties otherwise.  Flipping the sign bit maps
+    unsigned order onto int32 order without widening."""
+    if len(planes) == 1 and not values:
+        return (torch.sort(planes[0] ^ INT32_MIN, dim=1).values ^ INT32_MIN,), ()
+    perm = None
+    for p in reversed(planes):
+        key = p if perm is None else torch.gather(p, 1, perm)
+        order = torch.sort(key ^ INT32_MIN, dim=1, stable=True).indices
+        perm = order if perm is None else torch.gather(perm, 1, order)
+    return (tuple(torch.gather(p, 1, perm) for p in planes),
+            tuple(torch.gather(v, 1, perm) for v in values))
