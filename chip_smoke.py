@@ -39,11 +39,35 @@ non-zero:
     0xFFFFFFFF keys (the exact fallback); the single-tile path (through
     K3) for keys at n = 16384 and n = 1000, and for unstable pairs at
     n = 16384 and n = 15616 with a block of 0xFFFFFFFF keys;
-13. timings, median of 5 CUDA-event runs, alternating: the 2^28 sort
+13. K1c (the general branch of ``partition_pass_fused``) vs its plain
+    version, bit for bit on the counts and every valid slot, payloads
+    included, on pass 0 and pass 1 of the general path's plans: the 2^28
+    uint32 [0, 24) pairs plan (a key and a value), the 2^28 keys-only
+    [8, 32) plan, the 2^27 stable uint64 pairs plan (2 planes + 2 value
+    words) and the 2^24 int64 argsort plan (2 planes + the index);
+14. the packed leaf of the first two: K3 on the packed (segment, remainder,
+    position) rows at (32768, 12288), then K4 (``collapse_segments``) on
+    K3's output, each vs its plain version, and the dense result equal to
+    the stable sort of the input; then K4 on 64 segments of 2^21 slots,
+    the shape the TPU sends to its chunked kernel (K4c), vs plain;
+15. the wide leaf of the last two: K2 with 3 key planes (the masked planes
+    and the position) and 4 (or 3) payload words at (32768, 6144) (or
+    (32768, 768)) vs its plain version, and equal to the stable sort;
+16. the general path end to end against the stable reference, each run
+    through K1c x 3 and its leaf with no fallback: ``sort_pairs(end_bit=24)``
+    at 2^28, keys-only ``sort(begin_bit=8)`` at 2^28 (about 16 keys per
+    window value, so their input order is checked), stable uint64 pairs
+    with int64 values at 2^27, int64 ``argsort`` at 2^24; then
+    ``sort_pairs_lsb_in_value`` at 2^24 (K1 and K2), and constant keys over
+    [8, 24), which take the exact fallback;
+17. timings, median of 5 CUDA-event runs, alternating: the 2^28 sort
     against ``torch.sort``, the 2^28 pairs sort against ``torch.sort``
     (stable) plus the values gather, 2^27 uint64 keys against
-    ``torch.sort`` of the keys as int64 with the sign bit flipped, and each
-    kernel mode against its plain version.
+    ``torch.sort`` of the keys as int64 with the sign bit flipped, the
+    2^28 [0, 24) pairs sort against ``torch.sort(stable=True)`` of the
+    masked keys plus the gathers, the 2^27 stable uint64 pairs against
+    ``torch.sort(stable=True)`` of the flipped keys plus the gathers, and
+    each kernel mode against its plain version.
 
 The line before the last is a JSON summary of the kernels: each template
 mode compared, with its launches in the run of the path that drives it at
@@ -100,8 +124,11 @@ def main() -> None:
     from tpusort_torch.kernels.bitonic import (
         sort_tiles, sort_tiles_counts_collapsed,
         sort_tiles_counts_collapsed_plain, sort_tiles_plain)
+    from tpusort_torch.kernels.collapse import (
+        collapse_segments, collapse_segments_plain)
     from tpusort_torch.kernels.partition import (
-        partition_pass_fused, partition_pass_fused_plain)
+        partition_pass_fused, partition_pass_fused_plain,
+        partition_pass_general_plain)
     from tpusort_torch.ops import msd
     from tpusort_torch.ops.reference import sort_twiddled_reference
 
@@ -162,12 +189,15 @@ def main() -> None:
         w = torch.int64 if a.element_size() == 8 else torch.int32
         return torch.equal(a.view(w), b.view(w))
 
-    def reference_sort(keys: torch.Tensor, values=(), descending=False):
-        """The stable reference sort (torch.sort, plane by plane)."""
+    def reference_sort(keys: torch.Tensor, values=(), descending=False,
+                       begin_bit=0, end_bit=None):
+        """The stable reference sort (torch.sort, plane by plane) by bits
+        [begin_bit, end_bit) of the twiddled keys."""
         planes, traits = dtypes.twiddle_in(keys, descending=descending)
-        sp, sv = sort_twiddled_reference(planes, values, begin_bit=0,
-                                         end_bit=traits.bits,
-                                         total_bits=traits.bits)
+        sp, sv = sort_twiddled_reference(
+            planes, values, begin_bit=begin_bit,
+            end_bit=traits.bits if end_bit is None else end_bit,
+            total_bits=traits.bits)
         out = dtypes.twiddle_out(sp, traits, descending=descending)
         return (out, sv) if values else out
 
@@ -178,37 +208,42 @@ def main() -> None:
         s_idx = torch.arange(spec.s, device=counts.device)
         return (s_idx < c[..., None]).reshape(-1)
 
-    def plan_for(n: int, end_bit: int, cfg):
+    def plan_for(n: int, end_bit: int, cfg, begin_bit=0, profile="raw"):
         kw = cfg.plan_kwargs()
         kw.pop("min_n")
-        return msd.plan_msd(n, 0, end_bit, leaf_profile="raw", **kw)
+        return msd.plan_msd(n, begin_bit, end_bit, leaf_profile=profile,
+                            **kw)
 
-    def k1_vs_plain(name, planes, values, plan, n):
-        """K1 kernel vs plain on pass 0 (validity from n) and pass 1 (from
-        pass 0's counts table); returns (max abs err, kernel times, plain
-        times) with the times of pass 0."""
+    def k1_vs_plain(name, planes, values, plan, n, general=False):
+        """K1, or K1c with ``general``, kernel vs plain on pass 0 (validity
+        from n) and pass 1 (from pass 0's counts table); returns (max abs
+        err, kernel times, plain times) with the times of pass 0.  K1c is
+        a stable partition, so any keys compare bit for bit; K1's payloads
+        ride unstably, so its callers give it unique keys."""
+        kid = "K1c" if general else "K1"
+        plain_fn = (partition_pass_general_plain if general
+                    else partition_pass_fused_plain)
+        branch = dict(general=True) if general else dict(unstable=True)
         sp0, sp1 = plan.passes[0], plan.passes[1]
         t0 = sp0.n_seg * sp0.t_seg
         ops = [o.reshape(t0, sp0.k) for o in (*planes, *values)]
         np_ = len(planes)
         arg0 = dict(r=sp0.r, s=sp0.s, lo_bit=sp0.lo_bit, width=sp0.width,
-                    n=n, t_seg=sp0.t_seg)
+                    n=n, q_in=None, t_seg=sp0.t_seg)
         k_out, k_cnt = partition_pass_fused(ops[:np_], ops[np_:], None,
-                                            unstable=True, **arg0)
-        p_out, p_cnt = partition_pass_fused_plain(ops[:np_], ops[np_:], None,
-                                                  q_in=None, **arg0)
-        check(torch.equal(k_cnt, p_cnt), f"K1 {name} pass 0: counts differ")
-        check(int(k_cnt.sum()) == n, f"K1 {name} pass 0: counts != n")
+                                            **branch, **arg0)
+        p_out, p_cnt = plain_fn(ops[:np_], ops[np_:], None, **arg0)
+        check(torch.equal(k_cnt, p_cnt), f"{kid} {name} pass 0: counts differ")
+        check(int(k_cnt.sum()) == n, f"{kid} {name} pass 0: counts != n")
         m = valid_slots(k_cnt, sp0)
         err = 0
         for k, p in zip(k_out, p_out):
-            check(same_bits(k[m], p[m]), f"K1 {name} pass 0: slots differ")
+            check(same_bits(k[m], p[m]), f"{kid} {name} pass 0: slots differ")
             err = max(err, max_abs_err(k[m], p[m]))
         times = time_pair(
             lambda: partition_pass_fused(ops[:np_], ops[np_:], None,
-                                         unstable=True, **arg0),
-            lambda: partition_pass_fused_plain(ops[:np_], ops[np_:], None,
-                                               q_in=None, **arg0))
+                                         **branch, **arg0),
+            lambda: plain_fn(ops[:np_], ops[np_:], None, **arg0))
         del p_out, m, ops
         ctable, q = msd.next_counts_table(k_cnt, sp0)
         t1 = sp1.n_seg * sp1.t_seg
@@ -217,18 +252,18 @@ def main() -> None:
         arg1 = dict(r=sp1.r, s=sp1.s, lo_bit=sp1.lo_bit, width=sp1.width,
                     n=None, t_seg=sp1.t_seg, q_in=q)
         k_out1, k_cnt1 = partition_pass_fused(
-            ops[:np_], ops[np_:], cin, sorted_run=sp0.s & -sp0.s,
-            unstable=True, **arg1)
-        p_out1, p_cnt1 = partition_pass_fused_plain(ops[:np_], ops[np_:],
-                                                    cin, **arg1)
-        check(torch.equal(k_cnt1, p_cnt1), f"K1 {name} pass 1: counts differ")
+            ops[:np_], ops[np_:], cin, sorted_run=sp0.s & -sp0.s, **branch,
+            **arg1)
+        p_out1, p_cnt1 = plain_fn(ops[:np_], ops[np_:], cin, **arg1)
+        check(torch.equal(k_cnt1, p_cnt1),
+              f"{kid} {name} pass 1: counts differ")
         m = valid_slots(k_cnt1, sp1)
         for k, p in zip(k_out1, p_out1):
-            check(same_bits(k[m], p[m]), f"K1 {name} pass 1: slots differ")
+            check(same_bits(k[m], p[m]), f"{kid} {name} pass 1: slots differ")
             err = max(err, max_abs_err(k[m], p[m]))
-        log(f"K1 {name} == plain on pass 0 ({t0} x {sp0.k}, n={n}) and "
-            f"pass 1 ({t1} x {sp1.k}, q_in={q}, sorted_run="
-            f"{sp0.s & -sp0.s}); max_abs_err {err}")
+        log(f"{kid} {name} == plain on pass 0 ({t0} x {sp0.k}, S={sp0.s}, "
+            f"lo_bit={sp0.lo_bit}, n={n}) and pass 1 ({t1} x {sp1.k}, "
+            f"S={sp1.s}, lo_bit={sp1.lo_bit}, q_in={q}); max_abs_err {err}")
         return (err, *times)
 
     def k2_vs_plain(name, planes, values, plan, n):
@@ -261,6 +296,94 @@ def main() -> None:
         log(f"K2 {name} == plain at ({nt}, {tile}) q={q_fin} "
             f"sorted_run={run}; max_abs_err {err}")
         return (err, *times), k_dense
+
+    def general_leaf_inputs(name, planes, values, plan, n):
+        """The last K1c pass's runs of the operands and their counts
+        table: what the general leaf reads."""
+        data, (ctable, q), overflow = msd.run_passes(
+            [*planes, *values], len(planes), n, plan, general=True)
+        check(not bool(overflow), f"{name}: uniform keys overflowed")
+        return data, ctable, q
+
+    def packed_leaf_vs_plain(name, planes, values, plan, n, range_bits):
+        """K3 on the packed leaf rows and K4 on K3's output, each against
+        its plain version at the shapes ``plan`` gives; the dense result
+        must be the stable sort of the input by ``range_bits``.  Returns
+        the K3 and the K4 (max abs err, kernel times, plain times)."""
+        np_ = len(planes)
+        check(not msd.leaf_is_wide(plan), f"{name}: the leaf is not packed")
+        data, ctable, q = general_leaf_inputs(name, planes, values, plan, n)
+        rows, seg_counts = msd.packed_leaf_rows(data, np_, ctable, q, plan)
+        del data, ctable
+        k_rows, p_rows = sort_tiles(rows), sort_tiles_plain(rows)
+        # valid keys are unique; the invalid slots of a segment tie and
+        # may carry their payloads in any order, so only valid slots count
+        nseg, seg = plan.n_segments, plan.seg
+        m = (torch.arange(seg, device=dev)[None, :]
+             < seg_counts[:, None]).reshape(rows[0].shape)
+        check(same_bits(k_rows[0], p_rows[0]), f"K3 {name}: keys differ")
+        err3 = max_abs_err(k_rows[0], p_rows[0])
+        for k, p in zip(k_rows[1:], p_rows[1:]):
+            check(same_bits(k[m], p[m]), f"K3 {name}: payloads differ")
+            err3 = max(err3, max_abs_err(k[m], p[m]))
+        del p_rows, m
+        t3 = time_pair(lambda: sort_tiles(rows), lambda: sort_tiles_plain(rows))
+        del rows
+        log(f"K3 {name} == plain at {tuple(k_rows[0].shape)} with "
+            f"{len(k_rows) - 1} payload words; max_abs_err {err3}")
+        segs = [o.reshape(nseg, seg) for o in k_rows[1:]]
+        del k_rows
+        k_dense = collapse_segments(segs, seg_counts, n)
+        p_dense = collapse_segments_plain(segs, seg_counts, n)
+        err4 = 0
+        for k, p in zip(k_dense, p_dense):
+            check(same_bits(k, p), f"K4 {name}: dense outputs differ")
+            err4 = max(err4, max_abs_err(k, p))
+        del p_dense
+        t4 = time_pair(lambda: collapse_segments(segs, seg_counts, n),
+                       lambda: collapse_segments_plain(segs, seg_counts, n))
+        del segs
+        log(f"K4 {name} == plain at ({nseg}, {seg}) with {len(k_dense)} "
+            f"operand(s), n_out={n}; max_abs_err {err4}")
+        want = reference_sort(planes[0][:n].view(torch.uint32),
+                              tuple(v[:n] for v in values),
+                              begin_bit=range_bits[0], end_bit=range_bits[1])
+        wk, wv = want if values else (want, ())
+        check(same_bits(k_dense[0], wk)
+              and all(same_bits(a, b) for a, b in zip(k_dense[1:], wv)),
+              f"{name}: the packed leaf's output is not the stable sort")
+        return (err3, *t3), (err4, *t4)
+
+    def wide_leaf_vs_plain(name, planes, values, plan, n):
+        """K2 on the wide leaf's operands (range-masked planes + position
+        as keys, planes and values as payloads) against its plain version;
+        the keys are unique, so every output compares bit for bit.
+        Returns ((max abs err, kernel times, plain times), dense outputs of
+        the carried operands)."""
+        np_ = len(planes)
+        check(msd.leaf_is_wide(plan), f"{name}: the leaf is not wide")
+        data, ctable, q = general_leaf_inputs(name, planes, values, plan, n)
+        ops, ct = msd.wide_leaf_operands(data, np_, ctable, q, plan)
+        del data, ctable
+
+        def kernel():
+            return sort_tiles_counts_collapsed(ops, ct, q, n,
+                                               num_keys=np_ + 1)
+
+        def plain():
+            return sort_tiles_counts_collapsed_plain(ops, ct, q, n, np_ + 1)
+
+        k_dense, p_dense = kernel(), plain()
+        err = 0
+        for k, p in zip(k_dense, p_dense):
+            check(same_bits(k, p), f"K2 {name}: dense outputs differ")
+            err = max(err, max_abs_err(k, p))
+        del p_dense
+        times = time_pair(kernel, plain)
+        log(f"K2 {name} == plain at {tuple(ops[0].shape)} with {np_ + 1} "
+            f"key planes and {len(ops) - np_ - 1} payload words; "
+            f"max_abs_err {err}")
+        return (err, *times), k_dense[np_ + 1:]
 
     def drive(fn):
         """Run one path with every counter set to 0 just before; returns
@@ -367,7 +490,8 @@ def main() -> None:
     check(same_bits(out, reference_sort(x)),
           "main path: 2^28 sort differs from the reference")
     check(main_counts == dict(k1_launches=len(main_plan.passes),
-                              k2_launches=1, k3_launches=0,
+                              k1c_launches=0, k2_launches=1,
+                              k3_launches=0, k4_launches=0,
                               reference_routes=0, overflow_fallbacks=0),
           f"main path did not run K1 x{len(main_plan.passes)} + K2 "
           f"without overflow: {main_counts}")
@@ -514,7 +638,8 @@ def main() -> None:
           and same_bits(ko, wk) and same_bits(vo, wv),
           "sort_pairs 2^28: keys or values differ from the stable reference")
     check(pairs_counts == dict(k1_launches=len(pairs_main.passes),
-                               k2_launches=1, k3_launches=0,
+                               k1c_launches=0, k2_launches=1,
+                               k3_launches=0, k4_launches=0,
                                reference_routes=0, overflow_fallbacks=0),
           f"sort_pairs did not run K1 x{len(pairs_main.passes)} + K2 "
           f"without overflow: {pairs_counts}")
@@ -639,7 +764,186 @@ def main() -> None:
         "n=1000, and for unstable pairs at n=16384 and n=15616 with "
         "0xFFFFFFFF keys")
 
-    # ---- phase 13: timings --------------------------------------------
+    # ---- phase 13: K1c vs plain at the general path's plans -----------
+    def gplan(n, cfg_row, begin_bit, end_bit, passes, seg):
+        p = plan_for(n, end_bit, get_config(*cfg_row, "cuda"), begin_bit,
+                     "packed")
+        check(p is not None and len(p.passes) == passes and p.seg == seg,
+              f"general plan for n={n} {cfg_row} [{begin_bit}, {end_bit}): "
+              f"{p}")
+        log(f"general plan for n={n} {cfg_row} [{begin_bit}, {end_bit}): "
+            f"m1={p.m1} (K, S, lo_bit)="
+            f"{[(q.k, q.s, q.lo_bit) for q in p.passes]} "
+            f"leaf ({p.n_segments}, {p.seg}) rem_width={p.rem_width}")
+        return p
+
+    r24_plan = gplan(RAGGED_N, (32, True), 0, 24, 3, 12288)
+    check([(q.k, q.s, q.lo_bit) for q in r24_plan.passes]
+          == [(16384, 768, 19), (16384, 512, 14), (16384, 512, 9)]
+          and r24_plan.n_segments == 32768,
+          f"[0, 24) pairs plan: {r24_plan}")
+    r24_key, r24_val = random_i32(r24_plan.m1), random_i32(r24_plan.m1)
+    results["K1c key+value"] = k1_vs_plain(
+        "[0, 24) key + value (2^28 pairs)", [r24_key], [r24_val], r24_plan,
+        RAGGED_N, general=True)
+    w8_plan = gplan(RAGGED_N, (32, False), 8, 32, 3, 12288)
+    w8_key = random_i32(w8_plan.m1)
+    results["K1c key"] = k1_vs_plain("[8, 32) keys only (2^28)", [w8_key],
+                                     [], w8_plan, RAGGED_N, general=True)
+    u64p_plan = gplan(U64_N, (64, True), 0, 64, 3, 6144)
+    u64p_ops = [random_i32(u64p_plan.m1) for _ in range(4)]
+    results["K1c 2 planes+2 values"] = k1_vs_plain(
+        "2 planes + 2 values (stable u64 pairs 2^27)", u64p_ops[:2],
+        u64p_ops[2:], u64p_plan, U64_N, general=True)
+    i64a_plan = gplan(SMALL_N, (64, True), 0, 64, 3, 768)
+    i64a_ops = [random_i32(i64a_plan.m1) for _ in range(2)] + \
+        [torch.arange(i64a_plan.m1, dtype=torch.int32, device=dev)]
+    results["K1c 2 planes+value"] = k1_vs_plain(
+        "2 planes + index (int64 argsort 2^24)", i64a_ops[:2], i64a_ops[2:],
+        i64a_plan, SMALL_N, general=True)
+    log("phase 13 ok")
+
+    # ---- phase 14: the packed leaf, K3 then K4 ------------------------
+    results["K3 packed leaf + 2 values"], results["K4 2 operands"] = \
+        packed_leaf_vs_plain("[0, 24) key + value (2^28 pairs)", [r24_key],
+                             [r24_val], r24_plan, RAGGED_N, (0, 24))
+    results["K3 packed leaf + value"], results["K4 1 operand"] = \
+        packed_leaf_vs_plain("[8, 32) keys only (2^28)", [w8_key], [],
+                             w8_plan, RAGGED_N, (8, 32))
+    del r24_key, r24_val, w8_key
+    # segments over 2^20 slots, which the TPU sends to its chunked kernel
+    # (K4c); no path of the port runs this shape yet
+    segs = [random_i32(64 << 21).reshape(64, 1 << 21) for _ in range(2)]
+    seg_counts = torch.randint(0, (1 << 21) + 1, (64,), dtype=torch.int32,
+                               device=dev, generator=gen)
+    n_out = int(seg_counts.sum()) - 1000
+    k_dense = collapse_segments(segs, seg_counts, n_out)
+    p_dense = collapse_segments_plain(segs, seg_counts, n_out)
+    check(all(same_bits(k, p) for k, p in zip(k_dense, p_dense)),
+          "K4 at (64, 2^21): dense outputs differ")
+    results["K4c (64, 2^21) 2 operands"] = (
+        max(max_abs_err(k, p) for k, p in zip(k_dense, p_dense)),
+        *time_pair(lambda: collapse_segments(segs, seg_counts, n_out),
+                   lambda: collapse_segments_plain(segs, seg_counts, n_out)))
+    del segs, k_dense, p_dense
+    log("phase 14 ok: K3 on the packed rows and K4 after it equal their "
+        "plain versions, and their output is the stable sort; K4 equals "
+        "its plain version on segments of 2^21 slots")
+
+    # ---- phase 15: the wide leaf on K2 --------------------------------
+    results["K2 3 planes+4 values"], dense = wide_leaf_vs_plain(
+        "stable u64 pairs (2^27)", u64p_ops[:2], u64p_ops[2:], u64p_plan,
+        U64_N)
+    want_planes, want_vals = sort_twiddled_reference(
+        tuple(o[:U64_N] for o in u64p_ops[:2]),
+        tuple(o[:U64_N] for o in u64p_ops[2:]), begin_bit=0, end_bit=64,
+        total_bits=64)
+    check(all(same_bits(a, b) for a, b in
+              zip(dense, (*want_planes, *want_vals))),
+          "wide leaf: the output is not the stable sort of the input")
+    del u64p_ops, dense, want_planes, want_vals
+    results["K2 3 planes+3 values"], dense = wide_leaf_vs_plain(
+        "int64 argsort (2^24)", i64a_ops[:2], i64a_ops[2:], i64a_plan,
+        SMALL_N)
+    del i64a_ops, dense
+    log("phase 15 ok: K2 on the wide leaf equals its plain version and "
+        "the stable sort")
+
+    # ---- phase 16: the general path end to end -------------------------
+    def through_general(name, fn, wide):
+        got, c, modes = drive(fn)
+        check(c["k1c_launches"] == 3 and c["k1_launches"] == 0
+              and c["k2_launches"] == int(wide)
+              and c["k3_launches"] == c["k4_launches"] == int(not wide)
+              and c["overflow_fallbacks"] == 0
+              and c["reference_routes"] == 0,
+              f"{name}: did not run K1c x3 and the "
+              f"{'wide' if wide else 'packed'} leaf: {c}")
+        log(f"{name} counters: {c} {modes}")
+        return got, modes
+
+    (ko, vo), modes = through_general(
+        "sort_pairs [0, 24) 2^28",
+        lambda: tpusort_torch.sort_pairs(x, vals, end_bit=24), wide=False)
+    wk, (wv,) = reference_sort(x, (vals.view(torch.int32),), end_bit=24)
+    check(same_bits(ko, wk) and same_bits(vo, wv),
+          "sort_pairs [0, 24) 2^28: differs from the stable reference")
+    launches["K1c key+value"] = modes.get(("K1c", 1, 1), 0)
+    launches["K3 packed leaf + 2 values"] = modes.get(("K3", 1, 2), 0)
+    launches["K4 2 operands"] = modes.get(("K4", 0, 2), 0)
+    del ko, vo, wk, wv
+    log("phase 16 ok: sort_pairs(end_bit=24) at 2^28 == stable reference")
+    got, modes = through_general(
+        "sort [8, 32) 2^28 keys only",
+        lambda: tpusort_torch.sort(x, begin_bit=8), wide=False)
+    # 2^28 keys over 2^24 window values: ~16 keys a value, whose order
+    # the window does not decide, so input order is checked
+    check(same_bits(got, reference_sort(x, begin_bit=8)),
+          "sort [8, 32) 2^28: differs from the stable reference")
+    check(not same_bits(got, reference_sort(x)),
+          "sort [8, 32) 2^28: no ties in the window, order unchecked")
+    launches["K1c key"] = modes.get(("K1c", 1, 0), 0)
+    launches["K3 packed leaf + value"] = modes.get(("K3", 1, 1), 0)
+    launches["K4 1 operand"] = modes.get(("K4", 0, 1), 0)
+    del got
+    log("phase 16 ok: keys-only sort(begin_bit=8) at 2^28 == stable "
+        "reference, ties in input order")
+    v64 = torch.stack([random_i32(U64_N), random_i32(U64_N)], 1) \
+        .view(torch.int64)[:, 0]
+    u64 = x64.view(torch.uint64)
+    (ko, vo), modes = through_general(
+        "stable u64 pairs 2^27",
+        lambda: tpusort_torch.sort_pairs(u64, v64), wide=True)
+    wk, (whi, wlo) = reference_sort(u64, dtypes.split64(v64))
+    check(same_bits(ko, wk) and same_bits(vo, dtypes.join64(whi, wlo,
+                                                            torch.int64)),
+          "stable u64 pairs 2^27: differs from the stable reference")
+    launches["K1c 2 planes+2 values"] = modes.get(("K1c", 2, 2), 0)
+    launches["K2 3 planes+4 values"] = modes.get(("K2", 3, 4), 0)
+    del ko, vo, wk, whi, wlo
+    log("phase 16 ok: stable uint64 pairs with int64 values at 2^27 == "
+        "stable reference")
+    i64 = x64[:SMALL_N]
+    got, modes = through_general("int64 argsort 2^24",
+                                 lambda: tpusort_torch.argsort(i64),
+                                 wide=True)
+    check(torch.equal(got, torch.sort(i64, stable=True).indices),
+          "int64 argsort differs from torch.sort(stable=True).indices")
+    launches["K1c 2 planes+value"] = modes.get(("K1c", 2, 1), 0)
+    launches["K2 3 planes+3 values"] = modes.get(("K2", 3, 3), 0)
+    log("phase 16 ok: int64 argsort at 2^24 == torch.sort(stable=True)")
+    lk, lv = random_i32(SMALL_N), unique_i32(SMALL_N)
+    (ko, vo), c, _ = drive(
+        lambda: tpusort_torch.sort_pairs_lsb_in_value(lk, lv, 2))
+    comp = (lk.long() << 16) | (lv.long() & 0xFFFF)
+    check(same_bits(ko, lk[torch.sort(comp).indices])
+          and same_bits(torch.sort(comp).values,
+                        (ko.long() << 16) | (vo.long() & 0xFFFF)),
+          "sort_pairs_lsb_in_value: keys or value bytes out of order")
+    order = torch.argsort(lv)
+    src = order[torch.searchsorted(lv[order], vo)]
+    check(same_bits(lk[src], ko) and same_bits(lv[src], vo),
+          "sort_pairs_lsb_in_value: values do not ride with their keys")
+    check(c["k1_launches"] >= 2 and c["k2_launches"] == 1
+          and c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0,
+          f"sort_pairs_lsb_in_value did not run K1 and K2: {c}")
+    del lk, lv, ko, vo, comp, order, src
+    log("phase 16 ok: sort_pairs_lsb_in_value (2 bytes) at 2^24 through K1 "
+        "and K2")
+    zk = torch.full((SMALL_N,), 0x12345678, dtype=torch.int32,
+                    device=dev).view(torch.uint32)
+    zv = torch.arange(SMALL_N, dtype=torch.int32, device=dev)
+    (ko, vo), c, _ = drive(
+        lambda: tpusort_torch.sort_pairs(zk, zv, begin_bit=8, end_bit=24))
+    check(c["overflow_fallbacks"] == 1 and c["k1c_launches"] >= 1,
+          f"constant keys [8, 24): no fallback after K1c: {c}")
+    check(same_bits(ko, zk) and same_bits(vo, zv),
+          "constant keys [8, 24): the fallback is not exact and stable")
+    del zk, zv, ko, vo
+    log("phase 16 ok: constant keys over [8, 24) raised overflow and the "
+        "fallback is exact")
+
+    # ---- phase 17: timings --------------------------------------------
     xi = x.view(torch.int32)
     sort_times, torch_times = time_pair(lambda: tpusort_torch.sort(x),
                                         lambda: torch.sort(xi))
@@ -664,7 +968,6 @@ def main() -> None:
           f"({MAIN_N / statistics.median(tpair_times) / 1e6:.3f} G pairs/s) "
           f"on {card}", flush=True)
     del xs
-    u64 = x64.view(torch.uint64)
     x64s = x64 ^ (-(1 << 63))             # unsigned order as int64 order
     u64_times, tu64_times = time_pair(lambda: tpusort_torch.sort(u64),
                                       lambda: torch.sort(x64s))
@@ -674,10 +977,40 @@ def main() -> None:
           f"{fmt(tu64_times)} "
           f"({U64_N / statistics.median(tu64_times) / 1e6:.3f} G keys/s) "
           f"on {card}", flush=True)
+    vi = vals.view(torch.int32)
+
+    def torch_range_pairs():
+        s = torch.sort(xi & 0xFFFFFF, stable=True)
+        return xi[s.indices], vi[s.indices]
+
+    r24_times, tr24_times = time_pair(
+        lambda: tpusort_torch.sort_pairs(x, vals, end_bit=24),
+        torch_range_pairs)
+    print(f"time: tpusort_torch.sort_pairs(end_bit=24) 2^28 uint32 + uint32 "
+          f"{fmt(r24_times)} "
+          f"({MAIN_N / statistics.median(r24_times) / 1e6:.3f} G pairs/s) vs "
+          f"torch.sort(stable=True) of the masked keys + keys[idx] + "
+          f"values[idx] {fmt(tr24_times)} "
+          f"({MAIN_N / statistics.median(tr24_times) / 1e6:.3f} G pairs/s) "
+          f"on {card}", flush=True)
+
+    def torch_u64_pairs():
+        s = torch.sort(x64s, stable=True)
+        return x64[s.indices], v64[s.indices]
+
+    u64p_times, tu64p_times = time_pair(
+        lambda: tpusort_torch.sort_pairs(u64, v64), torch_u64_pairs)
+    print(f"time: tpusort_torch.sort_pairs 2^27 uint64 + int64 (stable) "
+          f"{fmt(u64p_times)} "
+          f"({U64_N / statistics.median(u64p_times) / 1e6:.3f} G pairs/s) vs "
+          f"torch.sort(stable=True) of the keys as int64, sign bit flipped, "
+          f"+ keys[idx] + values[idx] {fmt(tu64p_times)} "
+          f"({U64_N / statistics.median(tu64p_times) / 1e6:.3f} G pairs/s) "
+          f"on {card}", flush=True)
     for name, (err, tk, tp) in results.items():
         print(f"time: {name} kernel {fmt(tk)} vs plain {fmt(tp)} on {card}",
               flush=True)
-    log("phase 13 ok")
+    log("phase 17 ok")
 
     where = {
         "K1": ("partition_pass_fused", "tpusort_torch/csrc/partition.cu",
@@ -686,6 +1019,13 @@ def main() -> None:
                "tpusort/kernels/bitonic.py:805"),
         "K3": ("sort_tiles", "tpusort_torch/csrc/sort_tiles.cu",
                "tpusort/kernels/bitonic.py:928"),
+        "K1c": ("partition_pass_fused (general)",
+                "tpusort_torch/csrc/partition_general.cu",
+                "tpusort/kernels/partition.py:500"),
+        "K4": ("collapse_segments", "tpusort_torch/csrc/collapse.cu",
+               "tpusort/kernels/collapse.py:242"),
+        "K4c": ("collapse_segments", "tpusort_torch/csrc/collapse.cu",
+                "tpusort/kernels/collapse.py:189"),
     }
     kernels = []
     for mode, (err, tk, tp) in results.items():

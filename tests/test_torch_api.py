@@ -100,27 +100,27 @@ def test_wrappers():
 
 
 def test_unsupported_arguments_raise():
-    """What is still unported raises, naming its ROADMAP item: bit-range
-    sorts, sub-range argsort and stable pairs of 64-bit keys (item 5)."""
+    """Bad arguments raise; the calls that raised before the general path
+    was ported (bit ranges, sub-range argsort, stable pairs and argsort of
+    64-bit keys) now run, here through the reference route."""
     x = torch.zeros(10, dtype=torch.uint32)
     v = torch.zeros(10, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tpusort_torch.sort(x, begin_bit=4)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tpusort_torch.sort(x, end_bit=16)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tpusort_torch.sort_pairs(x, v, end_bit=16)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tpusort_torch.argsort(x, begin_bit=8)
+    for kw in (dict(begin_bit=4, end_bit=4), dict(end_bit=33),
+               dict(begin_bit=-1)):
+        with pytest.raises(ValueError, match="bit range"):
+            tpusort_torch.sort(x, **kw)
+    assert tpusort_torch.sort(x, begin_bit=4).dtype == torch.uint32
+    assert tpusort_torch.sort(x, end_bit=16).dtype == torch.uint32
+    assert tpusort_torch.sort_pairs(x, v, end_bit=16)[1].dtype == torch.int32
+    assert torch.equal(tpusort_torch.argsort(x, begin_bit=8),
+                       torch.arange(10))
     for dt in (torch.int64, torch.uint64, torch.float64):
         k = torch.zeros(10, dtype=dt)
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tpusort_torch.sort_pairs(k, v)
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tpusort_torch.argsort(k)
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tpusort_torch.sort(k, begin_bit=1)
-        # what used to raise (item 4) now runs
+        assert tpusort_torch.sort_pairs(k, v)[1].dtype == v.dtype
+        assert torch.equal(tpusort_torch.argsort(k), torch.arange(10))
+        assert tpusort_torch.sort(k, begin_bit=1).dtype == dt
+        with pytest.raises(ValueError, match="bit range"):
+            tpusort_torch.sort(k, end_bit=65)
         assert tpusort_torch.sort(k).dtype == dt
         assert tpusort_torch.unstable_sort_pairs(k, v)[1].dtype == v.dtype
     assert tpusort_torch.sort_pairs(x, v)[1].dtype == torch.int32

@@ -6,9 +6,10 @@ CUDA toolkit are installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Keys compare bit for bit: K1 on its counts and the slots they mark valid,
-K2, K3 and the sorts on their whole output.  Payloads ride unstably, so
-the multi-operand kernel cases make plane 0 unique (a scrambled
+Keys compare bit for bit: K1 and K1c on their counts and the slots they
+mark valid, K2, K3, K4 and the sorts on their whole output.  K1c is stable,
+so its payloads compare bit for bit too.  K1, K2 and K3 payloads ride
+unstably, so their multi-operand cases make plane 0 unique (a scrambled
 permutation), where any correct sort gives one payload order.
 """
 
@@ -18,6 +19,7 @@ import torch
 import tpusort_torch
 from tpusort_torch import dtypes
 from tpusort_torch.kernels import bitonic as tb
+from tpusort_torch.kernels import collapse as tc
 from tpusort_torch.kernels import partition as tp
 from tpusort_torch.ops import msd as tm
 from tpusort_torch.ops.reference import sort_rows_lex, sort_twiddled_reference
@@ -316,4 +318,149 @@ def test_sort_on_card(gen, dtype, descending):
     assert got.device == x.device
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert c["k1_launches"] >= 1 and c["k2_launches"] == 1
+    assert c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0
+
+
+@pytest.mark.parametrize("nk,nv,T,K,R,S,t_seg,lo_bit,q,digit,skew", [
+    (1, 1, 4, 16384, 32, 768, 2, 19, None, False, False),   # pass 0
+    (1, 0, 6, 2048, 8, 384, 3, 29, 128, False, False),      # keys only
+    (2, 2, 4, 16384, 32, 640, 2, 30, 512, False, False),    # straddles
+    (2, 4, 2, 8192, 32, 256, 1, 40, 256, False, True),      # counts > S
+    (1, 3, 3, 4096, 8, 512, 3, 0, 1024, True, False),       # digit plane
+    (2, 0, 5, 32768, 32, 1536, 5, 59, None, False, False),
+    (4, 4, 2, 1024, 16, 128, 2, 120, 128, False, False),    # 4 planes
+])
+def test_partition_general(gen, nk, nv, T, K, R, S, t_seg, lo_bit, q, digit,
+                           skew):
+    """K1c (the general branch) against its plain version: stable, so every
+    valid slot of every operand compares bit for bit."""
+    ops = [_rand(gen, T, K) for _ in range(nk + nv)]
+    width = R.bit_length() - 1
+    if skew:     # half of each tile in digit 0: its runs overflow S
+        p = nk - 1 - lo_bit // 32
+        ops[p][:, ::2] &= ~(((1 << width) - 1) << (lo_bit % 32))
+    kw = dict(r=R, s=S, lo_bit=lo_bit, width=width, t_seg=t_seg)
+    cin = None
+    if q:
+        cin = torch.randint(0, q + 1, (T, K // q), dtype=torch.int32,
+                            device="cuda", generator=gen)
+        kw.update(q_in=q, n=None)
+    else:
+        kw.update(q_in=None, n=T * K - 999)
+    dig = None
+    if digit:
+        dig = torch.randint(0, R + 3, (T, K), dtype=torch.int32,
+                            device="cuda", generator=gen)
+    tm.reset_counters()
+    got, counts = tp.partition_pass_fused(ops[:nk], ops[nk:], cin, digit=dig,
+                                          general=True, **kw)
+    assert tm.mode_counters() == {("K1c", nk, nv): 1}
+    want, pcounts = tp.partition_pass_general_plain(ops[:nk], ops[nk:], cin,
+                                                    digit=dig, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, pcounts)
+    if skew:
+        assert int(counts.max()) > S
+    m = _valid_slots(counts, R, S, t_seg)
+    for g, w in zip(got, want):
+        assert torch.equal(g[m], w[m])
+
+
+@pytest.mark.parametrize("nseg,seg,n_ops,cut", [
+    (64, 128, 1, 0), (1000, 12288, 2, 0), (257, 6144, 3, 5000),
+    (3, (1 << 20) + 1024, 2, 77),      # segments over 2^20 slots (K4c)
+])
+def test_collapse(gen, nseg, seg, n_ops, cut):
+    ops = [_rand(gen, nseg, seg) for _ in range(n_ops)]
+    counts = torch.randint(0, seg + 1, (nseg,), dtype=torch.int32,
+                           device="cuda", generator=gen)
+    counts[::7] = 0
+    counts[1::5] = seg
+    n_out = int(counts.sum()) - cut          # data past n_out is dropped
+    got = tc.collapse_segments(ops, counts, n_out)
+    want = tc.collapse_segments_plain(ops, counts, n_out)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_sort_tiles_packed_leaf_sentinel(gen):
+    """The packed leaf's rows: two segments of 6144 a row, so the last
+    segment's invalid slots carry the word 0xFFFFFFFF, and the row is
+    padded virtually from 12288 to 16384 slots of the same word.  The
+    valid slots must come out in order, and the payloads must stay the
+    row's own."""
+    T, seg, idx_bits, rem_width = 8, 6144, 13, 18
+    rem = torch.randint(0, 1 << rem_width, (T, 2, seg), device="cuda",
+                        generator=gen)
+    valid = torch.rand(T, 2, seg, device="cuda", generator=gen) < 0.7
+    pos = torch.arange(seg, device="cuda")
+    field = rem_width + idx_bits
+    key = torch.where(valid, (rem << idx_bits) | pos, (1 << field) - 1)
+    key |= torch.arange(2, device="cuda")[None, :, None] << field
+    assert int(key.max()) == 0xFFFFFFFF
+    key = (key - ((key >> 31) << 32)).to(torch.int32).reshape(T, 2 * seg)
+    slot = torch.arange(2 * seg, dtype=torch.int32, device="cuda").repeat(T, 1)
+    k_out, v_out = tb.sort_tiles([key, slot])
+    (want,) = tb.sort_tiles_plain([key])
+    assert torch.equal(k_out, want)
+    assert torch.equal(torch.sort(v_out, dim=1).values, slot)
+    assert torch.equal(torch.gather(key, 1, v_out.long()), k_out)
+
+
+@pytest.mark.parametrize("call", ["keys_8_32", "pairs_0_24", "u64_pairs",
+                                  "i64_argsort", "f64_range_desc",
+                                  "lsb_in_value"])
+def test_general_path_on_card(gen, call):
+    """The general (digit, idx) path end to end: K1c passes, then the
+    packed leaf (K3 + K4) or the wide leaf (K2), against the stable
+    reference sort."""
+    n = (1 << 20) + 4321
+    x32 = _rand(gen, n)
+    x64 = torch.stack([_rand(gen, n), _rand(gen, n)], 1).view(torch.int64)[:, 0]
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    tm.reset_counters()
+    if call == "lsb_in_value":
+        ko, vo = tpusort_torch.sort_pairs_lsb_in_value(x32, idx, 2)
+        comp = (x32.long() << 16) | (idx.long() & 0xFFFF)
+        assert torch.equal(ko, x32[torch.sort(comp).indices])
+        assert torch.equal(x32[vo.long()], ko)
+        c = tm.counters()
+        assert c["k1_launches"] >= 1 and c["k2_launches"] == 1
+        return
+    if call == "keys_8_32":
+        keys, desc, bits, vals = x32.view(torch.uint32), False, (8, 32), ()
+    elif call == "pairs_0_24":
+        keys, desc, bits, vals = x32.view(torch.uint32), False, (0, 24), (idx,)
+    elif call == "u64_pairs":
+        keys, desc, bits, vals = x64.view(torch.uint64), False, (0, 64), (x64,)
+    elif call == "f64_range_desc":
+        keys, desc, bits, vals = x64.view(torch.float64), True, (20, 60), ()
+    else:
+        keys, desc, bits, vals = x64, False, (0, 64), ()
+    if call == "i64_argsort":
+        got = tpusort_torch.argsort(keys)
+        assert torch.equal(got, torch.sort(keys, stable=True).indices)
+    else:
+        got = tpusort_torch.sort(keys, vals[0] if vals else None,
+                                 descending=desc, begin_bit=bits[0],
+                                 end_bit=bits[1])
+        planes, traits = dtypes.twiddle_in(keys, descending=desc)
+        words = [w for v in vals for w in (dtypes.split64(v)
+                                           if v.element_size() == 8 else (v,))]
+        ref, rv = sort_twiddled_reference(planes, words, begin_bit=bits[0],
+                                          end_bit=bits[1],
+                                          total_bits=traits.bits)
+        want = dtypes.twiddle_out(ref, traits, descending=desc)
+        ko = got[0] if vals else got
+        w = torch.int64 if keys.element_size() == 8 else torch.int32
+        assert torch.equal(ko.view(w), want.view(w))
+        if vals:
+            vo = got[1]
+            if vo.element_size() == 8:
+                assert torch.equal(vo, dtypes.join64(*rv, vo.dtype))
+            else:
+                assert torch.equal(vo, rv[0])
+    c = tm.counters()
+    assert c["k1c_launches"] >= 1 and c["k1_launches"] == 0
+    assert c["k2_launches"] + c["k4_launches"] == 1
     assert c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0

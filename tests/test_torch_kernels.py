@@ -245,19 +245,22 @@ def test_single_tile_path_matches_jax(n, nv):
 
 
 def test_unported_modes_raise():
-    """What K1 still lacks raises, naming its ROADMAP item: the general
-    branch (K1c: digit=, stable payloads, more than 3 key planes) and the
-    splitter mode (K1b)."""
+    """What K1 still lacks raises, naming its ROADMAP item: the splitter
+    mode (K1b).  The general branch (K1c: digit=, stable payloads, more
+    than 3 key planes), which raised before it was ported, now runs."""
     x = torch.zeros(2, 512, dtype=torch.int32)
     kw = dict(r=8, s=256, lo_bit=29, width=3, n=1024)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tp.partition_pass_fused([x], [], None, digit=x, **kw)
     with pytest.raises(NotImplementedError, match="item 7"):
         tp.partition_pass_fused([x], [], None, splitters=x, **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tp.partition_pass_fused([x], [x], None, unstable=False, **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tp.partition_pass_fused([x] * 4, [], None, **kw)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tp.partition_pass_fused([x], [x], None, splitter_fracs=x, **kw)
+    (a,), counts = tp.partition_pass_fused([x], [], None, digit=x, **kw)
+    assert a.shape == (2, 8 * 256)
+    assert counts[:, 0].tolist() == [512, 512]   # every slot in digit 0
+    (a, b), _ = tp.partition_pass_fused([x], [x], None, unstable=False, **kw)
+    assert a.shape == b.shape == (2, 8 * 256)
+    outs, _ = tp.partition_pass_fused([x] * 4, [], None, **kw)
+    assert len(outs) == 4
     # the raw modes that used to raise now run
     (a, b), _ = tp.partition_pass_fused([x], [x], None, unstable=True, **kw)
     assert a.shape == b.shape == (2, 8 * 256)

@@ -156,8 +156,13 @@ def test_plan_is_planned_once_per_size():
     hits = tm._plan_cached.cache_info().hits
     np.testing.assert_array_equal(_twiddled_sort(x, cfg), np.sort(x))
     assert tm._plan_cached.cache_info().hits == hits + 1
-    assert tm._plan_cached(7000, 32, (("k", 2048), ("r", 16), ("s1", 256))) \
-        == want
+    kw = (("k", 2048), ("r", 16), ("s1", 256))
+    assert tm._plan_cached(7000, 0, 32, "raw", kw) == want
+    # the bit range and the leaf profile key the cache too
+    assert tm._plan_cached(7000, 8, 32, "raw", kw) == \
+        tm.plan_msd(7000, 8, 32, k=2048, r=16, s1=256)
+    assert tm._plan_cached(7000, 0, 32, "packed", kw) == \
+        tm.plan_msd(7000, 0, 32, k=2048, r=16, s1=256, leaf_profile="packed")
 
 
 def test_reference_route_below_min_n():
@@ -168,8 +173,9 @@ def test_reference_route_below_min_n():
     got = _twiddled_sort(x, SortConfig(tile_elems=2048, radix=16, s1=256,
                                        min_n=4096, small_n_threshold=2048))
     np.testing.assert_array_equal(got, np.sort(x))
-    assert tm.counters() == dict(k1_launches=0, k2_launches=0,
-                                 k3_launches=0, reference_routes=1,
+    assert tm.counters() == dict(k1_launches=0, k1c_launches=0,
+                                 k2_launches=0, k3_launches=0,
+                                 k4_launches=0, reference_routes=1,
                                  overflow_fallbacks=0)
 
 
@@ -184,9 +190,14 @@ def test_mode_counters():
     _build.count_launch(tm.sort_tiles, 1, 2)
     _build.count_launch(tm.partition_pass_fused, 2, 0)
     _build.count_launch(tm.partition_pass_fused, 2, 0)
-    assert tm.mode_counters() == {("K1", 2, 0): 2, ("K3", 1, 2): 1}
+    _build.count_launch(tm._partition_pass_general_cuda, 1, 1)
+    _build.count_launch(tm.collapse_segments, 0, 2)
+    assert tm.mode_counters() == {("K1", 2, 0): 2, ("K3", 1, 2): 1,
+                                  ("K1c", 1, 1): 1, ("K4", 0, 2): 1}
     assert tm.counters()["k1_launches"] == 2
+    assert tm.counters()["k1c_launches"] == 1
     assert tm.counters()["k3_launches"] == 1
+    assert tm.counters()["k4_launches"] == 1
     tm.reset_counters()
     assert tm.mode_counters() == {} and tm.counters()["k1_launches"] == 0
 

@@ -2,10 +2,11 @@
 
 The MSD radix sort of 1-D uint32/int32/float32 and uint64/int64/float64
 tensors, keys only or with 32- and 64-bit payloads, stable or unstable,
-plus ``argsort`` and the plane interface ``sort_planes``.  On a CUDA tensor
-the partition passes, the leaf and the single-tile sort run as hand-written
-sm_90a kernels (``tpusort_torch/csrc``), built with nvcc at first use; on a
-CPU tensor they run as their plain PyTorch versions.  The JAX package ``tpusort`` is the
+over the whole key or a bit range, plus ``argsort``, the plane interface
+``sort_planes`` and ``sort_pairs_lsb_in_value``.  On a CUDA tensor the
+partition passes, the leaves, the collapse and the single-tile sort run as
+hand-written sm_90a kernels (``tpusort_torch/csrc``), built with nvcc at
+first use; on a CPU tensor they run as their plain PyTorch versions.  The JAX package ``tpusort`` is the
 reference the port is tested against; this package never imports jax.
 """
 
@@ -16,6 +17,7 @@ from tpusort_torch.api import (
     sort_keys_descending,
     sort_pairs,
     sort_pairs_descending,
+    sort_pairs_lsb_in_value,
     sort_planes,
     unstable_sort_keys,
     unstable_sort_pairs,

@@ -1,18 +1,17 @@
 """Public sort API of the PyTorch port.
 
 Port of ``tpusort/api.py``: ``sort`` and its key-only and pair wrappers,
-``argsort`` and ``sort_planes``, for 1-D uint32/int32/float32 and
-uint64/int64/float64 keys with optional 32- or 64-bit payloads, on a CUDA
-device (the hand-written kernels) or on the CPU (their plain PyTorch
-versions).  Outputs lie on the input's device.
+``argsort``, ``sort_planes`` and ``sort_pairs_lsb_in_value``, for 1-D
+uint32/int32/float32 and uint64/int64/float64 keys with optional 32- or
+64-bit payloads, over the whole key or a ``begin_bit``/``end_bit`` range,
+on a CUDA device (the hand-written kernels) or on the CPU (their plain
+PyTorch versions).  Outputs lie on the input's device.
 
 64-bit keys and values are split into (hi, lo) int32 planes with views on
 the device (``dtypes.split64``) and joined back the same way: the same
 words the JAX package's numpy host boundary makes, without the round trip.
-Bit-range sorts and stable pairs of 64-bit keys take the JAX engine's
-general (digit, idx) path, which is not ported yet (ROADMAP Queue 1 item
-5); the host tiering of the JAX API (item 7) is not ported either, so every
-call runs the engine directly, as under ``jit``.
+The host tiering of the JAX API (ROADMAP Queue 1 item 7) is not ported, so
+every call runs the engine directly, as under ``jit``.
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ __all__ = [
     "sort_keys_descending",
     "sort_pairs",
     "sort_pairs_descending",
+    "sort_pairs_lsb_in_value",
     "sort_planes",
     "unstable_sort_keys",
     "unstable_sort_pairs",
@@ -89,17 +89,13 @@ def _sort_twiddled(planes, traits, vt, *, begin_bit, end_bit, stable,
     if not 0 <= begin_bit < eb <= traits.bits:
         raise ValueError(
             f"invalid bit range [{begin_bit}, {eb}) for {traits.name}")
-    if begin_bit != 0 or eb != traits.bits:
-        raise NotImplementedError(
-            "begin_bit/end_bit sub-range sorts are not ported yet: ROADMAP "
-            "Queue 1 item 5")
     n = planes[0].shape[0]
     words, spec = _value_words(vt, n, device)
     cfg = _configs.get_config(traits.bits, bool(vt), device.type)
     if cfg.default_algorithm != "msd":
         raise NotImplementedError(
             f"engine {cfg.default_algorithm!r} is not ported; only 'msd' is")
-    sp, sw = sort_twiddled_msd(planes, words, begin_bit=0, end_bit=eb,
+    sp, sw = sort_twiddled_msd(planes, words, begin_bit=begin_bit, end_bit=eb,
                                total_bits=traits.bits, config=cfg,
                                stable=stable)
     return sp, _join_values(sw, spec)
@@ -118,11 +114,14 @@ def sort(
     uint64/int64/float64 keys, ascending or ``descending``, by the keys'
     bit patterns (NaN payloads, -0.0 and +0.0 keep their bits and sort by
     them), optionally carrying ``values``: one tensor or a tuple of
-    tensors of the keys' length.  Stable by default (equal keys keep their
-    payloads in input order, ascending or descending); ``stable=False``
-    lets equal keys reorder their payloads.  Keys-only output does not
-    depend on ``stable``.  Returns the sorted keys, or ``(keys, values)``
-    when values are given."""
+    tensors of the keys' length.  With ``begin_bit``/``end_bit`` only bits
+    [begin_bit, end_bit) of the twiddled key order it (``descending``
+    complements the bits first); the keys come back whole.  Stable by
+    default (keys equal in those bits keep their input order, payloads
+    too, ascending or descending); ``stable=False`` lets equal keys reorder
+    their payloads.  Keys-only output does not depend on ``stable``.
+    Returns the sorted keys, or ``(keys, values)`` when values are
+    given."""
     if not isinstance(keys, torch.Tensor):
         raise TypeError("keys must be a torch.Tensor")
     if keys.dim() != 1:
@@ -188,8 +187,8 @@ def argsort(
 
     Full-range 32-bit keys sort the composite (twiddled key, index) planes
     keys-only: the index plane is both the stable tiebreak and the output.
-    Other keys take the stable pairs path with the index as payload
-    (bit ranges and 64-bit keys are ROADMAP Queue 1 item 5)."""
+    Other keys (64-bit, or a ``begin_bit``/``end_bit`` range) take the
+    stable pairs path with the index as payload."""
     if not isinstance(keys, torch.Tensor) or keys.dim() != 1:
         raise NotImplementedError("tpusort_torch sorts 1-D tensors")
     n = keys.shape[0]
@@ -228,3 +227,33 @@ def unstable_sort_keys(keys, **kw):
 
 def unstable_sort_pairs(keys, values, **kw):
     return sort(keys, values, stable=False, **kw)
+
+
+def sort_pairs_lsb_in_value(keys: torch.Tensor, values: torch.Tensor,
+                            num_lsb_bytes: int = 4, *,
+                            descending: bool = False):
+    """Unstable pair sort of 32-bit ``keys`` by the composite key (key,
+    low ``num_lsb_bytes`` bytes of the 32-bit value), ascending or
+    ``descending``.  The masked value bytes ride as the second key plane of
+    the raw 2-plane path, and the whole value as the payload (port of
+    ``tpusort.api.sort_pairs_lsb_in_value``).  Returns (keys, values)."""
+    if not 1 <= num_lsb_bytes <= 4:
+        raise ValueError("num_lsb_bytes must be in 1..4")
+    if not isinstance(values, torch.Tensor) or values.element_size() != 4:
+        raise ValueError("values must be a 32-bit dtype")
+    if not isinstance(keys, torch.Tensor) or keys.dim() != 1:
+        raise NotImplementedError("tpusort_torch sorts 1-D tensors")
+    if _dtypes.traits_for(keys.dtype).planes != 1:
+        raise NotImplementedError(
+            "lsb-in-value needs a free plane slot: 32-bit key dtypes only")
+    (plane,), traits = _dtypes.twiddle_in(keys.contiguous())
+    (v,), _ = _value_words((values,), keys.shape[0], keys.device)
+    mask = (1 << (8 * num_lsb_bytes)) - 1
+    comp = (plane, v & (mask - (1 << 32) if mask >= 1 << 31 else mask))
+    if descending:
+        comp = tuple(~p for p in comp)
+    cfg = _configs.get_config(64, True, keys.device.type)
+    sp, (sv,) = sort_twiddled_msd(comp, (v,), begin_bit=0, end_bit=64,
+                                  total_bits=64, config=cfg, stable=False)
+    k_plane = ~sp[0] if descending else sp[0]
+    return _dtypes.twiddle_out((k_plane,), traits), sv.view(values.dtype)

@@ -148,6 +148,30 @@ inline bool make_operands(const void* const* keys_in, void* const* keys_out,
   return true;
 }
 
+// Up to this many operand words per launch of the kernels that move words
+// without comparing them (K1c, K4), passed by value.
+constexpr int kMaxOperands = 16;
+
+struct Operands {
+  const uint32_t* in[kMaxOperands];
+  uint32_t* out[kMaxOperands];
+  int count;
+};
+
+// Host side: n (1-16) input and output device pointers packed for those
+// kernels; false if n is out of range.
+inline bool make_operand_list(const void* const* in, void* const* out, int n,
+                              Operands* ops) {
+  if (n < 1 || n > kMaxOperands) return false;
+  *ops = Operands{};
+  ops->count = n;
+  for (int k = 0; k < n; ++k) {
+    ops->in[k] = static_cast<const uint32_t*>(in[k]);
+    ops->out[k] = static_cast<uint32_t*>(out[k]);
+  }
+  return true;
+}
+
 // Host side: calls f(NK, IDX) with NK = n_planes (1-3) and IDX = has_values
 // as compile-time constants, so each mode runs its own template instance.
 template <class F>

@@ -44,6 +44,12 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _P],
     # keys_in, keys_out, vals_in, vals_out, n_vals, T, K, P, stream
     "tpusort_sort_tiles": [_P, _P, _PP, _PP, _I, _I, _I, _I, _P],
+    # ops_in, ops_out, n_ops, n_planes, digit, counts_in, q_in, n, T, K, R,
+    # S, lo_bit, width, t_seg, counts_out, stream
+    "tpusort_partition_general": [_PP, _PP, _I, _I, _P, _P, _I, _LL, _I, _I,
+                                  _I, _I, _I, _I, _I, _P, _P],
+    # ops_in, ops_out, n_ops, counts, offsets, n_out, nseg, seg, stream
+    "tpusort_collapse": [_PP, _PP, _I, _P, _P, _LL, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,13 +1,19 @@
-"""K1: the fused MSD partition pass, raw-key mode.
+"""K1 and K1c: the fused MSD partition pass, raw-key and general branches.
 
-PyTorch port of ``tpusort/kernels/partition.py:partition_pass_fused`` (the
-raw-key branch of ``_fused_kernel``): 1-3 key planes, and payload words
-that ride unstably.  On a CUDA tensor the wrapper launches the hand-written
-kernel in ``csrc/partition.cu`` (one CTA per tile; see that file for the
-design and what bounds it).  On a CPU tensor it runs
-:func:`partition_pass_fused_plain`, the plain PyTorch version of the same
-contract, which the tests hold against the Pallas kernel and the card holds
-the CUDA kernel against.
+PyTorch port of ``tpusort/kernels/partition.py:partition_pass_fused``:
+
+* the raw-key branch (K1) sorts each tile by 1-3 key planes, with payload
+  words that ride unstably; on a CUDA tensor it launches
+  ``csrc/partition.cu`` (a shared-memory sort network per tile);
+* the general branch (K1c) partitions each tile stably by its digit, with
+  planes and payload words riding in input order; on a CUDA tensor it
+  launches ``csrc/partition_general.cu`` (a counting partition, no sort).
+
+See those files for the designs and what bounds them.  On a CPU tensor
+the wrapper runs the plain PyTorch version of the same contract
+(:func:`partition_pass_fused_plain`, :func:`partition_pass_general_plain`),
+which the tests hold against the Pallas kernel and the card holds the CUDA
+kernels against.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ MAX_TILE = 1 << 15     # the slot index is 16-bit; 128 KB a key plane
 MAX_RADIX = 256        # the kernel's shared-memory histogram
 MAX_PLANES = 3         # key planes the kernels compare
 MAX_VALUES = 8         # payload words per launch
+MAX_OPERANDS = 16      # planes + payload words of a K1c or K4 launch
 SMEM_MAX = 232_448     # dynamic + static shared memory of one CTA (sm_90)
 _K1_STATIC_SMEM = (2 * MAX_RADIX + 1) * 4
 
@@ -93,24 +100,76 @@ def partition_pass_fused_plain(
     exchanged runs (T*R*S,) per operand, counts (T, R) int32).  Slots past
     a run's count hold unspecified words, as in the kernel; ties keep
     their input order (any order is legal)."""
-    T, K = planes[0].shape
-    dev = planes[0].device
     valid = _valid(planes[0], counts_in, q_in, n)
     sp, sv = sort_rows_lex([torch.where(valid, p, -1) for p in planes],
                            values)
     n_valid = valid.sum(dim=1, dtype=torch.int32)
-    digit = extract_bits(sp, lo_bit, width)
-    hist = torch.zeros(T, r, dtype=torch.int32, device=dev).scatter_add_(
-        1, digit, torch.ones_like(digit, dtype=torch.int32))
+    hist = _histogram(extract_bits(sp, lo_bit, width), r)
     start = torch.cumsum(hist, dim=1, dtype=torch.int32) - hist
     counts = hist.clone()
     counts[:, r - 1] = n_valid - start[:, r - 1]
-    idx = (start[:, :, None] + torch.arange(s, device=dev, dtype=torch.int32))
+    return _emit_runs((*sp, *sv), start, s, t_seg), counts
+
+
+def _histogram(digit: torch.Tensor, bins: int) -> torch.Tensor:
+    """(T, bins) int32 counts of each row's int64 digits."""
+    return torch.zeros(digit.shape[0], bins, dtype=torch.int32,
+                       device=digit.device).scatter_add_(
+        1, digit, torch.ones_like(digit, dtype=torch.int32))
+
+
+def _emit_runs(sorted_ops: Sequence[torch.Tensor], start: torch.Tensor,
+               s: int, t_seg: int) -> List[torch.Tensor]:
+    """Cut each sorted (T, K) tile into R runs of S slots from ``start``
+    ((T, R) int32) and lay them out digit-major, run d of tile (seg, j) at
+    out[seg, d, j]; slots past the tile's end repeat its last slot."""
+    T, K = sorted_ops[0].shape
+    r = start.shape[1]
+    idx = (start[:, :, None]
+           + torch.arange(s, device=start.device, dtype=torch.int32))
     idx = idx.clamp(max=K - 1).reshape(T, r * s).long()
-    n_seg = T // t_seg
-    outs = [torch.gather(o, 1, idx).reshape(n_seg, t_seg, r, s)
-            .transpose(1, 2).reshape(-1) for o in (*sp, *sv)]
-    return outs, counts
+    return [torch.gather(o, 1, idx).reshape(T // t_seg, t_seg, r, s)
+            .transpose(1, 2).reshape(-1) for o in sorted_ops]
+
+
+def _general_digit(planes: Sequence[torch.Tensor], valid: torch.Tensor,
+                   digit: Optional[torch.Tensor], r: int, lo_bit: int,
+                   width: int) -> torch.Tensor:
+    """(T, K) int64 digit of each slot: key bits [lo_bit, lo_bit + width)
+    or the caller's digit plane (as unsigned); R where the slot is invalid
+    or the digit is not below R."""
+    d = extract_bits(planes, lo_bit, width) if digit is None else \
+        digit.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(valid & (d < r), d, r)
+
+
+def partition_pass_general_plain(
+    planes: Sequence[torch.Tensor],
+    values: Sequence[torch.Tensor],
+    counts_in: Optional[torch.Tensor],
+    *,
+    q_in: Optional[int],
+    n: Optional[int],
+    r: int,
+    s: int,
+    lo_bit: int,
+    width: int,
+    t_seg: int,
+    digit: Optional[torch.Tensor] = None,
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Plain PyTorch K1c on (T, K) int32 planes and values: each tile
+    stably sorted by its digit (R for invalid slots, which drop out), then
+    cut into runs exactly as :func:`partition_pass_fused_plain` cuts them.
+    Returns (flat exchanged runs (T*R*S,) per operand, counts (T, R) int32
+    = the valid slots of each digit).  Slots past a run's count hold
+    unspecified words, as in the kernel."""
+    valid = _valid(planes[0], counts_in, q_in, n)
+    d = _general_digit(planes, valid, digit, r, lo_bit, width)
+    order = torch.sort(d, dim=1, stable=True).indices
+    counts = _histogram(d, r + 1)[:, :r].contiguous()
+    start = torch.cumsum(counts, dim=1, dtype=torch.int32) - counts
+    ops = [torch.gather(o, 1, order) for o in (*planes, *values)]
+    return _emit_runs(ops, start, s, t_seg), counts
 
 
 def _partition_pass_cuda(
@@ -152,6 +211,54 @@ def _partition_pass_cuda(
     return outs, counts
 
 
+def _partition_pass_general_cuda(
+    planes: Sequence[torch.Tensor],
+    values: Sequence[torch.Tensor],
+    counts_in: Optional[torch.Tensor],
+    *,
+    q_in: Optional[int],
+    n: Optional[int],
+    r: int,
+    s: int,
+    lo_bit: int,
+    width: int,
+    t_seg: int,
+    digit: Optional[torch.Tensor],
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    T, K = planes[0].shape
+    n_ops = len(planes) + len(values)
+    # shared memory is 2 bytes a slot plus 18.5 KB: any K up to MAX_TILE fits
+    if K > MAX_TILE or n_ops > MAX_OPERANDS or r > MAX_RADIX:
+        raise ValueError(
+            f"partition_pass_fused (general): a tile of {K} slots with "
+            f"{n_ops} operand(s) and R={r} exceeds the kernel's limits "
+            f"({MAX_TILE} slots, {MAX_OPERANDS} operands, {MAX_RADIX} "
+            "digits)")
+    if counts_in is not None:
+        counts_in = counts_in.to(torch.int32).contiguous()
+    dev = planes[0].device
+    ops = [*planes, *values]
+    outs = [torch.empty(T * r * s, dtype=torch.int32, device=dev)
+            for _ in ops]
+    counts = torch.empty(T, r, dtype=torch.int32, device=dev)
+    err = _build.library().tpusort_partition_general(
+        _build.pointers(ops), _build.pointers(outs), n_ops, len(planes),
+        None if digit is None else digit.data_ptr(),
+        None if counts_in is None else counts_in.data_ptr(),
+        q_in or 0, -1 if n is None else n, T, K, r, s, lo_bit, width, t_seg,
+        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "partition_pass_fused (general)")
+    _build.count_launch(_partition_pass_general_cuda, len(planes),
+                        len(values))
+    return outs, counts
+
+
+# K1c launches are counted apart from K1's (``ops.msd.counters``)
+_partition_pass_general_cuda.launches = 0
+_partition_pass_general_cuda.modes = collections.Counter()
+
+
 def partition_pass_fused(
     planes: Sequence[torch.Tensor],
     values: Sequence[torch.Tensor],
@@ -169,38 +276,41 @@ def partition_pass_fused(
     digit: Optional[torch.Tensor] = None,
     splitters: Optional[torch.Tensor] = None,
     splitter_fracs: Optional[torch.Tensor] = None,
+    general: bool = False,
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """One fused MSD partition pass over (T, K) int32 bit-pattern tiles of
-    1-3 key planes (plane 0 most significant) and payload words.
+    key planes (plane 0 most significant) and payload words.
 
     Validity comes from ``counts_in`` ((T, K // q_in) int32: subrun i of
     ``q_in`` slots holds counts_in[t, i] valid slots as a prefix), or, for
-    pass 0 (``counts_in`` None), from the global slot index vs ``n``.
-    Invalid slots become 0xFFFFFFFF in every key plane.  ``sorted_run``:
-    the tile already consists of ascending runs of that power-of-two length
-    once invalid slots are rewritten (the kernel then only merges).  The
-    digit is bits [lo_bit, lo_bit + width) of the whole multi-plane key.
-    With ``t_seg`` (tiles per digit segment) run d of tile (seg, j) goes to
+    pass 0 (``counts_in`` None), from the global slot index vs ``n``.  The
+    digit is bits [lo_bit, lo_bit + width) of the whole multi-plane key, or
+    the caller's ``digit`` plane ((T, K) int32, values below ``r``).  With
+    ``t_seg`` (tiles per digit segment) run d of tile (seg, j) goes to
     out[seg, d, j] and the runs come back flat (T*R*S,); without it,
     tile-major (T, R*S).  Returns (runs of every plane then every value,
     counts (T, R) int32); counts may exceed ``s``, and the caller checks
-    overflow.
+    overflow.  Slots past a run's count are unspecified.
 
-    Payloads need ``unstable`` (they ride the raw-key sort, so equal keys
-    may reorder them); stable payloads and more than 3 planes take the
-    general branch (K1c), which is not ported.  The TPU-only ``batch`` and
-    ``interpret`` arguments are gone.
+    The branch follows JAX's routing.  1-3 planes with no payloads or with
+    ``unstable`` payloads take the raw-key branch (K1): each tile is sorted
+    by the planes, invalid slots becoming 0xFFFFFFFF in every plane, and
+    ``sorted_run`` says the tile already consists of ascending runs of that
+    power-of-two length (the kernel then only merges).  Stable payloads,
+    a ``digit`` plane or more than 3 planes take the general branch (K1c):
+    each tile is partitioned stably by its digit, invalid slots dropped,
+    and every operand keeps its input order within a run; ``sorted_run`` is
+    ignored.  ``general=True`` sends the other calls there too: the engine
+    needs a stable partition for keys-only bit-range sorts, which the raw
+    branch cannot give, since it orders equal digits by the whole key.  The
+    TPU-only ``batch`` and ``interpret`` arguments are gone.
     """
-    if digit is not None or len(planes) > MAX_PLANES or \
-            (values and not unstable):
-        raise NotImplementedError(
-            "digit=, stable payloads and more than 3 key planes take the "
-            "general (digit, idx) branch (K1c), which is not ported yet: "
-            "ROADMAP Queue 1 item 5")
     if splitters is not None or splitter_fracs is not None:
         raise NotImplementedError(
             "splitters= (equi-depth splitter mode, K1b) is not ported yet: "
             "ROADMAP Queue 1 item 7")
+    raw = (not general and digit is None and len(planes) <= MAX_PLANES
+           and (not values or unstable))
     ops = list(planes) + list(values)
     if not planes or any(o.dtype != torch.int32 or o.dim() != 2
                          for o in ops):
@@ -211,8 +321,18 @@ def partition_pass_fused(
     dev = ops[0].device
     if any(o.shape != ops[0].shape or o.device != dev for o in ops):
         raise ValueError("every operand must have the same shape and device")
+    if digit is not None:
+        if digit.dtype != torch.int32 or digit.shape != ops[0].shape \
+                or digit.device != dev:
+            raise ValueError("digit must be a (T, K) int32 tensor on the "
+                             "keys' device")
+        digit = digit.contiguous()
     if K % 128 or K & (K - 1) or s <= 0 or s % 128:
         raise ValueError(f"bad tile geometry K={K} S={s}")
+    # the TPU's general branch packs (digit or R) << log2(K) | slot into one
+    # word; the kernels here keep no such key, but take the same shapes
+    if not raw and ((r + 1) << (K.bit_length() - 1)) > (1 << 32):
+        raise ValueError("sortkey overflow: (r+1) * K must fit in 32 bits")
     total = 32 * len(planes)
     if width <= 0 or (1 << width) > r or not 0 <= lo_bit <= total - width:
         raise ValueError(f"digit bits [{lo_bit}, {lo_bit + width}) do not "
@@ -235,13 +355,19 @@ def partition_pass_fused(
     kp, kv = ops[:len(planes)], ops[len(planes):]
     kw = dict(q_in=q_in, n=n, r=r, s=s, lo_bit=lo_bit, width=width,
               t_seg=seg_tiles)
-    if dev.type == "cpu":
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no K1 for device {dev}")
+    if raw and dev.type == "cpu":
         outs, counts = partition_pass_fused_plain(kp, kv, counts_in, **kw)
-    elif dev.type == "cuda":
+    elif raw:
         outs, counts = _partition_pass_cuda(kp, kv, counts_in,
                                             sorted_run=sorted_run, **kw)
+    elif dev.type == "cpu":
+        outs, counts = partition_pass_general_plain(kp, kv, counts_in,
+                                                    digit=digit, **kw)
     else:
-        raise ValueError(f"no K1 for device {dev}")
+        outs, counts = _partition_pass_general_cuda(kp, kv, counts_in,
+                                                    digit=digit, **kw)
     if t_seg is None:
         outs = [o.reshape(T, r * s) for o in outs]
     return outs, counts

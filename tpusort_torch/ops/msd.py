@@ -1,25 +1,32 @@
-"""MSD hybrid radix sort engine, raw-key paths.
+"""MSD hybrid radix sort engine: the raw-key and general paths.
 
 PyTorch port of ``tpusort/ops/msd.py``.  The planning part (``PassSpec``,
 ``MsdPlan``, ``plan_msd``) is copied verbatim: it is pure Python, and the
 JAX module imports jax at module level.
 
-The engine runs the raw-key paths: keys only (1-3 planes), unstable pairs,
-and stable 32-bit pairs through the composite (key, position) planes:
+The raw-key path takes full-range keys only (1-3 planes), unstable pairs,
+and stable 32-bit pairs through the composite (key, position) planes; the
+general (digit, idx) path takes the rest: bit-range sorts, keys only or
+with payloads, and stable pairs of multi-plane keys.
 
-* each partition pass (``run_passes``) calls the fused partition kernel K1
-  (``kernels.partition.partition_pass_fused``) once: every (T, K) tile is
-  sorted by the raw key planes (invalid slots become 0xFFFFFFFF), cut into
-  R digit runs padded to S, and written with its payloads straight into the
-  digit-major exchanged layout of the next pass;
+* each partition pass (``run_passes``) calls the fused partition kernel
+  (``kernels.partition.partition_pass_fused``) once: on the raw path K1
+  sorts every (T, K) tile by the raw key planes (invalid slots become
+  0xFFFFFFFF); on the general path K1c partitions it stably by the digit.
+  Either cuts R digit runs padded to S and writes them with their payloads
+  straight into the digit-major exchanged layout of the next pass;
 * validity is never stored per element: each pass returns a (T, R) counts
   table, and the next consumer derives validity from it;
-* the leaf kernel K2 (``kernels.bitonic.sort_tiles_counts_collapsed``)
+* the raw leaf, K2 (``kernels.bitonic.sort_tiles_counts_collapsed``),
   sorts packed tiles of whole final segments and writes each tile's valid
-  prefix to its dense output offset;
-* a run that overflows its capacity (count > S), or with payloads a valid
-  key equal to the all-ones sentinel, is caught on the device: the flag is
-  read on the host once, and the exact reference sort replaces the result;
+  prefix to its dense output offset.  The general leaf (:func:`_leaf_sort`)
+  sorts each segment stably by its remaining bits: a packed (segment,
+  remainder, position) word on K3 followed by the collapse K4 where the
+  word fits 32 bits, else K2 on the masked planes plus the position;
+* a run that overflows its capacity (count > S), or with raw-key payloads
+  a valid key equal to the all-ones sentinel, is caught on the device: the
+  flag is read on the host once, and the exact reference sort replaces the
+  result;
 * inputs too small for a plan go to the single-tile path (K3,
   ``ops/small.py``) where it applies, and to the reference sort otherwise.
 """
@@ -34,8 +41,11 @@ import torch
 
 from tpusort_torch.kernels.bitonic import (
     leaf_tile_cap, sort_tiles, sort_tiles_counts_collapsed)
-from tpusort_torch.kernels.partition import partition_pass_fused
-from tpusort_torch.ops.reference import sort_twiddled_reference
+from tpusort_torch.kernels.collapse import collapse_segments
+from tpusort_torch.kernels.partition import (
+    MAX_PLANES, _partition_pass_general_cuda, partition_pass_fused)
+from tpusort_torch.ops.reference import (
+    _mask_plane_bits, sort_twiddled_reference)
 from tpusort_torch.ops.small import single_tile_ok, sort_twiddled_bitonic
 
 # ---------------------------------------------------------------------------
@@ -271,26 +281,34 @@ def plan_msd(
 # ---------------------------------------------------------------------------
 
 # Engine routes, as plain integers.  The kernel launch counts live on the
-# kernel wrappers (``partition_pass_fused.launches``,
-# ``sort_tiles_counts_collapsed.launches``, ``sort_tiles.launches``, and
-# ``.modes`` by key planes and payload words), which count only where they
-# launch a CUDA kernel; :func:`counters` and :func:`mode_counters` read them.
+# kernel wrappers (``partition_pass_fused.launches`` for K1's raw branch,
+# ``_partition_pass_general_cuda.launches`` for its general branch K1c,
+# ``sort_tiles_counts_collapsed.launches``, ``sort_tiles.launches``,
+# ``collapse_segments.launches``, and ``.modes`` by key planes and payload
+# words), which count only where they launch a CUDA kernel; :func:`counters`
+# and :func:`mode_counters` read them.
 _ROUTES = {"reference_routes": 0, "overflow_fallbacks": 0}
 _KERNELS = {"k1_launches": partition_pass_fused,
+            "k1c_launches": _partition_pass_general_cuda,
             "k2_launches": sort_tiles_counts_collapsed,
-            "k3_launches": sort_tiles}
+            "k3_launches": sort_tiles,
+            "k4_launches": collapse_segments}
 
 
 def counters() -> dict:
-    """K1/K2/K3 launches, reference routes (no plan and no single-tile
-    path) and overflow fallbacks since the last :func:`reset_counters`."""
+    """K1 (raw branch), K1c (general branch), K2, K3 and K4 launches,
+    reference routes (no plan and no single-tile path) and overflow
+    fallbacks since the last :func:`reset_counters`."""
     return dict({k: fn.launches for k, fn in _KERNELS.items()}, **_ROUTES)
 
 
 def mode_counters() -> dict:
     """Launches since the last :func:`reset_counters` by kernel and mode:
-    {("K1" | "K2" | "K3", key planes, payload words): launches}."""
-    return {(f"K{k[1]}", *mode): c for k, fn in _KERNELS.items()
+    {("K1" | "K1c" | "K2" | "K3" | "K4", key planes, payload words):
+    launches}.  K1c counts its key planes and value words; K4 compares no
+    keys, so its mode is (0, operand words)."""
+    return {("K" + k[1:k.index("_")], *mode): c
+            for k, fn in _KERNELS.items()
             for mode, c in fn.modes.items() if c}
 
 
@@ -309,10 +327,10 @@ def reset_counters() -> None:
 
 def run_passes(
     ops: Sequence[torch.Tensor], nplanes: int, n: int, plan: MsdPlan,
-    unstable: bool = False,
+    unstable: bool = False, general: bool = False,
 ) -> Tuple[List[torch.Tensor], Tuple[torch.Tensor, int], torch.Tensor]:
-    """All partition passes, one K1 launch each (port of
-    ``_run_passes_pallas``, without ``init_chain``).
+    """All partition passes, one K1 (raw) or K1c (``general``) launch each
+    (port of ``_run_passes_pallas``, without ``init_chain``).
 
     ``ops``: the (plan.m1,) int32 operands, ``nplanes`` key planes then
     payload words, valid below ``n``.  Validity rides as counts tables:
@@ -337,7 +355,7 @@ def run_passes(
             tiled[:nplanes], tiled[nplanes:], cin, q_in=q, r=spec.r,
             s=spec.s, lo_bit=spec.lo_bit, width=spec.width,
             n=(n if ctable is None else None), sorted_run=sorted_run,
-            unstable=unstable, t_seg=spec.t_seg,
+            unstable=unstable, t_seg=spec.t_seg, general=general,
         )
         prev_s = spec.s
         overflow |= (counts > spec.s).any()
@@ -376,12 +394,126 @@ def leaf_tiles(plan: MsdPlan, nplanes: int = 1,
 
 
 @functools.lru_cache(maxsize=128)
-def _plan_cached(n: int, end_bit: int, kwargs: Tuple[Tuple[str, int], ...]):
-    """The raw-key plan for n keys of ``end_bit`` bits.  ``plan_msd`` is
-    pure, and its search costs about 10 ms of host Python at 2^28 (the JAX
-    engine pays it once per trace); uncached it would run before every
-    sort's first launch."""
-    return plan_msd(n, 0, end_bit, leaf_profile="raw", **dict(kwargs))
+def _plan_cached(n: int, begin_bit: int, end_bit: int, leaf_profile: str,
+                 kwargs: Tuple[Tuple[str, int], ...]):
+    """The plan for n keys sorted by bits [begin_bit, end_bit) with the
+    ``leaf_profile`` ("raw" or "packed") leaf.  ``plan_msd`` is pure, and
+    its search costs about 10 ms of host Python at 2^28 (the JAX engine
+    pays it once per trace); uncached it would run before every sort's
+    first launch."""
+    return plan_msd(n, begin_bit, end_bit, leaf_profile=leaf_profile,
+                    **dict(kwargs))
+
+
+def _idx_bits(seg: int) -> int:
+    """Width of the leaf's position field: it has headroom above seg - 1,
+    so an invalid slot's all-ones sorts strictly after every valid slot of
+    its segment, and a valid position is never all-ones."""
+    idx_bits = (seg - 1).bit_length()
+    return idx_bits + 1 if seg >= (1 << idx_bits) else idx_bits
+
+
+def leaf_is_wide(plan: MsdPlan) -> bool:
+    """Whether the general leaf's (remainder, position) word would not fit
+    32 bits with a bit to spare, so that the leaf runs on K2."""
+    return plan.rem_width + _idx_bits(plan.seg) + 1 > 32
+
+
+def packed_leaf_rows(
+    ops: List[torch.Tensor], nplanes: int, ctable: torch.Tensor, q: int,
+    plan: MsdPlan,
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """K3's operands for the narrow general leaf (port of the packed branch
+    of ``_leaf_sort``): rows of whole final segments, operand 0 the packed
+    word ``segment | rem << idx_bits | position`` (all-ones in
+    rem | position for invalid slots), then every operand of ``ops``.
+    Empties ``ops``.  Returns (rows, (nseg,) int32 valid counts)."""
+    nseg, seg = plan.n_segments, plan.seg
+    dev = ops[0].device
+    ct = ctable.reshape(nseg, seg // q)
+    idx_bits = _idx_bits(seg)
+    # pack whole segments per K3 row while the segment id fits the word
+    pack = 1
+    while (pack * 2 * seg <= 16384 and nseg % (pack * 2) == 0
+           and (pack * 2 - 1).bit_length() + plan.rem_width + idx_bits <= 32):
+        pack *= 2
+    valid = (torch.arange(q, device=dev)[None, None, :]
+             < ct[:, :, None]).reshape(nseg, seg)
+    field = plan.rem_width + idx_bits
+    # int32 throughout: rem | position fits 31 bits, so only the segment
+    # id, or-ed in last as a per-row bit pattern, reaches the sign bit
+    rem = torch.zeros((nseg, seg), dtype=torch.int32, device=dev)
+    for i, p in enumerate(ops[:nplanes]):
+        base = 32 * (nplanes - 1 - i)
+        lo = max(plan.rem_lo, base)
+        hi = min(plan.rem_lo + plan.rem_width, base + 32)
+        if hi > lo:       # the arithmetic shift's sign bits are masked off
+            rem |= ((p.reshape(nseg, seg) >> (lo - base))
+                    & ((1 << (hi - lo)) - 1)) << (lo - plan.rem_lo)
+    key = torch.where(valid, (rem << idx_bits)
+                      | torch.arange(seg, dtype=torch.int32, device=dev),
+                      (1 << field) - 1)
+    del rem, valid
+    segid = (torch.arange(nseg, device=dev) % pack) << field
+    key |= (segid - ((segid >> 31) << 32)).to(torch.int32)[:, None]
+    rows = (nseg // pack, pack * seg)
+    to_sort = [key.reshape(rows)] + [o.reshape(rows) for o in ops]
+    ops.clear()
+    return to_sort, ct.sum(dim=1, dtype=torch.int32)
+
+
+def wide_leaf_operands(
+    ops: List[torch.Tensor], nplanes: int, ctable: torch.Tensor, q: int,
+    plan: MsdPlan,
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """K2's operands for the wide general leaf, one final segment a tile:
+    the range-masked key planes and the segment position as key planes,
+    then every operand of ``ops`` as payloads.  Empties ``ops``.  Returns
+    (operands, (nseg, seg // q) counts table)."""
+    nseg, seg = plan.n_segments, plan.seg
+    tiled = [o.reshape(nseg, seg) for o in ops]
+    ops.clear()
+    masked = _mask_plane_bits(tuple(tiled[:nplanes]), plan.rem_lo,
+                              plan.rem_lo + plan.rem_width, 32 * nplanes)
+    pos = torch.arange(seg, dtype=torch.int32,
+                       device=tiled[0].device).expand(nseg, seg)
+    return [*masked, pos, *tiled], ctable.reshape(nseg, seg // q)
+
+
+def _leaf_sort(
+    ops: List[torch.Tensor], nplanes: int, ctable: torch.Tensor, q: int,
+    plan: MsdPlan, n: int,
+) -> List[torch.Tensor]:
+    """The general path's leaf (port of ``_leaf_sort`` and the collapse
+    after it): each final segment sorted stably by its remaining key bits
+    [rem_lo, rem_lo + rem_width), and the segments' valid prefixes written
+    densely.  ``ops``: the last pass's flat runs, ``nplanes`` key planes
+    then payload words, valid where the counts table (``ctable``, ``q``)
+    says; the list is emptied so that the pass buffers can go once the
+    leaf has read them.  Returns the (n,) outputs, one per operand.
+
+    Within a segment the valid slots hold input order (K1c is stable), so
+    the segment-local position breaks ties in input order.  Where
+    (remainder, position) fits one word with a bit to spare, K3 sorts the
+    :func:`packed_leaf_rows` and K4 collapses them.  Otherwise (the wide
+    remainder) K2 sorts each segment by the range-masked planes plus the
+    position (:func:`wide_leaf_operands`), which is unique, and writes the
+    dense output itself.  JAX's leaf can rebuild a single full-range key
+    plane from the packed word (``key_from_sortkey``); such a call takes
+    the raw or composite path here and never reaches this leaf, so the
+    rebuild is not ported.
+    """
+    if leaf_is_wide(plan):
+        operands, ct = wide_leaf_operands(ops, nplanes, ctable, q, plan)
+        outs = sort_tiles_counts_collapsed(operands, ct, q, n,
+                                           num_keys=nplanes + 1)
+        return outs[nplanes + 1:]
+    rows, seg_counts = packed_leaf_rows(ops, nplanes, ctable, q, plan)
+    out = sort_tiles(rows)
+    del rows
+    return collapse_segments(
+        [o.reshape(plan.n_segments, plan.seg) for o in out[1:]], seg_counts,
+        n)
 
 
 def _reference(planes, values, bits):
@@ -399,34 +531,34 @@ def sort_twiddled_msd(
     config,
     stable: bool = True,
 ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
-    """Ascending sort of full-range twiddled int32 planes (plane 0 most
-    significant) with int32 payload words, on the tensors' device (port of
-    the raw-key branches of ``tpusort.ops.msd.sort_twiddled_msd``).
-    Returns (sorted planes, sorted values).
+    """Ascending sort of twiddled int32 planes (plane 0 most significant)
+    by the unsigned value of bits [begin_bit, end_bit), with int32 payload
+    words, on the tensors' device (port of
+    ``tpusort.ops.msd.sort_twiddled_msd``).  Returns (sorted planes, sorted
+    values); the planes come back whole, bits outside the range included.
 
-    Keys only (1-3 planes) and unstable pairs (``stable=False``) run K1 and
-    K2 on the raw key planes.  Stable 32-bit pairs sort the composite
-    (key, position) planes unstably, which is stable by key.  Delegates to
-    the single-tile path or the reference sort below ``config.min_n`` or
-    when no plan exists.  Otherwise runs the K1 passes and the K2 leaf,
-    reads the overflow flag on the host once, and takes the exact reference
-    sort if any run overflowed or a valid key of a pair equals the all-ones
-    sentinel.  (The JAX engine folds that choice into the graph with
-    ``lax.cond`` and can try its equi-depth skew tier first; both give the
-    same exact output.  The skew tier is ROADMAP Queue 1 item 7.)
+    Full-range keys only (1-3 planes) and unstable pairs (``stable=False``)
+    run K1 and K2 on the raw key planes.  Stable full-range 32-bit pairs
+    sort the composite (key, position) planes unstably, which is stable by
+    key.  Everything else, bit ranges and stable pairs of multi-plane keys,
+    takes the general path: K1c passes, which keep input order within a
+    digit, then :func:`_leaf_sort`; it is stable, keys only or not.
+    Delegates to the single-tile path or the reference sort below
+    ``config.min_n`` or when no plan exists.  Otherwise runs the passes and
+    the leaf, reads the overflow flag on the host once, and takes the exact
+    reference sort if any run overflowed or a valid raw-key pair equals the
+    all-ones sentinel.  (The JAX engine folds that choice into the graph
+    with ``lax.cond`` and can try its equi-depth skew tier first; both give
+    the same exact output.  The skew tier is ROADMAP Queue 1 item 7.)
+
+    Keys-only bit-range sorts take K1c, not JAX's route: the Pallas engine
+    sends them to its raw-key branch, which sorts each tile by the whole
+    key and so loses input order within the range (ROADMAP Queue 3).
     """
     nplanes = len(planes)
     full = begin_bit == 0 and end_bit == total_bits == 32 * nplanes
-    composite = bool(stable and values and nplanes == 1 and full)
-    raw = full and nplanes <= 3 and (not values or not stable)
-    if not (raw or composite):
-        raise NotImplementedError(
-            "bit-range sorts, stable pairs of multi-plane keys (stable "
-            "64-bit pairs) and keys of more than 3 planes take the general "
-            "(digit, idx) path, which is not ported yet: ROADMAP Queue 1 "
-            "item 5")
     n = planes[0].shape[0]
-    if composite:
+    if stable and values and nplanes == 1 and full:
         # stable pairs via the composite 64-bit key (key, position): the
         # position plane is unique, so the unstable 2-plane raw path is
         # stable by key, and its sentinel pre-check never fires on it
@@ -435,14 +567,15 @@ def sort_twiddled_msd(
             (planes[0], gidx), values, begin_bit=0, end_bit=64,
             total_bits=64, config=config, stable=False)
         return (sp[0],), sv
+    raw = full and nplanes <= MAX_PLANES and (not values or not stable)
     bits = dict(begin_bit=begin_bit, end_bit=end_bit, total_bits=total_bits)
     kwargs = config.plan_kwargs()
     min_n = kwargs.pop("min_n")
-    plan = _plan_cached(n, end_bit, tuple(sorted(kwargs.items()))) \
-        if n >= min_n else None
+    plan = _plan_cached(n, begin_bit, end_bit, "raw" if raw else "packed",
+                        tuple(sorted(kwargs.items()))) if n >= min_n else None
     if plan is None:
-        # keys, or unstable pairs: stable pairs took the composite branch
-        if single_tile_ok(planes, values, config=config, **bits):
+        if (not values or not stable) and \
+                single_tile_ok(planes, values, config=config, **bits):
             return sort_twiddled_bitonic(planes, values, config=config,
                                          **bits)
         return _reference(planes, values, bits)
@@ -452,23 +585,27 @@ def sort_twiddled_msd(
     ops = [torch.nn.functional.pad(o, (0, plan.m1 - n))
            if plan.m1 > n else o for o in (*planes, *values)]
     data, (ctable, q_fin), overflow = run_passes(
-        ops, nplanes, n, plan, unstable=bool(values))
+        ops, nplanes, n, plan, unstable=raw and bool(values),
+        general=not raw)
     del ops
-    if values:
-        # raw-key pairs: a valid key equal to the invalid-slot sentinel
-        # would tie it and could swap payloads with a dropped pad slot
-        is_max = planes[0] == -1
-        for p in planes[1:]:
-            is_max &= p == -1
-        overflow |= is_max.any()
-    nt, tile = leaf_tiles(plan, nplanes, bool(values))
-    last_s = plan.passes[-1].s
-    ct = ctable.reshape(nt, tile // q_fin)
-    outs = sort_tiles_counts_collapsed(
-        [o.reshape(nt, tile) for o in data], ct, q_fin, n,
-        sorted_run=(last_s & -last_s), num_keys=nplanes,
-    )
-    del data, ctable, ct                 # free the pass buffers first
+    if not raw:
+        outs = _leaf_sort(data, nplanes, ctable, q_fin, plan, n)
+    else:
+        if values:
+            # raw-key pairs: a valid key equal to the invalid-slot sentinel
+            # would tie it and could swap payloads with a dropped pad slot
+            is_max = planes[0] == -1
+            for p in planes[1:]:
+                is_max &= p == -1
+            overflow |= is_max.any()
+        nt, tile = leaf_tiles(plan, nplanes, bool(values))
+        last_s = plan.passes[-1].s
+        outs = sort_tiles_counts_collapsed(
+            [o.reshape(nt, tile) for o in data],
+            ctable.reshape(nt, tile // q_fin), q_fin, n,
+            sorted_run=(last_s & -last_s), num_keys=nplanes,
+        )
+    del data, ctable                     # free the pass buffers first
     if bool(overflow):                   # the one host sync of the path
         _ROUTES["overflow_fallbacks"] += 1
         return sort_twiddled_reference(planes, values, **bits)
