@@ -13,12 +13,15 @@ non-zero:
    counts table pass 0 gives;
 3. K2 (``sort_tiles_counts_collapsed``) keys-only vs plain at the leaf;
 4. ``tpusort_torch.sort`` of 2^28 uniform uint32 keys: bit-identical to the
-   reference sort, one K1 launch per pass, one K2 launch, no reference
-   route and no fallback;
+   reference sort, one radix tier (the host planner keeps it), one K1
+   launch per pass, one K2 launch, no reference route and no fallback;
 5. int32, float32 descending with NaN, -0.0 and +0.0 planted, and uint32
    with a block of 0xFFFFFFFF (which ties the invalid-slot sentinel), at
    2^24: bit-identical to the reference, through the kernels;
-6. constant keys at 2^24: the overflow fallback fires, the output is exact;
+6. the engine on 2^24 constant keys with the skew route off: the overflow
+   fallback fires, the output is exact; and the engine's own skew route
+   (on by default on a card) sorting runs of 4096 equal keys through the
+   equi-depth engine;
 7. K1 with payloads vs plain at the pairs 2^28 plan's pass 0 and pass 1
    shapes, for the composite (key, position) planes + a value and for one
    unique key plane + a value;
@@ -59,20 +62,41 @@ non-zero:
     window value, so their input order is checked), stable uint64 pairs
     with int64 values at 2^27, int64 ``argsort`` at 2^24; then
     ``sort_pairs_lsb_in_value`` at 2^24 (K1 and K2), and constant keys over
-    [8, 24), which take the exact fallback;
+    [8, 24), which overflow the radix tier and go to the exact sort;
+18. K1b (the splitter mode of ``partition_pass_fused``) vs its plain
+    version, bit for bit on the counts and every valid slot, fed as the
+    equi-depth engine feeds it (strided tiles, splitters and tie fractions
+    from the input's own quantile table): the 2^28 keys plan's pass 0 and
+    pass 1 on Zipf 1.1 keys, pass 0 of the 2^28 composite stable-pairs
+    plan (2 planes + a value) and of the unstable-pairs plan (a unique key
+    + a value), and pass 0 of the 2^27 u64 plan on Zipf 1.1 keys;
+19. the skew tier end to end, each against the reference: ``sort`` of
+    2^28 Zipf 1.1 keys and of entropy-3 keys, stable ``sort_pairs`` and
+    ``unstable_sort_pairs`` of Zipf keys with ``values = arange``, 2^27 u64
+    Zipf keys; each must skip the radix tier, run one equi-depth pipeline
+    of 3 K1b passes and take no exact fallback (else the counters are
+    printed and the script fails).  Presorted and constant 2^28 keys come
+    back through the identity path with no K1, K1b or K2 launch; and a
+    warm-cache run (uniform, uniform, constant, Zipf) stays exact;
 17. timings, median of 5 CUDA-event runs, alternating: the 2^28 sort
     against ``torch.sort``, the 2^28 pairs sort against ``torch.sort``
     (stable) plus the values gather, 2^27 uint64 keys against
     ``torch.sort`` of the keys as int64 with the sign bit flipped, the
     2^28 [0, 24) pairs sort against ``torch.sort(stable=True)`` of the
     masked keys plus the gathers, the 2^27 stable uint64 pairs against
-    ``torch.sort(stable=True)`` of the flipped keys plus the gathers, and
-    each kernel mode against its plain version.
+    ``torch.sort(stable=True)`` of the flipped keys plus the gathers, the
+    Zipf, entropy-3 and presorted 2^28 sorts against the same call forced
+    through radix then exact (the engine, skew tier off) and
+    ``torch.sort``, and each kernel mode against its plain version (and
+    K3 against ``torch.sort`` of its rows plus the gathers).
 
 The line before the last is a JSON summary of the kernels: each template
 mode compared, with its launches in the run of the path that drives it at
-that shape (counters set to 0 just before), or 0 where no path does; the
-last line is
+that shape (counters set to 0 just before), or 0 where no path does, its
+time, its plain version's time, its bound (the least time for the words
+it must move at 3.35 TB/s, or its operations at 67 T/s, the larger) and
+the time of a PyTorch call computing the same function where there is
+one (K3); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -90,6 +114,8 @@ SMALL_N = 1 << 24
 U64_N = 1 << 27
 REPS = 5
 SEED = 20261016
+HBM_BPS = 3.35e12        # H100 SXM memory rate (bytes/s)
+ALU_OPS = 67e12          # H100 SXM non-tensor 32-bit rate (ops/s)
 
 
 def fail(msg: str):
@@ -126,11 +152,13 @@ def main() -> None:
         sort_tiles_counts_collapsed_plain, sort_tiles_plain)
     from tpusort_torch.kernels.collapse import (
         collapse_segments, collapse_segments_plain)
+    from tpusort_torch import api as tapi
     from tpusort_torch.kernels.partition import (
         partition_pass_fused, partition_pass_fused_plain,
-        partition_pass_general_plain)
-    from tpusort_torch.ops import msd
+        partition_pass_general_plain, partition_pass_splitter_plain)
+    from tpusort_torch.ops import equidepth, msd
     from tpusort_torch.ops.reference import sort_twiddled_reference
+    from tpusort_torch.utils.datagen import zipf_keys_torch
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -160,17 +188,31 @@ def main() -> None:
         b.synchronize()
         return a.elapsed_time(b)
 
-    def time_pair(kernel_fn, plain_fn):
-        """REPS CUDA-event times (ms) of each, alternating plain, kernel,
-        kernel, plain after one warm-up of each."""
-        kernel_fn()
-        plain_fn()
-        tk, tp = [], []
+    def time_alt(*fns):
+        """REPS CUDA-event times (ms) of each function, in turns whose
+        order reverses every round (plain, kernel, kernel, plain), after
+        one warm-up of each; one list per function, in argument order."""
+        for fn in fns:
+            fn()
+        acc = [[] for _ in fns]
         for i in range(REPS):
-            order = [(plain_fn, tp), (kernel_fn, tk)]
-            for fn, acc in (order if i % 2 == 0 else order[::-1]):
-                acc.append(sync_ms(fn))
-        return tk, tp
+            order = list(zip(fns, acc))[::-1]
+            for fn, a in (order if i % 2 == 0 else order[::-1]):
+                a.append(sync_ms(fn))
+        return tuple(acc)
+
+    def time_pair(kernel_fn, plain_fn):
+        return time_alt(kernel_fn, plain_fn)
+
+    def bound(words: int, ops: int = 0):
+        """(ms, "bytes" | "operations"): the least time of ``words`` 32-bit
+        words moved at the H100's 3.35 TB/s, or of ``ops`` 32-bit integer
+        operations at 67 T/s (its non-tensor float32 rate), the larger."""
+        b_ms, o_ms = words * 4 / HBM_BPS * 1e3, ops / ALU_OPS * 1e3
+        return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+    def log2(k: int) -> int:
+        return (k - 1).bit_length()
 
     def fmt(ts) -> str:
         """Median ms of the samples, with their range."""
@@ -217,9 +259,12 @@ def main() -> None:
     def k1_vs_plain(name, planes, values, plan, n, general=False):
         """K1, or K1c with ``general``, kernel vs plain on pass 0 (validity
         from n) and pass 1 (from pass 0's counts table); returns (max abs
-        err, kernel times, plain times) with the times of pass 0.  K1c is
-        a stable partition, so any keys compare bit for bit; K1's payloads
-        ride unstably, so its callers give it unique keys."""
+        err, kernel times, plain times, words, operations) with the times
+        of pass 0 and its least work: n words of each operand read and
+        written plus the counts, and a sort of each tile (K1) or one digit
+        per key (K1c).  K1c is a stable partition, so any keys compare bit
+        for bit; K1's payloads ride unstably, so its callers give it unique
+        keys."""
         kid = "K1c" if general else "K1"
         plain_fn = (partition_pass_general_plain if general
                     else partition_pass_fused_plain)
@@ -264,12 +309,15 @@ def main() -> None:
         log(f"{kid} {name} == plain on pass 0 ({t0} x {sp0.k}, S={sp0.s}, "
             f"lo_bit={sp0.lo_bit}, n={n}) and pass 1 ({t1} x {sp1.k}, "
             f"S={sp1.s}, lo_bit={sp1.lo_bit}, q_in={q}); max_abs_err {err}")
-        return (err, *times)
+        n_ops = len(planes) + len(values)
+        return (err, *times, 2 * n * n_ops + t0 * sp0.r,
+                n if general else n * log2(sp0.k))
 
     def k2_vs_plain(name, planes, values, plan, n):
         """K2 kernel vs plain at the leaf ``plan`` reaches after its K1
         passes over the operands (each plan.m1 long); returns ((max abs
-        err, kernel times, plain times), the kernel's dense outputs)."""
+        err, kernel times, plain times, words, operations), the kernel's
+        dense outputs)."""
         np_ = len(planes)
         data, (ctable, q_fin), overflow = msd.run_passes(
             [*planes, *values], np_, n, plan, unstable=bool(values))
@@ -295,7 +343,8 @@ def main() -> None:
         times = time_pair(kernel, plain)
         log(f"K2 {name} == plain at ({nt}, {tile}) q={q_fin} "
             f"sorted_run={run}; max_abs_err {err}")
-        return (err, *times), k_dense
+        return (err, *times, 2 * n * len(leaf) + ct.numel() + nt,
+                n * (log2(tile) - log2(run))), k_dense
 
     def general_leaf_inputs(name, planes, values, plan, n):
         """The last K1c pass's runs of the operands and their counts
@@ -309,7 +358,9 @@ def main() -> None:
         """K3 on the packed leaf rows and K4 on K3's output, each against
         its plain version at the shapes ``plan`` gives; the dense result
         must be the stable sort of the input by ``range_bits``.  Returns
-        the K3 and the K4 (max abs err, kernel times, plain times)."""
+        the K3 and the K4 (max abs err, kernel times, plain times, words,
+        operations, library times); K3's library call is ``torch.sort``
+        of the rows plus a gather per payload."""
         np_ = len(planes)
         check(not msd.leaf_is_wide(plan), f"{name}: the leaf is not packed")
         data, ctable, q = general_leaf_inputs(name, planes, values, plan, n)
@@ -327,8 +378,17 @@ def main() -> None:
             check(same_bits(k[m], p[m]), f"K3 {name}: payloads differ")
             err3 = max(err3, max_abs_err(k[m], p[m]))
         del p_rows, m
-        t3 = time_pair(lambda: sort_tiles(rows), lambda: sort_tiles_plain(rows))
-        del rows
+        flipped = rows[0] ^ dtypes.INT32_MIN
+
+        def library():
+            order = torch.sort(flipped, dim=1).indices
+            return [torch.gather(o, 1, order) for o in rows[1:]]
+
+        t3 = time_alt(lambda: sort_tiles(rows), lambda: sort_tiles_plain(rows),
+                      library)
+        w3 = 2 * rows[0].numel() * len(rows)
+        o3 = rows[0].numel() * log2(rows[0].shape[1])
+        del rows, flipped
         log(f"K3 {name} == plain at {tuple(k_rows[0].shape)} with "
             f"{len(k_rows) - 1} payload words; max_abs_err {err3}")
         segs = [o.reshape(nseg, seg) for o in k_rows[1:]]
@@ -342,6 +402,7 @@ def main() -> None:
         del p_dense
         t4 = time_pair(lambda: collapse_segments(segs, seg_counts, n),
                        lambda: collapse_segments_plain(segs, seg_counts, n))
+        w4 = 2 * n * len(segs) + nseg
         del segs
         log(f"K4 {name} == plain at ({nseg}, {seg}) with {len(k_dense)} "
             f"operand(s), n_out={n}; max_abs_err {err4}")
@@ -352,14 +413,15 @@ def main() -> None:
         check(same_bits(k_dense[0], wk)
               and all(same_bits(a, b) for a, b in zip(k_dense[1:], wv)),
               f"{name}: the packed leaf's output is not the stable sort")
-        return (err3, *t3), (err4, *t4)
+        return (err3, *t3[:2], w3, o3, t3[2]), \
+            (err4, *t4, w4, 0)
 
     def wide_leaf_vs_plain(name, planes, values, plan, n):
         """K2 on the wide leaf's operands (range-masked planes + position
         as keys, planes and values as payloads) against its plain version;
         the keys are unique, so every output compares bit for bit.
-        Returns ((max abs err, kernel times, plain times), dense outputs of
-        the carried operands)."""
+        Returns ((max abs err, kernel times, plain times, words,
+        operations), dense outputs of the carried operands)."""
         np_ = len(planes)
         check(msd.leaf_is_wide(plan), f"{name}: the leaf is not wide")
         data, ctable, q = general_leaf_inputs(name, planes, values, plan, n)
@@ -383,7 +445,8 @@ def main() -> None:
         log(f"K2 {name} == plain at {tuple(ops[0].shape)} with {np_ + 1} "
             f"key planes and {len(ops) - np_ - 1} payload words; "
             f"max_abs_err {err}")
-        return (err, *times), k_dense[np_ + 1:]
+        return (err, *times, 2 * n * len(ops) + ct.numel(),
+                n * log2(ops[0].shape[1])), k_dense[np_ + 1:]
 
     def drive(fn):
         """Run one path with every counter set to 0 just before; returns
@@ -395,7 +458,9 @@ def main() -> None:
         torch.cuda.synchronize()
         return out, msd.counters(), msd.mode_counters()
 
-    results = {}     # kernel mode -> (max_abs_err, kernel times, plain times)
+    # kernel mode -> (max_abs_err, kernel times, plain times, words the
+    # function must move, its operations, library call times or absent)
+    results = {}
     # kernel mode -> launches of that template mode in the run of the path
     # that gives it the shape it was compared at; a mode compared at a shape
     # no path runs reports 0
@@ -458,7 +523,9 @@ def main() -> None:
     m1 = valid_slots(k_cnt1, sp1)
     check(same_bits(k_out1[m1], p_out1[m1]), "K1 pass 1: valid slots differ")
     k1_err = max(k1_err, max_abs_err(k_out1[m1], p_out1[m1]))
-    results["K1 keys"] = (k1_err, k1_times, k1_plain_times)
+    results["K1 keys"] = (k1_err, k1_times, k1_plain_times,
+                          2 * RAGGED_N + t0_tiles * sp0.r,
+                          RAGGED_N * log2(sp0.k))
     log(f"phase 2 ok: K1 == plain on pass 0 ({t0_tiles} x {sp0.k}, "
         f"n={RAGGED_N}) and pass 1 ({t1_tiles} x {sp1.k}, q_in={q}, "
         f"sorted_run={sp0.s & -sp0.s}); max_abs_err {k1_err}")
@@ -478,6 +545,9 @@ def main() -> None:
     del keys, k_dense, want
 
     # ---- phase 4: the main path at 2^28 -------------------------------
+    # every counter of msd.counters() at 0: a call adds only what it ran
+    msd.reset_counters()
+    quiet = msd.counters()
     x = random_i32(MAIN_N).view(torch.uint32)
     main_plan = plan_for(MAIN_N, 32, cfg)
     t0 = time.perf_counter()
@@ -489,10 +559,8 @@ def main() -> None:
           and out.device == x.device, "main path: wrong dtype/shape/device")
     check(same_bits(out, reference_sort(x)),
           "main path: 2^28 sort differs from the reference")
-    check(main_counts == dict(k1_launches=len(main_plan.passes),
-                              k1c_launches=0, k2_launches=1,
-                              k3_launches=0, k4_launches=0,
-                              reference_routes=0, overflow_fallbacks=0),
+    check(main_counts == dict(quiet, k1_launches=len(main_plan.passes),
+                              k2_launches=1, radix_tiers=1),
           f"main path did not run K1 x{len(main_plan.passes)} + K2 "
           f"without overflow: {main_counts}")
     launches["K1 keys"] = modes.get(("K1", 1, 0), 0)
@@ -528,15 +596,29 @@ def main() -> None:
         log(f"phase 5 ok: {name} at 2^24 == reference via the kernels")
     del f32_bits, ff_block, cases, keys, got
 
-    # ---- phase 6: constant keys take the exact fallback ---------------
-    zeros = torch.zeros(SMALL_N, dtype=torch.uint32, device=dev)
+    # ---- phase 6: the engine's fallbacks on constant keys ---------------
+    # (the API returns constant keys as they are: phase 19)
+    zeros = torch.zeros(SMALL_N, dtype=torch.int32, device=dev)
+    bits32 = dict(begin_bit=0, end_bit=32, total_bits=32)
     msd.reset_counters()
-    got = tpusort_torch.sort(zeros)
+    (got,), _ = msd.sort_twiddled_msd((zeros,), (), config=cfg,
+                                      skew_tier=False, **bits32)
     c = msd.counters()
     check(c["overflow_fallbacks"] == 1, f"constant keys: no fallback: {c}")
     check(same_bits(got, zeros), "constant keys: output differs")
-    log("phase 6 ok: constant keys raised overflow and the fallback is exact")
-    del zeros, got
+    # the engine's own skew route: on a card an overflowed keys-only sort
+    # under 2^28 goes through the equi-depth engine first
+    ramp = torch.arange(SMALL_N, dtype=torch.int32, device=dev) >> 12
+    msd.reset_counters()
+    (got,), _ = msd.sort_twiddled_msd((ramp,), (), config=cfg, **bits32)
+    c = msd.counters()
+    check(c["equidepth_runs"] == 1 and c["k1b_launches"] >= 2
+          and c["overflow_fallbacks"] == 0,
+          f"the engine's skew route did not sort 4096-key runs: {c}")
+    check(same_bits(got, ramp), "skew route: output differs")
+    log("phase 6 ok: constant keys took the engine's exact fallback; the "
+        f"engine's skew route sorted runs of equal keys ({c})")
+    del zeros, got, ramp
 
     # ---- phase 7: K1 with payloads at the pairs plan's shapes ---------
     pcfg = get_config(32, True, "cuda")
@@ -618,8 +700,16 @@ def main() -> None:
         for g, w in zip(got, want):
             check(same_bits(g, w), f"{name}: differs from plain")
             err = max(err, max_abs_err(g, w))
-        results[name] = (err, *time_pair(lambda: sort_tiles(ops),
-                                         lambda: sort_tiles_plain(ops)))
+        flipped = ops[0] ^ dtypes.INT32_MIN
+
+        def library():
+            order = torch.sort(flipped, dim=1).indices
+            return [torch.gather(o, 1, order) for o in ops[1:]]
+
+        tk, tp, tl = time_alt(lambda: sort_tiles(ops),
+                              lambda: sort_tiles_plain(ops), library)
+        results[name] = (err, tk, tp, 2 * t * k * len(ops), t * k * log2(k),
+                         tl)
         log(f"phase 9 ok: {name} == plain, max_abs_err {err}")
     del ops, got, want
 
@@ -637,10 +727,8 @@ def main() -> None:
     check(ko.dtype == torch.uint32 and vo.dtype == torch.uint32
           and same_bits(ko, wk) and same_bits(vo, wv),
           "sort_pairs 2^28: keys or values differ from the stable reference")
-    check(pairs_counts == dict(k1_launches=len(pairs_main.passes),
-                               k1c_launches=0, k2_launches=1,
-                               k3_launches=0, k4_launches=0,
-                               reference_routes=0, overflow_fallbacks=0),
+    check(pairs_counts == dict(quiet, k1_launches=len(pairs_main.passes),
+                               k2_launches=1, radix_tiers=1),
           f"sort_pairs did not run K1 x{len(pairs_main.passes)} + K2 "
           f"without overflow: {pairs_counts}")
     launches["K1 composite+value"] = modes.get(("K1", 2, 1), 0)
@@ -824,7 +912,8 @@ def main() -> None:
     results["K4c (64, 2^21) 2 operands"] = (
         max(max_abs_err(k, p) for k, p in zip(k_dense, p_dense)),
         *time_pair(lambda: collapse_segments(segs, seg_counts, n_out),
-                   lambda: collapse_segments_plain(segs, seg_counts, n_out)))
+                   lambda: collapse_segments_plain(segs, seg_counts, n_out)),
+        2 * 2 * n_out + 64, 0)
     del segs, k_dense, p_dense
     log("phase 14 ok: K3 on the packed rows and K4 after it equal their "
         "plain versions, and their output is the stable sort; K4 equals "
@@ -935,13 +1024,187 @@ def main() -> None:
     zv = torch.arange(SMALL_N, dtype=torch.int32, device=dev)
     (ko, vo), c, _ = drive(
         lambda: tpusort_torch.sort_pairs(zk, zv, begin_bit=8, end_bit=24))
-    check(c["overflow_fallbacks"] == 1 and c["k1c_launches"] >= 1,
-          f"constant keys [8, 24): no fallback after K1c: {c}")
+    # the radix tier overflows; the equi-depth tier takes no bit range and
+    # hands the call to the exact reference sort (as JAX's does)
+    check(c["radix_tiers"] == 1 and c["k1c_launches"] >= 1
+          and c["reference_routes"] == 1 and c["equidepth_runs"] == 0,
+          f"constant keys [8, 24): not the exact sort after K1c: {c}")
     check(same_bits(ko, zk) and same_bits(vo, zv),
           "constant keys [8, 24): the fallback is not exact and stable")
     del zk, zv, ko, vo
     log("phase 16 ok: constant keys over [8, 24) raised overflow and the "
-        "fallback is exact")
+        "exact sort took over")
+
+    # ---- phase 18: K1b vs plain at the equi-depth plans' shapes --------
+    def eq_plan(n: int, cfg_row, nbits: int):
+        """The equi-depth plan of n keys under a "cuda" row, widened, and
+        its sample size's log2 (None: automatic)."""
+        kw, _, s_log2, m, lmax = equidepth._prepare(
+            n, get_config(*cfg_row, "cuda").plan_kwargs())
+        p_ = equidepth._widen_last(msd.plan_msd(n, 0, nbits, **kw), n, m,
+                                   lmax)
+        return p_, s_log2
+
+    def k1b_vs_plain(name, planes, values, n, cfg_row, npasses):
+        """K1b kernel vs plain on the first ``npasses`` passes of the
+        equi-depth plan of these (n,) operands, fed as the engine feeds
+        them (strided tiles, the q = 128 counts table, splitters and tie
+        fractions from the operands' own quantile table), each pass on the
+        kernel's output of the last: counts exactly, every valid slot bit
+        for bit.  Returns (max abs err, kernel and plain times of pass 0,
+        words, operations)."""
+        nk = len(planes)
+        plan_, s_log2 = eq_plan(n, cfg_row, 32 * nk)
+        p_, r_ = len(plan_.passes), plan_.passes[0].r
+        table = equidepth._quantile_table(tuple(planes), n, r_ ** p_ - 1,
+                                          sample_log2=s_log2)
+        ops, ctable = equidepth._feed([*planes, *values], n, plan_)
+        qg, prev_s, err, out = 128, None, 0, None
+        for j in range(npasses):
+            spec = plan_.passes[j]
+            t = spec.n_seg * spec.t_seg
+            tiled = [o.reshape(t, spec.k) for o in ops]
+            spl, frac = equidepth._pass_splitters(table, p_, j, r_,
+                                                  spec.t_seg)
+            cin = ctable.reshape(t, spec.k // qg)
+            run = None if prev_s is None else prev_s & -prev_s
+            kw = dict(q_in=qg, n=None, r=spec.r, s=spec.s, t_seg=spec.t_seg)
+
+            def kernel():
+                return partition_pass_fused(
+                    tiled[:nk], tiled[nk:], cin, lo_bit=spec.lo_bit,
+                    width=spec.width, sorted_run=run, unstable=True,
+                    splitters=spl, splitter_fracs=frac, **kw)
+
+            def plain():
+                return partition_pass_splitter_plain(
+                    tiled[:nk], tiled[nk:], cin, splitters=spl,
+                    splitter_fracs=frac, **kw)
+
+            k_out, k_cnt = kernel()
+            p_out, p_cnt = plain()
+            check(torch.equal(k_cnt, p_cnt),
+                  f"K1b {name} pass {j}: counts differ")
+            check(int(k_cnt.max()) <= spec.s
+                  and int(k_cnt.sum()) == n,
+                  f"K1b {name} pass {j}: a run overflowed or counts != n")
+            m = valid_slots(k_cnt, spec)
+            for k, p in zip(k_out, p_out):
+                check(same_bits(k[m], p[m]),
+                      f"K1b {name} pass {j}: slots differ")
+                err = max(err, max_abs_err(k[m], p[m]))
+            del p_out, m
+            if j == 0:
+                times = time_pair(kernel, plain)
+                out = (2 * n * len(ops) + cin.numel() + t * spec.r
+                       + t * (spec.r - 1) * (nk + 1), n * log2(spec.k))
+            log(f"K1b {name} == plain on pass {j} ({t} x {spec.k}, "
+                f"S={spec.s}, q_in={qg}, sorted_run={run}); "
+                f"max_abs_err {err}")
+            ctable, qg = msd.next_counts_table(k_cnt, spec)
+            prev_s = spec.s
+            ops = k_out
+        return (err, *times, *out)
+
+    zk = zipf_keys_torch(gen, MAIN_N)       # Zipf 1.1 over 2^20 values
+    results["K1b keys"] = k1b_vs_plain("Zipf 1.1 keys (2^28)", [zk], [],
+                                       MAIN_N, (32, False), 2)
+    zpos = torch.arange(MAIN_N, dtype=torch.int32, device=dev)
+    results["K1b composite+value"] = k1b_vs_plain(
+        "composite (Zipf key, position) + value (2^28 pairs)", [zk, zpos],
+        [random_i32(MAIN_N)], MAIN_N, (32, True), 1)
+    ukey = unique_i32(MAIN_N)
+    results["K1b key+value"] = k1b_vs_plain(
+        "unique key + value (2^28 unstable pairs)", [ukey],
+        [random_i32(MAIN_N)], MAIN_N, (32, True), 1)
+    del ukey
+    z64 = zipf_keys_torch(gen, U64_N, dtype=torch.int64)
+    results["K1b 2 planes"] = k1b_vs_plain(
+        "2 planes, Zipf 1.1 (u64 2^27)", list(dtypes.split64(z64)), [],
+        U64_N, (64, False), 1)
+    log("phase 18 ok")
+
+    # ---- phase 19: the skew tier and the host tiering end to end -------
+    def through_skew(name, fn, passes, skip_radix=True):
+        """Run one call with the counters at 0: the equi-depth tier ran
+        once, with ``passes`` K1b launches, no exact fallback and (with
+        ``skip_radix``) no radix attempt.  Returns (output, launches by
+        mode)."""
+        # the tier cache is blind to the distribution (as in JAX): a cold
+        # call classifies this input, not the last uniform one
+        tapi._TIER_CACHE.clear()
+        got, c, modes = drive(fn)
+        log(f"{name} counters: {c} {modes}")
+        if c["overflow_fallbacks"] or (skip_radix and c["radix_tiers"]):
+            print(f"tier counters of {name}: {c}", flush=True)
+            fail(f"{name}: the skew tier fell back or radix was tried")
+        check(c["equidepth_runs"] == 1 and c["k1b_launches"] == passes,
+              f"{name}: not one equi-depth run of {passes} K1b passes: {c}")
+        return got, modes
+
+    zu = zk.view(torch.uint32)
+    got, modes = through_skew("sort Zipf 1.1 2^28",
+                              lambda: tpusort_torch.sort(zu), 3)
+    check(same_bits(got, reference_sort(zu)),
+          "Zipf 2^28: differs from the reference")
+    launches["K1b keys"] = modes.get(("K1b", 1, 0), 0)
+    log("phase 19 ok: Zipf 1.1 keys at 2^28 took the skew tier, exact")
+    e3 = (random_i32(MAIN_N) & random_i32(MAIN_N)
+          & random_i32(MAIN_N)).view(torch.uint32)
+    got, _ = through_skew("sort entropy-3 2^28",
+                          lambda: tpusort_torch.sort(e3), 3)
+    check(same_bits(got, reference_sort(e3)),
+          "entropy-3 2^28: differs from the reference")
+    log("phase 19 ok: entropy-3 keys at 2^28 took the skew tier, exact")
+    (ko, vo), modes = through_skew(
+        "stable sort_pairs Zipf 2^28",
+        lambda: tpusort_torch.sort_pairs(zu, vals), 3)
+    wk, (wv,) = reference_sort(zu, (vals.view(torch.int32),))
+    check(same_bits(ko, wk) and same_bits(vo, wv),
+          "stable Zipf pairs 2^28: differs from the stable reference")
+    launches["K1b composite+value"] = modes.get(("K1b", 2, 1), 0)
+    del ko, vo, wk, wv
+    log("phase 19 ok: stable Zipf pairs at 2^28, keys and values exact")
+    (ko, vo), modes = through_skew(
+        "unstable_sort_pairs Zipf 2^28",
+        lambda: tpusort_torch.unstable_sort_pairs(zu, vals), 3)
+    check(same_bits(ko, reference_sort(zu)), "unstable Zipf pairs: keys")
+    check(same_bits(zk[vo.view(torch.int32).long()], ko.view(torch.int32))
+          and same_bits(torch.sort(vo.view(torch.int32)).values,
+                        vals.view(torch.int32)),
+          "unstable Zipf pairs: values are not a permutation of their keys")
+    launches["K1b key+value"] = modes.get(("K1b", 1, 1), 0)
+    del ko, vo
+    log("phase 19 ok: unstable Zipf pairs at 2^28")
+    z64u = z64.view(torch.uint64)
+    got, modes = through_skew("sort u64 Zipf 2^27",
+                              lambda: tpusort_torch.sort(z64u), 3)
+    check(same_bits(got, reference_sort(z64u)),
+          "u64 Zipf 2^27: differs from the reference")
+    launches["K1b 2 planes"] = modes.get(("K1b", 2, 0), 0)
+    del got, z64, z64u
+    log("phase 19 ok: u64 Zipf keys at 2^27 took the skew tier, exact")
+    presorted = reference_sort(x)
+    const = torch.full((MAIN_N,), 0x12345678, dtype=torch.int32,
+                       device=dev).view(torch.uint32)
+    for name, keys in (("presorted", presorted), ("constant", const)):
+        got, c, _ = drive(lambda: tpusort_torch.sort(keys))
+        check(c == dict(quiet, identity_routes=1),
+              f"{name} 2^28: not the identity path with no launch: {c}")
+        check(same_bits(got, keys) and got.data_ptr() != keys.data_ptr(),
+              f"{name} 2^28: not a copy of the input")
+        log(f"phase 19 ok: {name} 2^28 keys came back through the identity "
+            f"path, no K1, K1b or K2 launch ({c})")
+    del got
+    tapi._TIER_CACHE.clear()
+    for i, (name, keys) in enumerate((("uniform", x), ("uniform", x),
+                                      ("constant", const), ("Zipf", zu))):
+        got, c, _ = drive(lambda: tpusort_torch.sort(keys))
+        check(same_bits(got, reference_sort(keys)),
+              f"warm-cache call {i} ({name}): differs from the reference")
+        log(f"phase 19 ok: warm-cache call {i} ({name}) exact: {c}; cache "
+            f"{list(tapi._TIER_CACHE.values())}")
+    del got
 
     # ---- phase 17: timings --------------------------------------------
     xi = x.view(torch.int32)
@@ -1007,9 +1270,23 @@ def main() -> None:
           f"+ keys[idx] + values[idx] {fmt(tu64p_times)} "
           f"({U64_N / statistics.median(tu64p_times) / 1e6:.3f} G pairs/s) "
           f"on {card}", flush=True)
-    for name, (err, tk, tp) in results.items():
-        print(f"time: {name} kernel {fmt(tk)} vs plain {fmt(tp)} on {card}",
-              flush=True)
+    cfg_noskew = dict(config=cfg, skew_tier=False, **bits32)
+    for name, keys in (("Zipf 1.1", zu), ("entropy-3", e3),
+                       ("presorted", presorted)):
+        ki = keys.view(torch.int32)
+        t_tier, t_forced, t_torch = time_alt(
+            lambda: tpusort_torch.sort(keys),
+            lambda: msd.sort_twiddled_msd((ki,), (), **cfg_noskew),
+            lambda: torch.sort(ki))
+        print(f"time: tpusort_torch.sort {name} 2^28 uint32 "
+              f"{fmt(t_tier)} ({MAIN_N / statistics.median(t_tier) / 1e6:.3f}"
+              f" G keys/s) vs radix then exact (the engine, skew tier off) "
+              f"{fmt(t_forced)} vs torch.sort of the same keys as int32 "
+              f"{fmt(t_torch)} on {card}", flush=True)
+    for name, (err, tk, tp, words, ops, *lib) in results.items():
+        extra = f" vs library {fmt(lib[0])}" if lib else ""
+        print(f"time: {name} kernel {fmt(tk)} vs plain {fmt(tp)}{extra}, "
+              f"bound {bound(words, ops)[0]:.3f} ms on {card}", flush=True)
     log("phase 17 ok")
 
     where = {
@@ -1026,16 +1303,22 @@ def main() -> None:
                "tpusort/kernels/collapse.py:242"),
         "K4c": ("collapse_segments", "tpusort_torch/csrc/collapse.cu",
                 "tpusort/kernels/collapse.py:189"),
+        "K1b": ("partition_pass_fused (splitters)",
+                "tpusort_torch/csrc/partition.cu",
+                "tpusort/kernels/partition.py:500"),
     }
     kernels = []
-    for mode, (err, tk, tp) in results.items():
+    for mode, (err, tk, tp, words, ops, *lib) in results.items():
         kid = mode.split()[0]
         name, source, replaces = where[kid]
+        bound_ms, bound_by = bound(words, ops)
         kernels.append(dict(
             name=f"{name} [{mode}]", route="cuda", source=source,
             replaces=replaces, launches=launches.get(mode, 0),
             max_abs_err=err, ms=statistics.median(tk),
-            plain_ms=statistics.median(tp)))
+            plain_ms=statistics.median(tp), bound_ms=bound_ms,
+            bound_by=bound_by,
+            library_ms=statistics.median(lib[0]) if lib else None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,7 @@ unstably, so their multi-operand cases make plane 0 unique (a scrambled
 permutation), where any correct sort gives one payload order.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,6 +24,7 @@ from tpusort_torch.kernels import collapse as tc
 from tpusort_torch.kernels import partition as tp
 from tpusort_torch.ops import msd as tm
 from tpusort_torch.ops.reference import sort_rows_lex, sort_twiddled_reference
+from tpusort_torch.utils.datagen import zipf_keys
 
 pytestmark = pytest.mark.cuda
 
@@ -464,3 +466,143 @@ def test_general_path_on_card(gen, call):
     assert c["k1c_launches"] >= 1 and c["k1_launches"] == 0
     assert c["k2_launches"] + c["k4_launches"] == 1
     assert c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0
+
+
+def _splitters(gen, planes, R, fracs):
+    """(T, R-1) splitter words per plane: R-1 lexicographic quantiles of
+    each tile's own keys, shifted a little between tiles; and fractions,
+    a constant or drawn from [0, 65536]."""
+    T, K = planes[0].shape
+    sp, _ = sort_rows_lex(planes)
+    at = (torch.arange(1, R, device="cuda") * K) // R
+    shift = torch.randint(-K // (4 * R), K // (4 * R), (T, 1), device="cuda",
+                          generator=gen)
+    idx = (at[None, :] + shift).clamp(0, K - 1)
+    words = [torch.gather(p, 1, idx) for p in sp]
+    if fracs is None:
+        f = torch.randint(0, 65537, (T, R - 1), dtype=torch.int32,
+                          device="cuda", generator=gen)
+    else:
+        f = torch.full((T, R - 1), fracs, dtype=torch.int32, device="cuda")
+    return words, f
+
+
+@pytest.mark.parametrize("nk,nv,T,K,R,S,t_seg,q,fracs,keys", [
+    (1, 0, 4, 2048, 8, 384, 2, None, None, "random"),      # pass 0, n
+    (1, 0, 6, 16384, 32, 768, 3, 128, None, "ties"),       # q = 128 chain
+    (1, 0, 5, 16384, 32, 640, 5, 256, 65536, "ties"),      # merge, greedy
+    (1, 1, 3, 8192, 16, 768, 3, None, 0, "unique"),
+    (2, 0, 4, 16384, 32, 768, 2, 512, None, "hi_ties"),    # u64
+    (2, 1, 2, 16384, 32, 640, 2, 128, None, "composite"),  # stable pairs
+    (3, 1, 2, 16384, 32, 512, 1, None, None, "unique"),    # 224 KB
+    (1, 0, 7, 1024, 4, 384, 7, None, 32768, "random"),     # odd T, R = 4
+])
+def test_partition_splitters(gen, nk, nv, T, K, R, S, t_seg, q, fracs,
+                             keys):
+    """K1b against its plain version: counts exactly, every valid slot."""
+    if keys == "unique":
+        planes = [_unique(gen, T, K)]
+    elif keys == "ties":
+        planes = [_rand(gen, T, K) & 0x7000000F]
+    elif keys == "hi_ties":
+        planes = [_rand(gen, T, K) & 3]
+    elif keys == "composite":
+        planes = [_rand(gen, T, K) & 0x70000000,
+                  torch.randperm(T * K, device="cuda", generator=gen)
+                  .to(torch.int32).reshape(T, K)]
+    else:
+        planes = [_rand(gen, T, K)]
+    planes += [_rand(gen, T, K) for _ in range(nk - len(planes))]
+    vals = [_rand(gen, T, K) for _ in range(nv)]
+    kw = dict(r=R, s=S, lo_bit=32 * nk - 2, width=2, t_seg=t_seg)
+    cin, run = None, None
+    if q:
+        cin = torch.randint(q // 2, q + 1, (T, K // q), dtype=torch.int32,
+                            device="cuda", generator=gen)
+        planes, vals = _lex_chunks(planes, vals, q, cin)
+        kw.update(q_in=q, n=None)
+        run = q
+    else:
+        kw.update(q_in=None, n=T * K - 333)
+    words, f = _splitters(gen, planes, R, fracs)
+    if keys == "ties":
+        words[0][0, -1] = -1                  # the all-ones splitter
+    got, counts = tp.partition_pass_fused(
+        planes, vals, cin, sorted_run=run, unstable=True, splitters=words,
+        splitter_fracs=f, **kw)
+    want, pcounts = tp.partition_pass_splitter_plain(
+        planes, vals, cin, splitters=words, splitter_fracs=f,
+        **{k: kw[k] for k in ("q_in", "n", "r", "s", "t_seg")})
+    torch.cuda.synchronize()
+    assert torch.equal(counts, pcounts)
+    m = _valid_slots(counts, R, S, t_seg)
+    for g, w in zip(got, want):
+        assert torch.equal(g[m], w[m])
+
+
+def test_partition_splitters_poisoned_tile(gen):
+    """A tile whose keys all lie below its first splitter, far over S,
+    reports count 0 = K + 1 from the kernel as from the plain version."""
+    T, K, R, S = 4, 4096, 16, 512
+    x = _rand(gen, T, K) & 0x0FFFFFFF
+    words = [torch.full((T, R - 1), 0x7FFFFFFF, dtype=torch.int32,
+                        device="cuda")]
+    words[0][1:] = torch.sort(_rand(gen, T - 1, R - 1), dim=1).values
+    kw = dict(r=R, s=S, lo_bit=28, width=4, t_seg=1, q_in=None, n=T * K)
+    _, counts = tp.partition_pass_fused([x], [], None, splitters=words,
+                                        **kw)
+    _, pcounts = tp.partition_pass_splitter_plain(
+        [x], [], None, splitters=words,
+        splitter_fracs=torch.full((T, R - 1), 65536, dtype=torch.int32,
+                                  device="cuda"),
+        **{k: kw[k] for k in ("q_in", "n", "r", "s", "t_seg")})
+    assert counts[0, 0] == K + 1
+    assert torch.equal(counts, pcounts)
+
+
+@pytest.mark.parametrize("call", ["zipf", "entropy3", "zipf_stable_pairs",
+                                  "zipf_unstable_pairs", "u64_zipf",
+                                  "presorted"])
+def test_equidepth_tier_on_card(gen, call):
+    """The host tier chain on the card at 2^24 (the planner's floor):
+    skewed keys skip the radix tier and sort on K1b passes and K2 with no
+    fallback; a presorted input comes back as it was, with no sort."""
+    n = 1 << 24
+    rng = np.random.default_rng(24)
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    vals = ()
+    if call == "entropy3":
+        keys = (_rand(gen, n) & _rand(gen, n) & _rand(gen, n)).view(
+            torch.uint32)
+    elif call == "u64_zipf":
+        keys = torch.from_numpy(zipf_keys(rng, n, dtype=np.uint64)).cuda()
+    elif call == "presorted":
+        keys = torch.sort(_rand(gen, n)).values
+    else:
+        keys = torch.from_numpy(zipf_keys(rng, n, dtype=np.uint32)).cuda()
+        if call != "zipf":
+            vals = (idx,)
+    tm.reset_counters()
+    got = tpusort_torch.sort(keys, vals[0] if vals else None,
+                             stable=call != "zipf_unstable_pairs")
+    c = tm.counters()
+    ko = got[0] if vals else got
+    planes, traits = dtypes.twiddle_in(keys)
+    ref, rv = sort_twiddled_reference(planes, vals, begin_bit=0,
+                                      end_bit=traits.bits,
+                                      total_bits=traits.bits)
+    want = dtypes.twiddle_out(ref, traits)
+    w = torch.int64 if keys.element_size() == 8 else torch.int32
+    assert torch.equal(ko.view(w), want.view(w))
+    if call == "zipf_unstable_pairs":
+        assert torch.equal(keys.view(torch.int32)[got[1].long()],
+                           ko.view(torch.int32))
+    elif vals:
+        assert torch.equal(got[1], rv[0])
+    if call == "presorted":
+        assert c["identity_routes"] == 1
+        assert c["k1_launches"] == c["k1b_launches"] == c["k2_launches"] == 0
+        return
+    assert c["radix_tiers"] == 0 and c["equidepth_runs"] == 1, c
+    assert c["k1b_launches"] >= 2 and c["k2_launches"] >= 1, c
+    assert c["overflow_fallbacks"] == 0, c

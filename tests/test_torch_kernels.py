@@ -245,15 +245,26 @@ def test_single_tile_path_matches_jax(n, nv):
 
 
 def test_unported_modes_raise():
-    """What K1 still lacks raises, naming its ROADMAP item: the splitter
-    mode (K1b).  The general branch (K1c: digit=, stable payloads, more
-    than 3 key planes), which raised before it was ported, now runs."""
+    """The splitter mode (K1b) is ported now, and raises as JAX's does off
+    the raw-key path: with stable payloads or a digit plane it is a
+    ValueError (``tpusort/kernels/partition.py:426-427``), as are
+    fractions without splitters.  The general branch (K1c: digit=, stable
+    payloads, more than 3 key planes), which raised before it was ported,
+    runs."""
     x = torch.zeros(2, 512, dtype=torch.int32)
     kw = dict(r=8, s=256, lo_bit=29, width=3, n=1024)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tp.partition_pass_fused([x], [], None, splitters=x, **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tp.partition_pass_fused([x], [x], None, splitter_fracs=x, **kw)
+    spl = torch.zeros(2, 7, dtype=torch.int32)
+    with pytest.raises(ValueError, match="raw-key path"):
+        tp.partition_pass_fused([x], [x], None, splitters=[spl], **kw)
+    with pytest.raises(ValueError, match="raw-key path"):
+        tp.partition_pass_fused([x], [], None, digit=x, splitters=spl, **kw)
+    with pytest.raises(ValueError, match="needs splitters"):
+        tp.partition_pass_fused([x], [x], None, splitter_fracs=spl,
+                                unstable=True, **kw)
+    (a,), counts = tp.partition_pass_fused([x], [], None, splitters=spl,
+                                           **kw)
+    assert a.shape == (2, 8 * 256)
+    assert counts[:, 0].tolist() == [256, 256]   # greedy fill to S
     (a,), counts = tp.partition_pass_fused([x], [], None, digit=x, **kw)
     assert a.shape == (2, 8 * 256)
     assert counts[:, 0].tolist() == [512, 512]   # every slot in digit 0

@@ -148,6 +148,36 @@ def test_engine_matches_jax_engine(level):
         assert bool(overflow) == (level == 0)
 
 
+@pytest.mark.parametrize("level", [1, 8, 0])
+def test_flag_mode_matches_jax(level):
+    """``on_overflow="flag"`` returns the overflow flag on the device with
+    no fallback taken (the API's tier chain reads it): the same flag as
+    JAX's flag mode, and the same keys where it is clear."""
+    n = 300_000
+    x = entropy_keys(np.random.default_rng(200 + level), n, level)
+    (want,), _, jovf = jm.sort_twiddled_msd(
+        (jnp.asarray(x),), (), begin_bit=0, end_bit=32, total_bits=32,
+        use_pallas=False, plan_kwargs=dict(CPU_ROW, min_n=4096),
+        on_overflow="flag")
+    tm.reset_counters()
+    (got,), vals, ovf = tm.sort_twiddled_msd(
+        (torch.from_numpy(x.view(np.int32)),), begin_bit=0, end_bit=32,
+        total_bits=32, on_overflow="flag",
+        config=SortConfig(tile_elems=2048, radix=16, s1=256, min_n=4096))
+    assert vals == () and ovf.dtype == torch.bool and ovf.dim() == 0
+    assert bool(ovf) == bool(jovf)
+    if level in (0, 1):
+        assert bool(ovf) == (level == 0)
+    assert tm.counters()["overflow_fallbacks"] == 0
+    if not bool(ovf):
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      np.asarray(want))
+    with pytest.raises(ValueError, match="on_overflow"):
+        tm.sort_twiddled_msd((torch.from_numpy(x.view(np.int32)),),
+                             begin_bit=0, end_bit=32, total_bits=32,
+                             on_overflow="cond", config=SortConfig())
+
+
 def test_plan_is_planned_once_per_size():
     cfg = SortConfig(tile_elems=2048, radix=16, s1=256, min_n=4096)
     x = random_keys(np.random.default_rng(4), 7000)
@@ -173,10 +203,12 @@ def test_reference_route_below_min_n():
     got = _twiddled_sort(x, SortConfig(tile_elems=2048, radix=16, s1=256,
                                        min_n=4096, small_n_threshold=2048))
     np.testing.assert_array_equal(got, np.sort(x))
-    assert tm.counters() == dict(k1_launches=0, k1c_launches=0,
-                                 k2_launches=0, k3_launches=0,
-                                 k4_launches=0, reference_routes=1,
-                                 overflow_fallbacks=0)
+    assert tm.counters() == dict(k1_launches=0, k1b_launches=0,
+                                 k1c_launches=0, k2_launches=0,
+                                 k3_launches=0, k4_launches=0,
+                                 reference_routes=1, overflow_fallbacks=0,
+                                 radix_tiers=0, equidepth_runs=0,
+                                 sample_fallbacks=0, identity_routes=0)
 
 
 def test_mode_counters():

@@ -3,7 +3,10 @@
 The MSD radix sort of 1-D uint32/int32/float32 and uint64/int64/float64
 tensors, keys only or with 32- and 64-bit payloads, stable or unstable,
 over the whole key or a bit range, plus ``argsort``, the plane interface
-``sort_planes`` and ``sort_pairs_lsb_in_value``.  On a CUDA tensor the
+``sort_planes`` and ``sort_pairs_lsb_in_value``; ``sort`` and
+``sort_planes`` run the host tiering (radix, then the equi-depth skew
+tier, then the exact sort; presorted inputs come back after one check).
+On a CUDA tensor the
 partition passes, the leaves, the collapse and the single-tile sort run as
 hand-written sm_90a kernels (``tpusort_torch/csrc``), built with nvcc at
 first use; on a CPU tensor they run as their plain PyTorch versions.  The JAX package ``tpusort`` is the

@@ -10,19 +10,34 @@ PyTorch versions).  Outputs lie on the input's device.
 64-bit keys and values are split into (hi, lo) int32 planes with views on
 the device (``dtypes.split64``) and joined back the same way: the same
 words the JAX package's numpy host boundary makes, without the round trip.
-The host tiering of the JAX API (ROADMAP Queue 1 item 7) is not ported, so
-every call runs the engine directly, as under ``jit``.
+
+``sort`` and ``sort_planes`` (and ``argsort`` through it) run the JAX
+API's host tiering (``tpusort/api.py:203-486``): a tier chain, radix ->
+equi-depth -> exact, each tier's overflow flag read on the host before the
+next is tried (the equi-depth tier runs where ``SortConfig.skew_tier`` is
+True, or None on a CUDA tensor); and, for full-range sorts of at least
+``planner.PLANNER_MIN_N`` keys, a strided sample of the twiddled keys that
+the host planner reads to skip a doomed radix tier, or to return an input
+that one device check finds already sorted.  Decisions are cached per
+shape, dtype and config (``_TIER_CACHE``), so a steady workload dispatches
+at once and the sample, queued before the sort, refreshes the cache while
+the sort runs.  JAX's in-graph ``lax.cond`` mode is not ported: the flag
+is always read on the host.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from tpusort_torch import configs as _configs
 from tpusort_torch import dtypes as _dtypes
-from tpusort_torch.ops.msd import sort_twiddled_msd
+from tpusort_torch import planner
+from tpusort_torch.ops.equidepth import sort_twiddled_equidepth
+from tpusort_torch.ops.msd import _plan_cached, count_route, sort_twiddled_msd
+from tpusort_torch.ops.reference import sort_twiddled_reference
 
 __all__ = [
     "sort",
@@ -81,10 +96,163 @@ def _join_values(words: Sequence[torch.Tensor],
     return out
 
 
-def _sort_twiddled(planes, traits, vt, *, begin_bit, end_bit, stable,
-                   device):
-    """Check the bit range, pick the config and run the engine on
-    twiddled planes; returns (sorted planes, sorted values)."""
+# ---------------------------------------------------------------------------
+# Host tiering (port of tpusort/api.py:203-486)
+# ---------------------------------------------------------------------------
+
+# (kind, n, key dtype, value dtypes, descending, stable, begin_bit, end_bit,
+# cfg) -> {"presorted": bool, "tier": "radix" | "equidepth"}.  As in JAX,
+# the key does not see the distribution: alternating uniform and skewed
+# inputs of one shape take the last call's tier (outputs stay exact).
+_TIER_CACHE: Dict[tuple, dict] = {}
+
+
+def _tier_chain(cfg, device: torch.device) -> Tuple[str, ...]:
+    """The tiers in order.  The equi-depth tier runs where the config says
+    ``skew_tier=True``, or leaves it None and the tensor is on a card (JAX
+    gates it to the TPU alike)."""
+    use_eq = cfg.skew_tier
+    if use_eq is None:
+        use_eq = device.type == "cuda"
+    return ("radix", "equidepth", "exact") if use_eq else ("radix", "exact")
+
+
+class _Sample:
+    """The strided sample of twiddled plane 0, for the host planner.  On a
+    card it is copied into pinned memory on the current stream, behind
+    the twiddle and ahead of the sort, and an event marks its arrival, so
+    reading it waits for nothing the sort queues."""
+
+    def __init__(self, plane0: torch.Tensor, stride: int):
+        s = plane0[::stride]
+        self._event = None
+        if s.is_cuda:
+            self._host = torch.empty(s.shape, dtype=torch.int32,
+                                     pin_memory=True)
+            self._host.copy_(s, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = s.contiguous()
+
+    def get(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy().view(np.uint32)
+
+
+def _lex_sorted(planes: Sequence[torch.Tensor]) -> torch.Tensor:
+    """0-d bool tensor: whether twiddled int32 planes are non-decreasing,
+    lexicographically and unsigned."""
+    lt = eq = None
+    for p in planes:
+        x = p ^ _dtypes.INT32_MIN
+        a, b = x[:-1], x[1:]
+        lt, eq = (a < b, a == b) if lt is None else \
+            (lt | (eq & (a < b)), eq & (a == b))
+    return (lt | eq).all()
+
+
+def _skip_radix_tier(sample: np.ndarray, n: int, total_bits: int,
+                     cfg) -> bool:
+    """The host planner: whether the radix tier's static capacities look
+    doomed on this sample, so the chain starts at the equi-depth tier.  A
+    wrong guess costs time only: every tier's flag still guards the
+    output."""
+    kwargs = cfg.plan_kwargs()
+    kwargs.pop("min_n")
+    plan = _plan_cached(n, 0, total_bits, "raw",
+                       tuple(sorted(kwargs.items())))
+    if plan is None:
+        return False
+    return planner.predict_radix_overflow(sample, plan, n)
+
+
+def _run_tier_chain(dispatch: Callable, cfg, device: torch.device,
+                    skip_radix: bool = False,
+                    first_sync: Optional[Callable] = None):
+    """Dispatch the tiers until one reports no overflow (the last always
+    stands).  ``dispatch(tier)`` -> (keys, values, overflow flag on the
+    device).  ``first_sync`` (the cache refresh) runs right after the
+    first dispatch, before its flag is read, so the host planner works
+    while the card sorts."""
+    tiers = _tier_chain(cfg, device)
+    if skip_radix and len(tiers) > 2:
+        tiers = tiers[1:]
+    out = None
+    for i, tier in enumerate(tiers):
+        out = None                # free the overflowed tier's output first
+        *out, ovf = dispatch(tier)
+        if first_sync is not None:
+            first_sync()
+            first_sync = None
+        if i == len(tiers) - 1 or not bool(ovf):
+            break
+    return out
+
+
+def _tiered_flow(ckey: tuple, classify, decide: Callable, cfg,
+                 device: torch.device, dispatch: Callable,
+                 identity: Callable):
+    """The host tiering shared by ``sort`` and ``sort_planes`` (port of
+    ``tpusort.api._tiered_flow``).  ``classify`` is None (too small, or a
+    bit range: the chain runs with no host read but the flags) or
+    (:class:`_Sample`, check), where check() is the full sortedness check;
+    ``decide(sample)`` -> (presorted likely, first tier).  Cold, or when
+    the cache says presorted, the sample is read before the sort, and a
+    presorted input that passes the check comes back from ``identity()``.
+    Warm, the cached tier runs at once and the sample refreshes the
+    cache."""
+    if classify is None:
+        return _run_tier_chain(dispatch, cfg, device)
+    sample, check = classify
+    if len(_TIER_CACHE) > 256:
+        _TIER_CACHE.clear()
+    cached = _TIER_CACHE.get(ckey)
+    if cached is None or cached["presorted"]:
+        presorted, tier = decide(sample.get())
+        if presorted and bool(check()):
+            _TIER_CACHE[ckey] = {"presorted": True, "tier": tier}
+            count_route("identity_routes")
+            return identity()
+        _TIER_CACHE[ckey] = {"presorted": False, "tier": tier}
+        return _run_tier_chain(dispatch, cfg, device,
+                               skip_radix=(tier == "equidepth"))
+    tier = cached["tier"]
+
+    def refresh():
+        p, t = decide(sample.get())
+        _TIER_CACHE[ckey] = {"presorted": p, "tier": t}
+
+    return _run_tier_chain(dispatch, cfg, device,
+                           skip_radix=(tier == "equidepth"),
+                           first_sync=refresh)
+
+
+def _dispatch_tier(tier: str, planes, words, bits: dict, stable: bool, cfg):
+    """One tier on twiddled planes and value words: (sorted planes, sorted
+    words, overflow flag or None for the exact tier)."""
+    if tier == "radix":
+        count_route("radix_tiers")
+        return sort_twiddled_msd(planes, words, config=cfg, stable=stable,
+                                 on_overflow="flag", **bits)
+    if tier == "equidepth":
+        return sort_twiddled_equidepth(planes, words, config=cfg,
+                                       stable=stable, on_overflow="flag",
+                                       **bits)
+    count_route("overflow_fallbacks")      # exact after a flagged tier
+    sp, sw = sort_twiddled_reference(planes, words, **bits)
+    return sp, sw, None
+
+
+def _sort_tiered(planes, traits, vt, *, kind: str, begin_bit: int,
+                 end_bit: Optional[int], stable: bool, descending: bool,
+                 device: torch.device, finish: Callable,
+                 identity: Callable):
+    """Check the bit range, pick the config and sort twiddled planes
+    through the host tiering.  ``finish(sorted planes)`` makes the output
+    keys; ``identity()`` gives (keys, values) for an input found sorted.
+    Returns (keys, list of values)."""
     eb = traits.bits if end_bit is None else end_bit
     if not 0 <= begin_bit < eb <= traits.bits:
         raise ValueError(
@@ -95,10 +263,27 @@ def _sort_twiddled(planes, traits, vt, *, begin_bit, end_bit, stable,
     if cfg.default_algorithm != "msd":
         raise NotImplementedError(
             f"engine {cfg.default_algorithm!r} is not ported; only 'msd' is")
-    sp, sw = sort_twiddled_msd(planes, words, begin_bit=begin_bit, end_bit=eb,
-                               total_bits=traits.bits, config=cfg,
-                               stable=stable)
-    return sp, _join_values(sw, spec)
+    bits = dict(begin_bit=begin_bit, end_bit=eb, total_bits=traits.bits)
+
+    def dispatch(tier):
+        sp, sw, ovf = _dispatch_tier(tier, planes, words, bits, stable, cfg)
+        return finish(sp), _join_values(sw, spec), ovf
+
+    def decide(sample):
+        tier = "radix"
+        if "equidepth" in _tier_chain(cfg, device) and _skip_radix_tier(
+                sample, n, traits.bits, cfg):
+            tier = "equidepth"
+        return planner.predict_presorted([sample]), tier
+
+    classify = None
+    if begin_bit == 0 and eb == traits.bits and n >= planner.PLANNER_MIN_N:
+        classify = (_Sample(planes[0], max(1, n // planner.SAMPLE_TARGET)),
+                    lambda: _lex_sorted(planes))
+    ckey = (kind, n, traits.name, tuple(str(v.dtype) for v in vt),
+            descending, stable, begin_bit, eb, cfg)
+    return _tiered_flow(ckey, classify, decide, cfg, device, dispatch,
+                        identity)
 
 
 def sort(
@@ -121,7 +306,11 @@ def sort(
     too, ascending or descending); ``stable=False`` lets equal keys reorder
     their payloads.  Keys-only output does not depend on ``stable``.
     Returns the sorted keys, or ``(keys, values)`` when values are
-    given."""
+    given: new tensors, also where the input was found already sorted.
+
+    The call runs the host tiering (module docstring): radix, then, on an
+    overflow flag, the equi-depth tier (on a card, or with
+    ``skew_tier=True``), then the exact reference sort."""
     if not isinstance(keys, torch.Tensor):
         raise TypeError("keys must be a torch.Tensor")
     if keys.dim() != 1:
@@ -129,10 +318,12 @@ def sort(
     vt, had, single = _normalize_values(values)
     planes, traits = _dtypes.twiddle_in(keys.contiguous(),
                                         descending=descending)
-    sp, sv = _sort_twiddled(planes, traits, vt, begin_bit=begin_bit,
-                            end_bit=end_bit, stable=stable,
-                            device=keys.device)
-    out = _dtypes.twiddle_out(sp, traits, descending=descending)
+    out, sv = _sort_tiered(
+        planes, traits, vt, kind="k", begin_bit=begin_bit, end_bit=end_bit,
+        stable=stable, descending=descending, device=keys.device,
+        finish=lambda sp: _dtypes.twiddle_out(sp, traits,
+                                              descending=descending),
+        identity=lambda: (keys.clone(), [v.clone() for v in vt]))
     if not had:
         return out
     return out, (sv[0] if single else tuple(sv))
@@ -152,7 +343,8 @@ def sort_planes(
     significant word): two planes for a 64-bit ``key_dtype``, one for a
     32-bit one.  ``key_dtype`` names the logical key type and selects the
     order-preserving twiddle.  Returns the sorted planes as uint32 tensors
-    (and the values, if given)."""
+    (and the values, if given), through the same host tiering as
+    :func:`sort`."""
     traits = _dtypes.traits_for(getattr(torch, key_dtype, None))
     planes = tuple(planes)
     if len(planes) != traits.planes:
@@ -163,14 +355,19 @@ def sort_planes(
         raise ValueError("planes must be 1-D 32-bit tensors of one length "
                          "on one device")
     vt, had, single = _normalize_values(values)
-    tw = _dtypes.twiddle_planes_in(
-        tuple(p.contiguous().view(torch.int32) for p in planes), traits,
-        descending=descending)
-    sp, sv = _sort_twiddled(tw, traits, vt, begin_bit=begin_bit,
-                            end_bit=end_bit, stable=stable,
-                            device=planes[0].device)
-    out = tuple(p.view(torch.uint32) for p in
-                _dtypes.twiddle_planes_out(sp, traits, descending=descending))
+    raw = tuple(p.contiguous().view(torch.int32) for p in planes)
+    tw = _dtypes.twiddle_planes_in(raw, traits, descending=descending)
+
+    def finish(sp):
+        return tuple(p.view(torch.uint32) for p in _dtypes.twiddle_planes_out(
+            sp, traits, descending=descending))
+
+    out, sv = _sort_tiered(
+        tw, traits, vt, kind="p", begin_bit=begin_bit, end_bit=end_bit,
+        stable=stable, descending=descending, device=planes[0].device,
+        finish=finish,
+        identity=lambda: (tuple(p.clone().view(torch.uint32) for p in raw),
+                          [v.clone() for v in vt]))
     if not had:
         return out
     return out, (sv[0] if single else tuple(sv))

@@ -3,7 +3,9 @@ platform).
 
 PyTorch port of ``tpusort/configs.py``.  The platform is the device type of
 the tensor being sorted (``"cuda"`` or ``"cpu"``).  Every field is consumed:
-``SortConfig.plan_kwargs()`` feeds ``ops.msd.plan_msd`` directly.
+``SortConfig.plan_kwargs()`` feeds ``ops.msd.plan_msd`` directly, and the
+skew-tier fields steer ``api``'s tier chain and ``ops.equidepth``.  The
+TPU-only ``pass_batch`` and ``pairs_gather_apply`` are not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ class SortConfig:
     leaf_max: Optional[int] = None # max final segment size (None = auto)
     min_n: int = 1 << 16           # below this the engine delegates
     small_n_threshold: int = 1 << 14  # single-tile path (K3) up to this n
+    # the equi-depth skew tier: in the host tier chain (radix -> equi-depth
+    # -> exact) and the engine's overflow route; None = on for CUDA tensors
+    skew_tier: Optional[bool] = None
+    skew_sample_log2: Optional[int] = None  # splitter sample size (None = auto)
     default_algorithm: str = "msd" # the only engine this port has
 
     def plan_kwargs(self) -> dict:

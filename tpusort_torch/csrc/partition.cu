@@ -1,9 +1,10 @@
-// K1: one fused MSD partition pass, raw-key mode: 1-3 key planes, payloads
-// unstable.
+// K1 and K1b: one fused MSD partition pass, raw-key mode: 1-3 key planes,
+// payloads unstable; K1b cuts the runs at splitters instead of digits.
 //
 // Replaces the raw-key branch of the Pallas kernel _fused_kernel behind
-// tpusort/kernels/partition.py:partition_pass_fused.  One CTA owns one
-// K-element tile (K = 16384 on the main path):
+// tpusort/kernels/partition.py:partition_pass_fused, with and without its
+// splitter mode.  One CTA owns one K-element tile (K = 16384 on the main
+// path):
 //
 //   1. load the tile's key planes into shared memory; a slot is valid iff
 //      its global index < n (pass 0) or slot % q_in < counts_in[t, slot /
@@ -14,11 +15,15 @@
 //   2. sort the tile ascending, lexicographically over the planes (merge
 //      levels above sorted_run only); with payloads a 16-bit slot index
 //      rides the network in place of the payload words;
-//   3. histogram the digit bits [lo_bit, lo_bit + width) of the sorted tile,
-//      counted across the planes (plane 0 the most significant 32 bits), with
-//      warp-aggregated shared atomics (sorted input gives ~one atomic per
-//      warp step); start[d] = #(digit < d), count[d] = start[d+1] - start[d]
-//      and, for the top digit, n_valid - start[R-1];
+//   3. K1: histogram the digit bits [lo_bit, lo_bit + width) of the sorted
+//      tile, counted across the planes (plane 0 the most significant 32
+//      bits), with warp-aggregated shared atomics (sorted input gives ~one
+//      atomic per warp step); start[d] = #(digit < d), count[d] = start[d+1]
+//      - start[d] and, for the top digit, n_valid - start[R-1].
+//      K1b (splitter_cuts): run d holds the keys between splitters d and
+//      d+1, so the sorted tile's runs are contiguous and only the R-1 cut
+//      points are chosen, as the Pallas kernel chooses them (bit for bit:
+//      the engine compares counts exactly);
 //   4. write run d of tile t = seg * t_seg + j to
 //      out[((seg * R + d) * t_seg + j) * S + [0, min(count, S))], the
 //      digit-major layout of the next pass (the fused exchange), for every
@@ -30,8 +35,11 @@
 // 1x of them, so at HBM speed it is memory-bound; this first version is
 // bound instead by the shared-memory sort network (105 stages for a full
 // 16384 sort, 69 for a merge from 256-runs), whose cost grows with the key
-// planes.  Shared memory: 64 KB a key plane plus 32 KB of slot index at
-// K = 16384, so 3 planes with payloads (224 KB) is the largest mode.
+// planes.  K1b's cut points add two binary searches per boundary and one
+// thread's O(R) walk, next to nothing.  Shared memory: 64 KB a key plane
+// plus 32 KB of slot index at K = 16384, so 3 planes with payloads (224 KB)
+// is the largest mode; K1b reads its splitters from global memory and
+// keeps its cut points in the histogram's arrays, so it needs no more.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -60,9 +68,102 @@ __device__ inline int digit_of(const SmemTile<NK, IDX>& t, int i, int lo,
   return (int)d;
 }
 
+// K1b's splitters: one (T, R-1) word array per key plane, plus the (T, R-1)
+// tie fractions, 16-bit fixed point in [0, 65536].
+struct Splitters {
+  const uint32_t* word[3];
+  const uint32_t* frac;
+};
+
+// #slots of the sorted tile whose key is below s (or_equal: at most s),
+// lexicographically over the planes, counted over all K slots, invalid
+// sentinels included (as the Pallas kernel counts them).
 template <int NK, bool IDX>
+__device__ inline int rank_of(const SmemTile<NK, IDX>& t, int K,
+                              const uint32_t* s, bool or_equal) {
+  int lo = 0, hi = K;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    int c = 0;
+#pragma unroll
+    for (int p = 0; p < NK; ++p) {
+      if (c == 0) {
+        const uint32_t w = t.key[p][mid];
+        c = (w > s[p]) - (w < s[p]);
+      }
+    }
+    if (c < 0 || (or_equal && c == 0)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// K1b: the cut points of tile t's sorted slots (port of the splitter branch
+// of _fused_kernel, tpusort/kernels/partition.py:214-313).  Boundary d
+// (1..R-1) may cut anywhere in its tie range [a_d, b_d] = [#keys < s_d,
+// #keys <= s_d], since keys equal to s_d are equal in every tile.  It aims
+// at a_d + frac * (b_d - a_d), rounded with a per-(tile, boundary) dither,
+// clipped to [max(a_d, prev), prev + S] and to n_valid; a backward relief
+// sweep then raises cuts within b_d so the top run fits S.  A cut forced
+// outside its legal range, or a top run over S, poisons count 0 to K + 1.
+// On return start[d] holds run d's first slot and count[d] its length
+// (unclamped).  The binary searches take one thread per boundary; the walk
+// is sequential, on thread 0.  Ends with __syncthreads().
+template <int NK, bool IDX>
+__device__ void splitter_cuts(const SmemTile<NK, IDX>& tile,
+                              const Splitters& spl, int t, int K, int R,
+                              int S, int n_valid, int* count, int* start) {
+  const size_t row = (size_t)t * (R - 1);
+  for (int d = threadIdx.x + 1; d < R; d += blockDim.x) {
+    uint32_t s[NK];
+#pragma unroll
+    for (int p = 0; p < NK; ++p) s[p] = spl.word[p][row + d - 1];
+    count[d] = rank_of(tile, K, s, false);  // a_d, then the cut
+    start[d] = rank_of(tile, K, s, true);   // b_d
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    bool flag = false;
+    int prev = 0;
+    count[0] = 0;
+    for (int d = 1; d < R; ++d) {
+      const int a = count[d], b = start[d];
+      const int lo = max(a, prev), hi = prev + S;
+      flag |= lo > hi;
+      // the Pallas dither, in uint32 (its int32 products wrap alike, and
+      // only bits 15-30 survive the mask); fd * span needs the full uint32
+      // range (the round-5 overflow fix), with fd clamped to 0xFFFF
+      const uint32_t u = (((uint32_t)t * 0x9E3779B9u +
+                           (((uint32_t)d * 0x85EBCA6Bu) & 0x7FFFFFFFu)) >> 15) &
+                         0xFFFFu;
+      const uint32_t fd = spl.frac[row + d - 1];
+      const uint32_t prod = (min(fd, 0xFFFFu) * (uint32_t)(b - a) + u) >> 16;
+      const int tgt = fd >= 0x10000u ? b : a + (int)prod;
+      prev = min(min(max(tgt, lo), hi), n_valid);
+      count[d] = prev;
+    }
+    int next = n_valid;
+    for (int d = R - 1; d >= 1; --d) {
+      next = max(count[d], min(next - S, start[d]));
+      count[d] = next;
+    }
+    flag |= n_valid - count[R - 1] > S;
+    for (int d = 0; d < R; ++d) {
+      const int end = d + 1 < R ? count[d + 1] : n_valid;
+      start[d] = count[d];
+      count[d] = end - count[d];
+    }
+    if (flag) count[0] = K + 1;
+  }
+  __syncthreads();
+}
+
+template <int NK, bool IDX, bool SPL>
 __global__ void __launch_bounds__(kThreads)
-partition_raw_kernel(Planes planes, Values vals,
+partition_raw_kernel(Planes planes, Values vals, Splitters spl,
                      const int32_t* __restrict__ counts_in, int q_in,
                      long long n, int K, int log_k, int R, int S, int lo_bit,
                      int width, int t_seg, int log_run,
@@ -93,26 +194,33 @@ partition_raw_kernel(Planes planes, Values vals,
 
   block_sort(tile, log_k, log_run);
 
-  for (int i = tid; i < K; i += blockDim.x) {
-    const int d = digit_of(tile, i, lo_bit, width);
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-    if ((tid & 31) == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int acc = 0;
-    for (int d = 0; d < R; ++d) {
-      start[d] = acc;
-      acc += hist[d];
+  if constexpr (SPL) {
+    splitter_cuts(tile, spl, t, K, R, S, n_valid, hist, start);
+    for (int d = tid; d < R; d += blockDim.x) {
+      counts_out[(size_t)t * R + d] = hist[d];
     }
+  } else {
+    for (int i = tid; i < K; i += blockDim.x) {
+      const int d = digit_of(tile, i, lo_bit, width);
+      const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
+      if ((tid & 31) == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int acc = 0;
+      for (int d = 0; d < R; ++d) {
+        start[d] = acc;
+        acc += hist[d];
+      }
+    }
+    __syncthreads();
+    for (int d = tid; d < R; d += blockDim.x) {
+      const int c = d < R - 1 ? hist[d] : n_valid - start[R - 1];
+      counts_out[(size_t)t * R + d] = c;
+      hist[d] = c;  // each thread rewrites only its own digit
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int d = tid; d < R; d += blockDim.x) {
-    const int c = d < R - 1 ? hist[d] : n_valid - start[R - 1];
-    counts_out[(size_t)t * R + d] = c;
-    hist[d] = c;  // each thread rewrites only its own digit
-  }
-  __syncthreads();
 
   const int seg = t / t_seg;
   const int j = t - seg * t_seg;
@@ -132,20 +240,21 @@ partition_raw_kernel(Planes planes, Values vals,
   }
 }
 
-template <int NK, bool IDX>
+template <int NK, bool IDX, bool SPL>
 int launch_partition(const Planes& planes, const Values& vals,
-                     const int32_t* counts_in, int q_in, long long n, int T,
-                     int K, int R, int S, int lo_bit, int width, int t_seg,
-                     int log_run, int32_t* counts_out, cudaStream_t stream) {
+                     const Splitters& spl, const int32_t* counts_in, int q_in,
+                     long long n, int T, int K, int R, int S, int lo_bit,
+                     int width, int t_seg, int log_run, int32_t* counts_out,
+                     cudaStream_t stream) {
   const int log_k = 31 - __builtin_clz(K);
   const size_t smem = SmemTile<NK, IDX>::bytes(K);
   cudaError_t err = cudaFuncSetAttribute(
-      partition_raw_kernel<NK, IDX>,
+      partition_raw_kernel<NK, IDX, SPL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  partition_raw_kernel<NK, IDX><<<T, kThreads, smem, stream>>>(
-      planes, vals, counts_in, q_in, n, K, log_k, R, S, lo_bit, width, t_seg,
-      log_run, counts_out);
+  partition_raw_kernel<NK, IDX, SPL><<<T, kThreads, smem, stream>>>(
+      planes, vals, spl, counts_in, q_in, n, K, log_k, R, S, lo_bit, width,
+      t_seg, log_run, counts_out);
   return (int)cudaGetLastError();
 }
 
@@ -168,9 +277,40 @@ extern "C" int tpusort_partition_raw(
   }
   const int log_run = sorted_run > 0 ? 31 - __builtin_clz(sorted_run) : 0;
   return dispatch_mode(n_planes, n_vals > 0, [&](auto nk, auto idx) {
-    return launch_partition<decltype(nk)::value, decltype(idx)::value>(
-        planes, vals, (const int32_t*)counts_in, q_in, n, T, K, R, S, lo_bit,
-        width, t_seg, log_run, (int32_t*)counts_out, (cudaStream_t)stream);
+    return launch_partition<decltype(nk)::value, decltype(idx)::value, false>(
+        planes, vals, Splitters{}, (const int32_t*)counts_in, q_in, n, T, K, R,
+        S, lo_bit, width, t_seg, log_run, (int32_t*)counts_out,
+        (cudaStream_t)stream);
+  });
+}
+
+// K1b: as tpusort_partition_raw, with the runs cut at splitters (n_planes
+// (T, R-1) word arrays) and tie fractions ((T, R-1) words) in place of the
+// digit bits.  Returns a cudaError_t.
+extern "C" int tpusort_partition_splitter(
+    const void* const* keys_in, void* const* keys_out, int n_planes,
+    const void* const* vals_in, void* const* vals_out, int n_vals,
+    const void* counts_in, int q_in, long long n, int T, int K, int R, int S,
+    int t_seg, int sorted_run, const void* const* splitters,
+    const void* fracs, void* counts_out, void* stream) {
+  using namespace tpusort;
+  Planes planes;
+  Values vals;
+  if (R < 2 || R > kMaxRadix ||
+      !make_operands(keys_in, keys_out, n_planes, vals_in, vals_out, n_vals,
+                     &planes, &vals)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Splitters spl{};
+  for (int p = 0; p < n_planes; ++p) {
+    spl.word[p] = static_cast<const uint32_t*>(splitters[p]);
+  }
+  spl.frac = static_cast<const uint32_t*>(fracs);
+  const int log_run = sorted_run > 0 ? 31 - __builtin_clz(sorted_run) : 0;
+  return dispatch_mode(n_planes, n_vals > 0, [&](auto nk, auto idx) {
+    return launch_partition<decltype(nk)::value, decltype(idx)::value, true>(
+        planes, vals, spl, (const int32_t*)counts_in, q_in, n, T, K, R, S, 0,
+        1, t_seg, log_run, (int32_t*)counts_out, (cudaStream_t)stream);
   });
 }
 

@@ -38,6 +38,11 @@ _SIGNATURES = {
     # stream
     "tpusort_partition_raw": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _LL, _I,
                               _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts_in,
+    # q_in, n, T, K, R, S, t_seg, sorted_run, splitters, fracs, counts_out,
+    # stream
+    "tpusort_partition_splitter": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _LL,
+                                   _I, _I, _I, _I, _I, _I, _PP, _P, _P, _P],
     # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts, q,
     # offsets, n_out, T, K, P, sorted_run, stream
     "tpusort_leaf_collapse": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _P, _LL,

@@ -1,19 +1,24 @@
-"""K1 and K1c: the fused MSD partition pass, raw-key and general branches.
+"""K1, K1b and K1c: the fused MSD partition pass, raw-key, splitter and
+general branches.
 
 PyTorch port of ``tpusort/kernels/partition.py:partition_pass_fused``:
 
 * the raw-key branch (K1) sorts each tile by 1-3 key planes, with payload
   words that ride unstably; on a CUDA tensor it launches
   ``csrc/partition.cu`` (a shared-memory sort network per tile);
+* its splitter mode (K1b, the equi-depth skew tier) sorts each tile the
+  same way and cuts the runs at per-tile splitters instead of digit
+  boundaries; on a CUDA tensor it launches the same kernel's splitter
+  template (``csrc/partition.cu``);
 * the general branch (K1c) partitions each tile stably by its digit, with
   planes and payload words riding in input order; on a CUDA tensor it
   launches ``csrc/partition_general.cu`` (a counting partition, no sort).
 
 See those files for the designs and what bounds them.  On a CPU tensor
 the wrapper runs the plain PyTorch version of the same contract
-(:func:`partition_pass_fused_plain`, :func:`partition_pass_general_plain`),
-which the tests hold against the Pallas kernel and the card holds the CUDA
-kernels against.
+(:func:`partition_pass_fused_plain`, :func:`partition_pass_splitter_plain`,
+:func:`partition_pass_general_plain`), which the tests hold against the
+Pallas kernel and the card holds the CUDA kernels against.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from tpusort_torch.dtypes import INT32_MIN
 from tpusort_torch.kernels import _build
 from tpusort_torch.ops.reference import sort_rows_lex
 
@@ -109,6 +115,91 @@ def partition_pass_fused_plain(
     counts = hist.clone()
     counts[:, r - 1] = n_valid - start[:, r - 1]
     return _emit_runs((*sp, *sv), start, s, t_seg), counts
+
+
+def _dither(T: int, r: int, device) -> torch.Tensor:
+    """(T, R-1) int64: the Pallas kernel's per-(tile, boundary) rounding
+    offset in [0, 2^16), from the int32 hash of tile t and boundary d,
+    computed mod 2^32 (only bits 15-30 of the sum survive)."""
+    t = torch.arange(T, dtype=torch.int64, device=device)[:, None]
+    d = torch.arange(1, r, dtype=torch.int64, device=device)[None, :]
+    h = (t * 0x9E3779B9 + ((d * 0x85EBCA6B) & 0x7FFFFFFF)) & 0xFFFFFFFF
+    return (h >> 15) & 0xFFFF
+
+
+def _lex_below(sorted_planes: Sequence[torch.Tensor],
+               words: Sequence[torch.Tensor]) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """(#slots < w, #slots <= w) per row, lexicographically over the planes
+    (unsigned), of (T, K) planes against (T,) words, over every slot."""
+    lt = eq = None
+    for p, w in zip(sorted_planes, words):
+        x = p ^ INT32_MIN
+        y = (w ^ INT32_MIN)[:, None]
+        l_, e_ = x < y, x == y
+        lt, eq = (l_, e_) if lt is None else (lt | (eq & l_), eq & e_)
+    a = lt.sum(dim=1)
+    return a, a + eq.sum(dim=1)
+
+
+def partition_pass_splitter_plain(
+    planes: Sequence[torch.Tensor],
+    values: Sequence[torch.Tensor],
+    counts_in: Optional[torch.Tensor],
+    *,
+    splitters: Sequence[torch.Tensor],
+    splitter_fracs: torch.Tensor,
+    q_in: Optional[int],
+    n: Optional[int],
+    r: int,
+    s: int,
+    t_seg: int,
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Plain PyTorch K1b on (T, K) int32 planes and values, with one
+    (T, R-1) int32 splitter word array per plane and (T, R-1) tie fractions
+    (16-bit fixed point, read as unsigned): each tile sorted as in
+    :func:`partition_pass_fused_plain`, then cut at the Pallas kernel's
+    points (``tpusort/kernels/partition.py:214-313``).  Boundary d may cut
+    anywhere in [a_d, b_d] = [#slots < s_d, #slots <= s_d], counted over
+    every slot, invalid ones (all-ones) included; it aims at a_d + frac *
+    (b_d - a_d) with a dithered rounding, clipped to [max(a_d, prev),
+    prev + S] and n_valid, then a backward sweep raises cuts within b_d so
+    the top run fits S.  A tile whose cut left its range, or whose top run
+    exceeds S, gets count 0 = K + 1.  Returns (flat exchanged runs per
+    operand, counts (T, R) int32)."""
+    valid = _valid(planes[0], counts_in, q_in, n)
+    sp, sv = sort_rows_lex([torch.where(valid, p, -1) for p in planes],
+                           values)
+    T, K = sp[0].shape
+    dev = sp[0].device
+    n_valid = valid.sum(dim=1)
+    fd = splitter_fracs.to(torch.int64) & 0xFFFFFFFF
+    u = _dither(T, r, dev)
+    cuts = [torch.zeros(T, dtype=torch.int64, device=dev)]
+    bounds = [None]
+    flag = torch.zeros(T, dtype=torch.bool, device=dev)
+    for d in range(1, r):
+        a, b = _lex_below(sp, [w[:, d - 1] for w in splitters])
+        lo = torch.maximum(a, cuts[-1])
+        hi = cuts[-1] + s
+        flag |= lo > hi
+        f = fd[:, d - 1]
+        prod = ((f.clamp(max=0xFFFF) * (b - a) + u[:, d - 1])
+                & 0xFFFFFFFF) >> 16
+        tgt = torch.where(f >= 1 << 16, b, a + prod)
+        cuts.append(torch.minimum(torch.minimum(torch.maximum(tgt, lo), hi),
+                                  n_valid))
+        bounds.append(b)
+    cuts.append(n_valid)
+    for d in range(r - 1, 0, -1):
+        cuts[d] = torch.maximum(cuts[d],
+                                torch.minimum(cuts[d + 1] - s, bounds[d]))
+    start = torch.stack(cuts[:r], dim=1)
+    counts = torch.stack(cuts[1:], dim=1) - start
+    flag |= counts[:, r - 1] > s
+    counts[:, 0] = torch.where(flag, K + 1, counts[:, 0])
+    return (_emit_runs((*sp, *sv), start.to(torch.int32), s, t_seg),
+            counts.to(torch.int32))
 
 
 def _histogram(digit: torch.Tensor, bins: int) -> torch.Tensor:
@@ -211,6 +302,51 @@ def _partition_pass_cuda(
     return outs, counts
 
 
+def _partition_pass_splitter_cuda(
+    planes: Sequence[torch.Tensor],
+    values: Sequence[torch.Tensor],
+    counts_in: Optional[torch.Tensor],
+    *,
+    splitters: Sequence[torch.Tensor],
+    splitter_fracs: torch.Tensor,
+    q_in: Optional[int],
+    n: Optional[int],
+    r: int,
+    s: int,
+    t_seg: int,
+    sorted_run: Optional[int],
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    T, K = planes[0].shape
+    check_fits("partition_pass_fused (splitters)", K, len(planes),
+               len(values), _K1_STATIC_SMEM)
+    if r > MAX_RADIX:
+        raise ValueError(f"R={r} exceeds the kernel's {MAX_RADIX} runs")
+    if counts_in is not None:
+        counts_in = counts_in.to(torch.int32).contiguous()
+    dev = planes[0].device
+    outs = [torch.empty(T * r * s, dtype=torch.int32, device=dev)
+            for _ in range(len(planes) + len(values))]
+    counts = torch.empty(T, r, dtype=torch.int32, device=dev)
+    np_ = len(planes)
+    err = _build.library().tpusort_partition_splitter(
+        _build.pointers(planes), _build.pointers(outs[:np_]), np_,
+        _build.pointers(values), _build.pointers(outs[np_:]), len(values),
+        None if counts_in is None else counts_in.data_ptr(),
+        q_in or 0, -1 if n is None else n, T, K, r, s, t_seg,
+        sorted_run or 0, _build.pointers(splitters),
+        splitter_fracs.data_ptr(), counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "partition_pass_fused (splitters)")
+    _build.count_launch(_partition_pass_splitter_cuda, np_, len(values))
+    return outs, counts
+
+
+# K1b launches are counted apart from K1's (``ops.msd.counters``)
+_partition_pass_splitter_cuda.launches = 0
+_partition_pass_splitter_cuda.modes = collections.Counter()
+
+
 def _partition_pass_general_cuda(
     planes: Sequence[torch.Tensor],
     values: Sequence[torch.Tensor],
@@ -259,6 +395,26 @@ _partition_pass_general_cuda.launches = 0
 _partition_pass_general_cuda.modes = collections.Counter()
 
 
+def _splitter_operands(splitters, fracs, n_planes: int, T: int, r: int,
+                       dev) -> List[torch.Tensor]:
+    """The splitter word arrays, then the fractions, checked: (T, R-1)
+    int32 on the keys' device, one word array per key plane."""
+    spl = list(splitters) if isinstance(splitters, (list, tuple)) \
+        else [splitters]
+    if len(spl) != n_planes:
+        raise ValueError("need one splitter word array per key plane")
+    if fracs is None:          # greedy fill: ties pack earlier runs first
+        fracs = torch.full((T, r - 1), 1 << 16, dtype=torch.int32,
+                           device=dev)
+    for a in (*spl, fracs):
+        if a.dtype != torch.int32 or tuple(a.shape) != (T, r - 1) \
+                or a.device != dev:
+            raise ValueError(f"splitters and splitter_fracs must be "
+                             f"({T}, {r - 1}) int32 tensors on the keys' "
+                             "device")
+    return [a.contiguous() for a in (*spl, fracs)]
+
+
 def partition_pass_fused(
     planes: Sequence[torch.Tensor],
     values: Sequence[torch.Tensor],
@@ -304,13 +460,22 @@ def partition_pass_fused(
     needs a stable partition for keys-only bit-range sorts, which the raw
     branch cannot give, since it orders equal digits by the whole key.  The
     TPU-only ``batch`` and ``interpret`` arguments are gone.
+
+    ``splitters`` (the raw branch only; K1b, the equi-depth splitter mode)
+    cuts the sorted tile at splitter values instead of digit boundaries:
+    one (T, R-1) int32 word array per key plane (a tensor alone for one
+    plane), with ``splitter_fracs`` ((T, R-1) int32, 16-bit fixed point in
+    [0, 65536]; default 65536, the greedy fill) saying where inside a tie
+    range each cut lies (:func:`partition_pass_splitter_plain`).
+    ``lo_bit`` and ``width`` are then unused; a tile whose cut left its
+    legal range reports count 0 = K + 1.
     """
-    if splitters is not None or splitter_fracs is not None:
-        raise NotImplementedError(
-            "splitters= (equi-depth splitter mode, K1b) is not ported yet: "
-            "ROADMAP Queue 1 item 7")
     raw = (not general and digit is None and len(planes) <= MAX_PLANES
            and (not values or unstable))
+    if splitters is not None and not raw:
+        raise ValueError("splitters mode requires the raw-key path")
+    if splitters is None and splitter_fracs is not None:
+        raise ValueError("splitter_fracs needs splitters")
     ops = list(planes) + list(values)
     if not planes or any(o.dtype != torch.int32 or o.dim() != 2
                          for o in ops):
@@ -353,21 +518,32 @@ def partition_pass_fused(
     if T % seg_tiles:
         raise ValueError(f"T={T} is not a multiple of t_seg={t_seg}")
     kp, kv = ops[:len(planes)], ops[len(planes):]
-    kw = dict(q_in=q_in, n=n, r=r, s=s, lo_bit=lo_bit, width=width,
-              t_seg=seg_tiles)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no K1 for device {dev}")
-    if raw and dev.type == "cpu":
-        outs, counts = partition_pass_fused_plain(kp, kv, counts_in, **kw)
+    kw = dict(q_in=q_in, n=n, r=r, s=s, t_seg=seg_tiles)
+    if splitters is not None:
+        *spl, fracs = _splitter_operands(splitters, splitter_fracs,
+                                         len(planes), T, r, dev)
+        kw.update(splitters=spl, splitter_fracs=fracs)
+        if dev.type == "cpu":
+            outs, counts = partition_pass_splitter_plain(kp, kv, counts_in,
+                                                         **kw)
+        else:
+            outs, counts = _partition_pass_splitter_cuda(
+                kp, kv, counts_in, sorted_run=sorted_run, **kw)
+    elif raw and dev.type == "cpu":
+        outs, counts = partition_pass_fused_plain(
+            kp, kv, counts_in, lo_bit=lo_bit, width=width, **kw)
     elif raw:
-        outs, counts = _partition_pass_cuda(kp, kv, counts_in,
-                                            sorted_run=sorted_run, **kw)
+        outs, counts = _partition_pass_cuda(
+            kp, kv, counts_in, lo_bit=lo_bit, width=width,
+            sorted_run=sorted_run, **kw)
     elif dev.type == "cpu":
-        outs, counts = partition_pass_general_plain(kp, kv, counts_in,
-                                                    digit=digit, **kw)
+        outs, counts = partition_pass_general_plain(
+            kp, kv, counts_in, lo_bit=lo_bit, width=width, digit=digit, **kw)
     else:
-        outs, counts = _partition_pass_general_cuda(kp, kv, counts_in,
-                                                    digit=digit, **kw)
+        outs, counts = _partition_pass_general_cuda(
+            kp, kv, counts_in, lo_bit=lo_bit, width=width, digit=digit, **kw)
     if t_seg is None:
         outs = [o.reshape(T, r * s) for o in outs]
     return outs, counts

@@ -43,7 +43,8 @@ from tpusort_torch.kernels.bitonic import (
     leaf_tile_cap, sort_tiles, sort_tiles_counts_collapsed)
 from tpusort_torch.kernels.collapse import collapse_segments
 from tpusort_torch.kernels.partition import (
-    MAX_PLANES, _partition_pass_general_cuda, partition_pass_fused)
+    MAX_PLANES, _partition_pass_general_cuda, _partition_pass_splitter_cuda,
+    partition_pass_fused)
 from tpusort_torch.ops.reference import (
     _mask_plane_bits, sort_twiddled_reference)
 from tpusort_torch.ops.small import single_tile_ok, sort_twiddled_bitonic
@@ -280,33 +281,48 @@ def plan_msd(
 # Route counters
 # ---------------------------------------------------------------------------
 
-# Engine routes, as plain integers.  The kernel launch counts live on the
-# kernel wrappers (``partition_pass_fused.launches`` for K1's raw branch,
-# ``_partition_pass_general_cuda.launches`` for its general branch K1c,
-# ``sort_tiles_counts_collapsed.launches``, ``sort_tiles.launches``,
+# Engine and API routes, as plain integers.  The kernel launch counts live
+# on the kernel wrappers (``partition_pass_fused.launches`` for K1's raw
+# branch, ``_partition_pass_splitter_cuda.launches`` for its splitter mode
+# K1b, ``_partition_pass_general_cuda.launches`` for its general branch
+# K1c, ``sort_tiles_counts_collapsed.launches``, ``sort_tiles.launches``,
 # ``collapse_segments.launches``, and ``.modes`` by key planes and payload
 # words), which count only where they launch a CUDA kernel; :func:`counters`
 # and :func:`mode_counters` read them.
-_ROUTES = {"reference_routes": 0, "overflow_fallbacks": 0}
+_ROUTES = {"reference_routes": 0, "overflow_fallbacks": 0,
+           "radix_tiers": 0, "equidepth_runs": 0, "sample_fallbacks": 0,
+           "identity_routes": 0}
 _KERNELS = {"k1_launches": partition_pass_fused,
+            "k1b_launches": _partition_pass_splitter_cuda,
             "k1c_launches": _partition_pass_general_cuda,
             "k2_launches": sort_tiles_counts_collapsed,
             "k3_launches": sort_tiles,
             "k4_launches": collapse_segments}
 
 
+def count_route(name: str) -> None:
+    """Count one route taken (a key of :func:`counters` that is not a
+    kernel's launches)."""
+    _ROUTES[name] += 1
+
+
 def counters() -> dict:
-    """K1 (raw branch), K1c (general branch), K2, K3 and K4 launches,
-    reference routes (no plan and no single-tile path) and overflow
-    fallbacks since the last :func:`reset_counters`."""
+    """Since the last :func:`reset_counters`: K1 (raw branch), K1b
+    (splitter mode), K1c (general branch), K2, K3 and K4 launches;
+    reference routes (an engine delegating: no plan and no single-tile
+    path, or a shape the equi-depth engine does not take); overflow
+    fallbacks (exact sorts after an overflow flag, in an engine or the
+    API's tier chain); the radix tiers the tier chain dispatched; the
+    equi-depth pipelines run, and the exact sorts their samples took after
+    an overflow; presorted inputs returned as they were."""
     return dict({k: fn.launches for k, fn in _KERNELS.items()}, **_ROUTES)
 
 
 def mode_counters() -> dict:
     """Launches since the last :func:`reset_counters` by kernel and mode:
-    {("K1" | "K1c" | "K2" | "K3" | "K4", key planes, payload words):
-    launches}.  K1c counts its key planes and value words; K4 compares no
-    keys, so its mode is (0, operand words)."""
+    {("K1" | "K1b" | "K1c" | "K2" | "K3" | "K4", key planes, payload
+    words): launches}.  K1c counts its key planes and value words; K4
+    compares no keys, so its mode is (0, operand words)."""
     return {("K" + k[1:k.index("_")], *mode): c
             for k, fn in _KERNELS.items()
             for mode, c in fn.modes.items() if c}
@@ -530,7 +546,9 @@ def sort_twiddled_msd(
     total_bits: int,
     config,
     stable: bool = True,
-) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    on_overflow: str = "fallback",
+    skew_tier: Optional[bool] = None,
+):
     """Ascending sort of twiddled int32 planes (plane 0 most significant)
     by the unsigned value of bits [begin_bit, end_bit), with int32 payload
     words, on the tensors' device (port of
@@ -545,28 +563,42 @@ def sort_twiddled_msd(
     digit, then :func:`_leaf_sort`; it is stable, keys only or not.
     Delegates to the single-tile path or the reference sort below
     ``config.min_n`` or when no plan exists.  Otherwise runs the passes and
-    the leaf, reads the overflow flag on the host once, and takes the exact
-    reference sort if any run overflowed or a valid raw-key pair equals the
-    all-ones sentinel.  (The JAX engine folds that choice into the graph
-    with ``lax.cond`` and can try its equi-depth skew tier first; both give
-    the same exact output.  The skew tier is ROADMAP Queue 1 item 7.)
+    the leaf; a run that overflowed, or a valid raw-key pair equal to the
+    all-ones sentinel, raises the overflow flag.
+
+    ``on_overflow="fallback"`` (the default) reads the flag on the host once
+    and, when it is set, takes the exact reference sort, or first the
+    equi-depth engine (``ops.equidepth``) where ``skew_tier`` routes there:
+    keys only, one plane, the full 32-bit range and n < 2^28 (JAX's
+    in-engine skew route, ``tpusort/ops/msd.py:789-818``).  ``skew_tier``
+    None takes ``config.skew_tier``, and None there means on for CUDA
+    tensors.  ``on_overflow="flag"`` returns (planes, values, overflow),
+    the flag a 0-d bool tensor still on the device, and takes no fallback:
+    the API's tier chain reads it.  (The JAX engine's in-graph ``"cond"``
+    mode has no counterpart: the port always reads flags on the host.)
 
     Keys-only bit-range sorts take K1c, not JAX's route: the Pallas engine
     sends them to its raw-key branch, which sorts each tile by the whole
     key and so loses input order within the range (ROADMAP Queue 3).
     """
+    if on_overflow not in ("fallback", "flag"):
+        raise ValueError(f"on_overflow must be 'fallback' or 'flag', got "
+                         f"{on_overflow!r}")
+    flag_mode = on_overflow == "flag"
     nplanes = len(planes)
     full = begin_bit == 0 and end_bit == total_bits == 32 * nplanes
     n = planes[0].shape[0]
+    dev = planes[0].device
     if stable and values and nplanes == 1 and full:
         # stable pairs via the composite 64-bit key (key, position): the
         # position plane is unique, so the unstable 2-plane raw path is
         # stable by key, and its sentinel pre-check never fires on it
-        gidx = torch.arange(n, dtype=torch.int32, device=planes[0].device)
-        sp, sv = sort_twiddled_msd(
+        gidx = torch.arange(n, dtype=torch.int32, device=dev)
+        res = sort_twiddled_msd(
             (planes[0], gidx), values, begin_bit=0, end_bit=64,
-            total_bits=64, config=config, stable=False)
-        return (sp[0],), sv
+            total_bits=64, config=config, stable=False,
+            on_overflow=on_overflow)
+        return ((res[0][0],), *res[1:])
     raw = full and nplanes <= MAX_PLANES and (not values or not stable)
     bits = dict(begin_bit=begin_bit, end_bit=end_bit, total_bits=total_bits)
     kwargs = config.plan_kwargs()
@@ -576,9 +608,13 @@ def sort_twiddled_msd(
     if plan is None:
         if (not values or not stable) and \
                 single_tile_ok(planes, values, config=config, **bits):
-            return sort_twiddled_bitonic(planes, values, config=config,
-                                         **bits)
-        return _reference(planes, values, bits)
+            sp, sv = sort_twiddled_bitonic(planes, values, config=config,
+                                           **bits)
+        else:
+            sp, sv = _reference(planes, values, bits)
+        if flag_mode:
+            return sp, sv, torch.zeros((), dtype=torch.bool, device=dev)
+        return sp, sv
     # The host reads the overflow flag (JAX's on_overflow="flag" mode), so
     # no fallback workspace is reserved in advance and the JAX engine's
     # 2^29 in-graph cap does not apply.
@@ -606,7 +642,21 @@ def sort_twiddled_msd(
             sorted_run=(last_s & -last_s), num_keys=nplanes,
         )
     del data, ctable                     # free the pass buffers first
+    if flag_mode:
+        return tuple(outs[:nplanes]), tuple(outs[nplanes:]), overflow
     if bool(overflow):                   # the one host sync of the path
+        del outs
+        if skew_tier is None:
+            skew_tier = config.skew_tier
+        if skew_tier is None:
+            skew_tier = dev.type == "cuda" and not values and nplanes == 1 \
+                and full and n < (1 << 28)
+        if skew_tier and not values:
+            # the equi-depth engine, with its own exact fallback (imported
+            # here: it imports this module)
+            from tpusort_torch.ops.equidepth import sort_twiddled_equidepth
+
+            return sort_twiddled_equidepth(planes, (), config=config, **bits)
         _ROUTES["overflow_fallbacks"] += 1
         return sort_twiddled_reference(planes, values, **bits)
     return tuple(outs[:nplanes]), tuple(outs[nplanes:])

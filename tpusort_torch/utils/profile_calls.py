@@ -1,0 +1,135 @@
+"""Where the time of the port's sort calls goes, on one CUDA card.
+
+Run from the repository root:
+
+    python3 -m tpusort_torch.utils.profile_calls [part of a name ...]
+
+For each call of the paths the port has (uniform keys through the raw
+and the general path; Zipf, entropy-3 and presorted keys through the
+host tiering), or each whose name contains an argument, it makes the inputs on the
+card from a seed, runs the call twice to warm it (kernel build, plan cache,
+tier cache), times five calls with the host clock, each ending in a
+``torch.cuda.synchronize()`` (the median is "wall"), then traces one more
+with ``torch.profiler`` and prints the device time of every kernel and
+copy, summed by name, largest first, with their sum ("device") and the
+share of the wall the card was idle (1 - device / wall, as the kernels do
+not overlap on one stream).  The card's name and power limit head the
+output.  It fails without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import sys
+import time
+from typing import Callable, Dict
+
+import torch
+
+MAIN_N = 1 << 28
+U64_N = 1 << 27
+SMALL_N = 1 << 24
+SEED = 20261016
+
+
+def _calls(dev: torch.device) -> Dict[str, Callable]:
+    import tpusort_torch
+    from tpusort_torch.utils.datagen import zipf_keys_torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def rand(n):
+        return torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    uni = rand(MAIN_N).view(torch.uint32)
+    zipf = zipf_keys_torch(gen, MAIN_N).view(torch.uint32)
+    e3 = (rand(MAIN_N) & rand(MAIN_N) & rand(MAIN_N)).view(torch.uint32)
+    presorted = tpusort_torch.sort(uni)
+    vals = torch.arange(MAIN_N, dtype=torch.int32, device=dev)
+    u64 = torch.stack([rand(U64_N), rand(U64_N)], 1).view(torch.uint64)[:, 0]
+    v64 = torch.stack([rand(U64_N), rand(U64_N)], 1).view(torch.int64)[:, 0]
+    z64 = zipf_keys_torch(gen, U64_N, dtype=torch.uint64)
+    i64 = v64[:SMALL_N]
+    return {
+        "sort uniform u32 2^28": lambda: tpusort_torch.sort(uni),
+        "sort_pairs uniform u32 + u32 2^28 (stable)":
+            lambda: tpusort_torch.sort_pairs(uni, vals),
+        "unstable_sort_pairs uniform u32 + u32 2^28":
+            lambda: tpusort_torch.unstable_sort_pairs(uni, vals),
+        "argsort uniform i32 2^28":
+            lambda: tpusort_torch.argsort(uni.view(torch.int32)),
+        "sort uniform u64 2^27": lambda: tpusort_torch.sort(u64),
+        "unstable_sort_pairs uniform u64 + i64 2^27":
+            lambda: tpusort_torch.unstable_sort_pairs(u64, v64),
+        "sort_pairs(end_bit=24) uniform u32 + u32 2^28":
+            lambda: tpusort_torch.sort_pairs(uni, vals, end_bit=24),
+        "sort(begin_bit=8) uniform u32 2^28":
+            lambda: tpusort_torch.sort(uni, begin_bit=8),
+        "sort_pairs uniform u64 + i64 2^27 (stable)":
+            lambda: tpusort_torch.sort_pairs(u64, v64),
+        "argsort uniform i64 2^24": lambda: tpusort_torch.argsort(i64),
+        "sort Zipf 1.1 u32 2^28": lambda: tpusort_torch.sort(zipf),
+        "sort entropy-3 u32 2^28": lambda: tpusort_torch.sort(e3),
+        "sort presorted u32 2^28": lambda: tpusort_torch.sort(presorted),
+        "sort_pairs Zipf 1.1 u32 + u32 2^28 (stable)":
+            lambda: tpusort_torch.sort_pairs(zipf, vals),
+        "unstable_sort_pairs Zipf 1.1 u32 + u32 2^28":
+            lambda: tpusort_torch.unstable_sort_pairs(zipf, vals),
+        "sort Zipf 1.1 u64 2^27": lambda: tpusort_torch.sort(z64),
+    }
+
+
+def _device_ms_by_name(prof) -> Dict[str, float]:
+    out: Dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time", None)
+        if us is None:
+            us = e.cuda_time
+        out[e.name] = out.get(e.name, 0.0) + us / 1e3
+    return out
+
+
+def main(argv) -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_calls: needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    dev = torch.device("cuda", 0)
+    calls = _calls(dev)
+    for name, fn in calls.items():
+        if argv and not any(a in name for a in argv):
+            continue
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name = _device_ms_by_name(prof)
+        wall = statistics.median(walls)
+        busy = sum(by_name.values())
+        print(f"== {name}: wall {wall:.3f} ms (5 calls "
+              f"{min(walls):.3f}..{max(walls):.3f}), device {busy:.3f} ms, "
+              f"idle share {1 - busy / wall:.3f} on {card}", flush=True)
+        for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
+            print(f"   {ms:9.3f} ms  {k[:110]}", flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
