@@ -78,6 +78,39 @@ non-zero:
     printed and the script fails).  Presorted and constant 2^28 keys come
     back through the identity path with no K1, K1b or K2 launch; and a
     warm-cache run (uniform, uniform, constant, Zipf) stays exact;
+20. K5 (``prefix_sum_tiles``) vs its plain version (``torch.cumsum``):
+    int32 and uint32, inclusive and exclusive, at 2^28 and 2^28 - 12345,
+    values up to 2^20 so the sums wrap, and on a view that starts off a
+    16-byte boundary, bit for bit; float32 at 2^28 against a float64
+    cumsum within 1e-5 of the running sum, float32 zeros and ones at 2^24
+    exactly, and two runs of one float32 input bit for bit;
+21. K6 (``digit_histogram_tiles``) vs plain (``torch.bincount``) on 2^28
+    uniform keys at (shift, bits) = (24, 8), (27, 5), (0, 3), at
+    2^28 - 12345 keys off a 16-byte boundary, and on 2^28 constant keys:
+    exact;
+22. ``ops.scan.inclusive_sum`` / ``exclusive_sum`` and
+    ``ops.histogram.digit_histogram`` through their public routes: one K5
+    or K6 launch each;
+23. K9 (``sort_tiles_counts``) and K10 (``sort_tiles_masked``) vs plain at
+    (8192, 2048) keys, (2048, 12288) key + value (the virtual pad) and 2
+    planes + a value at (4096, 4096), with ragged counts and a random
+    mask: the key planes over the whole tile (all-ones behind the valid
+    prefix), the payloads over the valid prefix.  They have no caller above
+    the kernel level, as in the JAX package: their launches are those of
+    one call of the public wrapper each, counters at 0 just before;
+24. ``sort_batched``: (8192, 2048) and (2^14, 16384) uint32 keys + int32
+    values, (2^17, 2048) uint32 keys and float32 descending rows with NaN,
+    each against ``torch.sort(dim=1)`` and through one K3 launch; K3 vs
+    plain at the two large shapes;
+25. ``segmented_sort`` at n = 2^26.  First the route as the JAX package
+    builds it ((segment id << shift, key) planes in input order through the
+    engine in flag mode): its overflow flag is printed.  Then K1 and K2
+    with 3 planes + a value and 2 planes + a value vs plain at the
+    route's plans; then 2^16 equal segments and a ragged batch (uniform
+    random offsets), each keys only, unstable pairs and stable pairs with
+    ``values = arange``, against the stable reference sort of (segment,
+    key), the counters printed.  The equal batch must run K1 x passes and
+    K2 x 1 with no fallback;
 17. timings, median of 5 CUDA-event runs, alternating: the 2^28 sort
     against ``torch.sort``, the 2^28 pairs sort against ``torch.sort``
     (stable) plus the values gather, 2^27 uint64 keys against
@@ -87,8 +120,12 @@ non-zero:
     ``torch.sort(stable=True)`` of the flipped keys plus the gathers, the
     Zipf, entropy-3 and presorted 2^28 sorts against the same call forced
     through radix then exact (the engine, skew tier off) and
-    ``torch.sort``, and each kernel mode against its plain version (and
-    K3 against ``torch.sort`` of its rows plus the gathers).
+    ``torch.sort``, ``sort_batched`` against ``torch.sort(dim=1)`` (plus
+    the gather), ``segmented_sort`` against ``torch.sort(stable=True)`` of
+    the (segment, key) int64 composite plus the gathers, and each kernel
+    mode against its plain version (and K3, K5, K6 and the one-plane K9
+    and K10 against one PyTorch call, or one and its gathers, computing
+    the same function).
 
 The line before the last is a JSON summary of the kernels: each template
 mode compared, with its launches in the run of the path that drives it at
@@ -96,7 +133,7 @@ that shape (counters set to 0 just before), or 0 where no path does, its
 time, its plain version's time, its bound (the least time for the words
 it must move at 3.35 TB/s, or its operations at 67 T/s, the larger) and
 the time of a PyTorch call computing the same function where there is
-one (K3); the last line is
+one (K3, K5, K6, one-plane K9 and K10); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -112,6 +149,7 @@ MAIN_N = 1 << 28
 RAGGED_N = MAIN_N - 12345
 SMALL_N = 1 << 24
 U64_N = 1 << 27
+SEG_N = 1 << 26          # segmented_sort's size
 REPS = 5
 SEED = 20261016
 HBM_BPS = 3.35e12        # H100 SXM memory rate (bytes/s)
@@ -137,6 +175,7 @@ def card_line() -> str:
 
 
 def main() -> None:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -148,21 +187,26 @@ def main() -> None:
     from tpusort_torch.configs import get_config
     from tpusort_torch.kernels import _build
     from tpusort_torch.kernels.bitonic import (
-        sort_tiles, sort_tiles_counts_collapsed,
-        sort_tiles_counts_collapsed_plain, sort_tiles_plain)
+        sort_tiles, sort_tiles_counts, sort_tiles_counts_collapsed,
+        sort_tiles_counts_collapsed_plain, sort_tiles_counts_plain,
+        sort_tiles_masked, sort_tiles_masked_plain, sort_tiles_plain)
     from tpusort_torch.kernels.collapse import (
         collapse_segments, collapse_segments_plain)
     from tpusort_torch import api as tapi
     from tpusort_torch.kernels.partition import (
         partition_pass_fused, partition_pass_fused_plain,
         partition_pass_general_plain, partition_pass_splitter_plain)
-    from tpusort_torch.ops import equidepth, msd
+    from tpusort_torch.kernels.scanhist import (
+        digit_histogram_tiles, digit_histogram_tiles_plain, prefix_sum_tiles,
+        prefix_sum_tiles_plain)
+    from tpusort_torch.ops import equidepth, histogram, msd, scan
     from tpusort_torch.ops.reference import sort_twiddled_reference
-    from tpusort_torch.utils.datagen import zipf_keys_torch
+    from tpusort_torch.utils.datagen import segment_offsets, zipf_keys_torch
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+    np_rng = np.random.default_rng(SEED)
     t_start = time.perf_counter()
 
     def log(msg: str) -> None:
@@ -1206,6 +1250,347 @@ def main() -> None:
             f"{list(tapi._TIER_CACHE.values())}")
     del got
 
+    # ---- phase 20: K5 vs plain ------------------------------------------
+    small = torch.randint(0, 1 << 20, (MAIN_N,), dtype=torch.int32,
+                          device=dev, generator=gen)
+    check(int(small.sum(dtype=torch.int64)) > 1 << 32,
+          "K5: the int32 sums would not wrap")
+    for name, xin in (("int32", small), ("uint32", small.view(torch.uint32))):
+        for n_ in (MAIN_N, RAGGED_N):
+            for excl in (False, True):
+                got = prefix_sum_tiles(xin[:n_], exclusive=excl)
+                want = prefix_sum_tiles_plain(xin[:n_], exclusive=excl)
+                check(got.dtype == xin.dtype and same_bits(got, want),
+                      f"K5 {name} n={n_} exclusive={excl}: differs from "
+                      "plain")
+                del got, want
+    for off in (1, 3):                    # off a 16-byte boundary
+        check(same_bits(prefix_sum_tiles(small[off:RAGGED_N]),
+                        prefix_sum_tiles_plain(small[off:RAGGED_N])),
+              f"K5 int32 view at +{off}: differs from plain")
+    log("phase 20 ok: K5 == plain bit for bit, int32 and uint32, inclusive "
+        f"and exclusive, n={MAIN_N} and n={RAGGED_N}, wrapping sums, and "
+        "on views off a 16-byte boundary")
+
+    def k5_times(xin, excl):
+        xi_ = xin.view(torch.int32) if xin.dtype == torch.uint32 else xin
+        return time_alt(
+            lambda: prefix_sum_tiles(xin, exclusive=excl),
+            lambda: prefix_sum_tiles_plain(xin, exclusive=excl),
+            lambda: torch.cumsum(xi_, 0, dtype=xi_.dtype))
+
+    t5 = k5_times(small, False)
+    results["K5 int32 inclusive"] = (0, *t5[:2], 2 * MAIN_N, MAIN_N, t5[2])
+    t5 = k5_times(small.view(torch.uint32), True)
+    results["K5 uint32 exclusive"] = (0, *t5[:2], 2 * MAIN_N, MAIN_N, t5[2])
+    f32 = torch.rand(MAIN_N, device=dev, generator=gen)
+    got = prefix_sum_tiles(f32)
+    check(same_bits(got, prefix_sum_tiles(f32)),
+          "K5 float32: two runs of one input differ")
+    exact = torch.cumsum(f32.double(), 0)
+    rel = float(((got.double() - exact).abs() / exact).max())
+    plain32 = prefix_sum_tiles_plain(f32)
+    rel_plain = float(((plain32.double() - exact).abs() / exact).max())
+    f32_err = float((got - plain32).abs().max())
+    check(rel < 1e-5, f"K5 float32 2^28: relative error {rel} vs float64")
+    del exact, plain32, got
+    bits01 = (torch.randint(0, 2, (SMALL_N,), device=dev, generator=gen))
+    for excl in (False, True):
+        want = torch.cumsum(bits01, 0) - (bits01 if excl else 0)
+        check(torch.equal(prefix_sum_tiles(bits01.float(), exclusive=excl),
+                          want.float()),
+              f"K5 float32 0/1 at 2^24 exclusive={excl}: not exact")
+    t5 = k5_times(f32, False)
+    results["K5 float32 inclusive"] = (f32_err, *t5[:2], 2 * MAIN_N, MAIN_N,
+                                       t5[2])
+    log(f"phase 20 ok: K5 float32 at 2^28 within {rel:.3e} of the float64 "
+        f"running sum (tolerance 1e-5; torch.cumsum: {rel_plain:.3e}; "
+        f"max abs difference from plain {f32_err}); 0/1 values at 2^24 "
+        "exact; two runs bit-identical")
+    del bits01, want
+
+    # ---- phase 21: K6 vs plain ------------------------------------------
+    for shift, nbits in ((24, 8), (27, 5), (0, 3)):
+        check(torch.equal(digit_histogram_tiles(x, shift, nbits),
+                          digit_histogram_tiles_plain(x, shift, nbits)),
+              f"K6 uniform ({shift}, {nbits}) at 2^28: differs from plain")
+    odd = x[3:3 + RAGGED_N]
+    got = digit_histogram_tiles(odd, 24, 8)
+    check(torch.equal(got, digit_histogram_tiles_plain(odd, 24, 8))
+          and int(got.sum()) == RAGGED_N,
+          f"K6 at n={RAGGED_N} off a 16-byte boundary: differs from plain")
+    got = digit_histogram_tiles(const, 24, 8)
+    check(torch.equal(got, digit_histogram_tiles_plain(const, 24, 8))
+          and int(got[0x12]) == MAIN_N, "K6 constant keys: differs")
+    for name, keys in (("uniform", x), ("constant", const)):
+        ki = keys.view(torch.int32)
+        t6 = time_alt(
+            lambda: digit_histogram_tiles(keys, 24, 8),
+            lambda: digit_histogram_tiles_plain(keys, 24, 8),
+            lambda: torch.bincount((ki >> 24) & 0xFF, minlength=256))
+        results[f"K6 {name} (24, 8)"] = (0, *t6[:2], MAIN_N + 256, MAIN_N,
+                                         t6[2])
+    log("phase 21 ok: K6 == plain exactly at 2^28 uniform keys for (24, 8), "
+        f"(27, 5), (0, 3), at n={RAGGED_N} off alignment, and on 2^28 "
+        "constant keys")
+    del odd, got
+
+    # ---- phase 22: the public scan and histogram routes ------------------
+    for mode, fn, want_fn in (
+            ("K5 int32 inclusive", lambda: scan.inclusive_sum(small),
+             lambda: prefix_sum_tiles_plain(small)),
+            ("K5 uint32 exclusive",
+             lambda: scan.exclusive_sum(small.view(torch.uint32)),
+             lambda: prefix_sum_tiles_plain(small.view(torch.uint32),
+                                            exclusive=True)),
+            ("K5 float32 inclusive", lambda: scan.inclusive_sum(f32), None)):
+        got, c, modes = drive(fn)
+        check(c == dict(quiet, k5_launches=1),
+              f"{mode}: the public route did not launch K5 once: {c}")
+        check(want_fn is None or same_bits(got, want_fn()),
+              f"{mode}: the public route differs from plain")
+        launches[mode] = modes.get(("K5", 0, 1), 0)
+    for name, keys in (("uniform", x), ("constant", const)):
+        got, c, modes = drive(lambda: histogram.digit_histogram(keys, 24, 8))
+        check(c == dict(quiet, k6_launches=1) and got.shape == (1, 256)
+              and int(got.sum()) == MAIN_N,
+              f"digit_histogram ({name}): not one K6 launch: {c}")
+        launches[f"K6 {name} (24, 8)"] = modes.get(("K6", 1, 0), 0)
+    log("phase 22 ok: inclusive_sum, exclusive_sum and digit_histogram "
+        "launched K5 or K6 once each")
+    del small, f32, got
+
+    # ---- phase 23: K9 and K10 vs plain -----------------------------------
+    for shape_name, (t, k, nk, nv, q_) in {
+        "(8192, 2048)": (8192, 2048, 1, 0, 128),
+        "(2048, 12288) + value": (2048, 12288, 1, 1, 512),
+        "2 planes + value (4096, 4096)": (4096, 4096, 2, 1, 256),
+    }.items():
+        ops = [unique_i32(t * k).reshape(t, k)] + \
+            [random_i32(t * k).reshape(t, k) for _ in range(nk - 1 + nv)]
+        cnts = torch.randint(0, q_ + 1, (t, k // q_), dtype=torch.int32,
+                             device=dev, generator=gen)
+        mask = torch.rand(t, k, device=dev, generator=gen) < 0.7
+        flipped = ops[0] ^ dtypes.INT32_MIN
+        for kid, kernel, plain, valid in (
+                ("K9", lambda: sort_tiles_counts(ops, cnts, q_, num_keys=nk),
+                 lambda: sort_tiles_counts_plain(ops, cnts, q_, nk),
+                 (torch.arange(k, device=dev) % q_)[None, :]
+                 < cnts.repeat_interleave(q_, dim=1)),
+                ("K10", lambda: sort_tiles_masked(ops, mask, num_keys=nk),
+                 lambda: sort_tiles_masked_plain(ops, mask, nk), mask)):
+            mode = f"{kid} {shape_name}"
+            got, want = kernel(), plain()
+            head = torch.arange(k, device=dev)[None, :] \
+                < valid.sum(dim=1)[:, None]
+            err = 0
+            for i, (g, w) in enumerate(zip(got, want)):
+                if i < nk:
+                    check(same_bits(g, w) and bool((g[~head] == -1).all()),
+                          f"{mode}: key plane {i} differs from plain")
+                    err = max(err, max_abs_err(g, w))
+                else:
+                    check(same_bits(g[head], w[head]),
+                          f"{mode}: payload {i - nk} differs on the valid "
+                          "prefix")
+                    err = max(err, max_abs_err(g[head], w[head]))
+            del got, want, head
+            fns = [kernel, plain]
+            if nk == 1:          # one PyTorch sort of the rewritten rows
+                top = (1 << 31) - 1
+
+                def library(valid=valid):
+                    order = torch.sort(torch.where(valid, flipped, top),
+                                       dim=1).indices
+                    return [torch.gather(o, 1, order) for o in ops[1:]]
+                fns.append(library)
+            tk, tp, *tl = time_alt(*fns)
+            results[mode] = (err, tk, tp,
+                             2 * t * k * len(ops) + (cnts.numel() if
+                                                     kid == "K9"
+                                                     else t * k // 4),
+                             t * k * log2(k), *tl)
+            _, c, modes = drive(kernel)
+            check(c == dict(quiet, **{f"k{kid[1:]}_launches": 1}),
+                  f"{mode}: not one {kid} launch: {c}")
+            launches[mode] = modes.get((kid, nk, nv), 0)
+            log(f"phase 23 ok: {mode} == plain, max_abs_err {err}")
+    del ops, cnts, mask, flipped, valid
+
+    # ---- phase 24: sort_batched -------------------------------------------
+    def batched(name, keys, values, k3_mode, **kw):
+        got, c, modes = drive(
+            lambda: tpusort_torch.sort_batched(keys, values, **kw))
+        check(c == dict(quiet, k3_launches=1),
+              f"sort_batched {name}: not one K3 launch: {c}")
+        ko = got if values is None else got[0]
+        planes, traits = dtypes.twiddle_in(keys.reshape(-1), **kw)
+        want = dtypes.twiddle_out(
+            ((torch.sort(planes[0].reshape(keys.shape) ^ dtypes.INT32_MIN,
+                         dim=1).values ^ dtypes.INT32_MIN).reshape(-1),),
+            traits, **kw)
+        check(ko.shape == keys.shape and ko.dtype == keys.dtype
+              and same_bits(ko.reshape(-1), want),
+              f"sort_batched {name}: keys differ from torch.sort(dim=1)")
+        if values is not None:
+            vo = got[1]
+            check(same_bits(torch.sort(vo, dim=1).values, values)
+                  and same_bits(
+                      keys.reshape(-1).view(torch.int32)[
+                          vo.reshape(-1).long()],
+                      ko.reshape(-1).view(torch.int32)),
+                  f"sort_batched {name}: values are not the rows' own")
+        log(f"phase 24 ok: sort_batched {name} == torch.sort(dim=1), one K3 "
+            f"launch ({modes})")
+        return modes.get(k3_mode, 0)
+
+    def k3_vs_plain(mode, ops):
+        got, want = sort_tiles(ops), sort_tiles_plain(ops)
+        err = 0
+        for g, w in zip(got, want):
+            check(same_bits(g, w), f"{mode}: differs from plain")
+            err = max(err, max_abs_err(g, w))
+        del got, want
+        flipped = ops[0] ^ dtypes.INT32_MIN
+
+        def library():
+            s_ = torch.sort(flipped, dim=1)
+            return [torch.gather(o, 1, s_.indices) for o in ops[1:]]
+
+        tk, tp, tl = time_alt(lambda: sort_tiles(ops),
+                              lambda: sort_tiles_plain(ops), library)
+        t, k = ops[0].shape
+        results[mode] = (err, tk, tp, 2 * t * k * len(ops), t * k * log2(k),
+                         tl)
+        log(f"phase 24 ok: {mode} == plain, max_abs_err {err}")
+
+    rows_v = torch.arange(MAIN_N, dtype=torch.int32, device=dev)
+    bk = unique_i32(8192 * 2048).reshape(8192, 2048)
+    launches["K3 (8192, 2048) + value"] = batched(
+        "(8192, 2048) uint32 + int32 values", bk.view(torch.uint32),
+        rows_v[:8192 * 2048].reshape(8192, 2048), ("K3", 1, 1))
+    bk = unique_i32(MAIN_N)
+    k3_vs_plain("K3 (131072, 2048)", [bk.reshape(1 << 17, 2048)])
+    launches["K3 (131072, 2048)"] = batched(
+        "(2^17, 2048) uint32", bk.view(torch.uint32).reshape(1 << 17, 2048),
+        None, ("K3", 1, 0))
+    k3_vs_plain("K3 (16384, 16384) + value",
+                [bk.reshape(1 << 14, 1 << 14), rows_v.reshape(1 << 14, -1)])
+    launches["K3 (16384, 16384) + value"] = batched(
+        "(2^14, 16384) uint32 + int32 values",
+        bk.view(torch.uint32).reshape(1 << 14, 1 << 14),
+        rows_v.reshape(1 << 14, 1 << 14), ("K3", 1, 1))
+    fb = random_i32(1 << 24)
+    fb[::4099] = 0x7FC00000                 # NaN rows
+    batched("(8192, 2048) float32 descending with NaN",
+            fb.view(torch.float32).reshape(8192, 2048), None, ("K3", 1, 0),
+            descending=True)
+    del fb
+
+    # ---- phase 25: segmented_sort at 2^26 ---------------------------------
+    sk = x[:SEG_N]
+    ski = sk.view(torch.int32)
+    nseg = 1 << 16
+    eq_offs = torch.arange(nseg + 1, dtype=torch.int64).numpy() \
+        * (SEG_N // nseg)
+    scfg = get_config(64, False, "cuda")
+    # the route as JAX builds it (tpusort/ops/segmented.py:176-190)
+    seg_eq = torch.arange(SEG_N, dtype=torch.int32, device=dev) \
+        >> (26 - 16)
+    shift = 32 - max((nseg - 1).bit_length(), 1)
+    (_, jk), _, jflag = drive(lambda: msd.sort_twiddled_msd(
+        (seg_eq << shift, ski), (), begin_bit=0, end_bit=64, total_bits=64,
+        config=scfg, on_overflow="flag", skew_tier=False))[0]
+    log(f"segmented_sort as JAX feeds the engine (segment id << {shift}, "
+        f"key; input order) at n=2^26, {nseg} equal segments: overflow flag "
+        f"{bool(jflag)}, counters {msd.counters()}")
+    print(f"repro: JAX's segmented engine feed at 2^26 with {nseg} equal "
+          f"segments overflows: {bool(jflag)}", flush=True)
+    del jk, jflag
+
+    seg3_plan = plan_for(SEG_N, 96, get_config(64, True, "cuda"))
+    seg2_plan = plan_for(SEG_N, 64, get_config(64, True, "cuda"))
+    check(seg3_plan is not None and seg2_plan is not None
+          and msd.leaf_tiles(seg3_plan, 3, True)[1] <= 16384,
+          f"segmented plans: {seg3_plan} {seg2_plan}")
+    log(f"segmented 3-plane plan for n=2^26: m1={seg3_plan.m1} (K, S, "
+        f"lo_bit)={[(p.k, p.s, p.lo_bit) for p in seg3_plan.passes]} leaf "
+        f"{msd.leaf_tiles(seg3_plan, 3, True)}")
+    m3 = seg3_plan.m1
+    ops3 = [random_i32(m3), random_i32(m3),
+            torch.arange(m3, dtype=torch.int32, device=dev), random_i32(m3)]
+    results["K1 3 planes+value"] = k1_vs_plain(
+        "3 planes + value (stable segmented pairs 2^26)", ops3[:3], ops3[3:],
+        seg3_plan, SEG_N)
+    results["K2 3 planes+value"], _ = k2_vs_plain(
+        "3 planes + value (stable segmented pairs 2^26)", ops3[:3], ops3[3:],
+        seg3_plan, SEG_N)
+    del ops3, _
+    m2 = seg2_plan.m1
+    ops2 = [unique_i32(m2), random_i32(m2), random_i32(m2)]
+    results["K1 2 planes+value"] = k1_vs_plain(
+        "2 planes + value (unstable segmented pairs 2^26)", ops2[:2],
+        ops2[2:], seg2_plan, SEG_N)
+    results["K2 2 planes+value"], _ = k2_vs_plain(
+        "2 planes + value (unstable segmented pairs 2^26)", ops2[:2],
+        ops2[2:], seg2_plan, SEG_N)
+    del ops2, _
+
+    svals = rows_v[:SEG_N]
+    rag_offs = segment_offsets(np_rng, SEG_N, nseg)
+
+    def seg_ids(offs):
+        return torch.searchsorted(
+            torch.from_numpy(offs[1:]).to(dev),
+            torch.arange(SEG_N, dtype=torch.int64, device=dev),
+            right=True).to(torch.int32)
+
+    for batch, offs, must_run in (("2^16 equal segments", eq_offs, True),
+                                  ("2^16 ragged segments", rag_offs, False)):
+        (_, wk), (wv,) = sort_twiddled_reference(
+            (seg_ids(offs), ski), (svals,), begin_bit=0, end_bit=64,
+            total_bits=64)
+        lens = offs[1:] - offs[:-1]
+        log(f"{batch}: lengths {int(lens.min())}..{int(lens.max())}")
+        for mode, vals_, stable_, k_mode in (
+                ("keys only", None, True, (2, 0)),
+                ("unstable pairs", svals, False, (2, 1)),
+                ("stable pairs", svals, True, (3, 1))):
+            got, c, modes = drive(lambda: tpusort_torch.segmented_sort(
+                sk, offs, vals_, stable=stable_))
+            plan_ = seg3_plan if k_mode[0] == 3 else seg2_plan
+            ran = (c["k1_launches"] == len(plan_.passes)
+                   and c["k2_launches"] == 1
+                   and c["overflow_fallbacks"] == 0
+                   and c["reference_routes"] == 0)
+            route = "the engine (K1 x %d, K2 x 1)" % c["k1_launches"] \
+                if ran else "the exact sort after an overflow"
+            print(f"route: segmented_sort {mode}, {batch}: {route}; "
+                  f"{c} {modes}", flush=True)
+            if must_run and not ran:
+                fail(f"segmented_sort {mode}, {batch}: did not run through "
+                     f"K1 and K2 without a fallback: {c}")
+            ko = got if vals_ is None else got[0]
+            check(ko.dtype == torch.uint32 and same_bits(ko, wk),
+                  f"segmented_sort {mode}, {batch}: keys differ from the "
+                  "stable reference of (segment, key)")
+            if vals_ is not None and stable_:
+                check(same_bits(got[1], wv),
+                      f"segmented_sort {mode}, {batch}: values differ")
+            elif vals_ is not None:
+                check(same_bits(ski[got[1].long()], wk)
+                      and same_bits(torch.sort(got[1]).values, svals),
+                      f"segmented_sort {mode}, {batch}: values are not a "
+                      "permutation riding with their keys")
+            if must_run and vals_ is not None:
+                row = f"{k_mode[0]} planes+value"
+                launches[f"K1 {row}"] = modes.get(("K1", *k_mode), 0)
+                launches[f"K2 {row}"] = modes.get(("K2", *k_mode), 0)
+            del got, ko
+        log(f"phase 25 ok: segmented_sort at 2^26, {batch}: keys only, "
+            "unstable and stable pairs == the stable reference")
+    del wk, wv
+
     # ---- phase 17: timings --------------------------------------------
     xi = x.view(torch.int32)
     sort_times, torch_times = time_pair(lambda: tpusort_torch.sort(x),
@@ -1283,6 +1668,49 @@ def main() -> None:
               f" G keys/s) vs radix then exact (the engine, skew tier off) "
               f"{fmt(t_forced)} vs torch.sort of the same keys as int32 "
               f"{fmt(t_torch)} on {card}", flush=True)
+    bku = bk.view(torch.uint32).reshape(1 << 17, 2048)
+    bkf = (bk ^ dtypes.INT32_MIN).reshape(1 << 17, 2048)
+    t_b, t_t = time_pair(lambda: tpusort_torch.sort_batched(bku),
+                         lambda: torch.sort(bkf, dim=1))
+    print(f"time: tpusort_torch.sort_batched (2^17, 2048) uint32 {fmt(t_b)} "
+          f"vs torch.sort(dim=1) of the same rows {fmt(t_t)} on {card}",
+          flush=True)
+    bku = bk.view(torch.uint32).reshape(1 << 14, 1 << 14)
+    bkf = bkf.reshape(1 << 14, 1 << 14)
+    bv = rows_v.reshape(1 << 14, 1 << 14)
+
+    def torch_batched_pairs():
+        s_ = torch.sort(bkf, dim=1)
+        return s_.values, torch.gather(bv, 1, s_.indices)
+
+    t_b, t_t = time_pair(lambda: tpusort_torch.sort_batched(bku, bv),
+                         torch_batched_pairs)
+    print(f"time: tpusort_torch.sort_batched (2^14, 16384) uint32 + int32 "
+          f"{fmt(t_b)} vs torch.sort(dim=1) + gather {fmt(t_t)} on {card}",
+          flush=True)
+    del bku, bkf, bv
+    for batch, offs in (("2^16 equal segments", eq_offs),
+                        ("2^16 ragged segments", rag_offs)):
+        sid = seg_ids(offs).long()
+
+        def torch_segmented(pairs):
+            s_ = torch.sort((sid << 32) | (ski.long() & 0xFFFFFFFF),
+                            stable=True)
+            return (ski[s_.indices], svals[s_.indices]) if pairs \
+                else ski[s_.indices]
+
+        for mode, vals_, stable_ in (("keys only", None, True),
+                                     ("unstable pairs", svals, False),
+                                     ("stable pairs", svals, True)):
+            t_s, t_t = time_pair(
+                lambda: tpusort_torch.segmented_sort(sk, offs, vals_,
+                                                     stable=stable_),
+                lambda: torch_segmented(vals_ is not None))
+            print(f"time: tpusort_torch.segmented_sort 2^26 uint32, {batch}, "
+                  f"{mode} {fmt(t_s)} vs torch.sort(stable=True) of the "
+                  f"(segment, key) int64 composite + gathers {fmt(t_t)} on "
+                  f"{card}", flush=True)
+        del sid
     for name, (err, tk, tp, words, ops, *lib) in results.items():
         extra = f" vs library {fmt(lib[0])}" if lib else ""
         print(f"time: {name} kernel {fmt(tk)} vs plain {fmt(tp)}{extra}, "
@@ -1306,6 +1734,14 @@ def main() -> None:
         "K1b": ("partition_pass_fused (splitters)",
                 "tpusort_torch/csrc/partition.cu",
                 "tpusort/kernels/partition.py:500"),
+        "K5": ("prefix_sum_tiles", "tpusort_torch/csrc/scanhist.cu",
+               "tpusort/kernels/scanhist.py:103"),
+        "K6": ("digit_histogram_tiles", "tpusort_torch/csrc/scanhist.cu",
+               "tpusort/kernels/scanhist.py:154"),
+        "K9": ("sort_tiles_counts", "tpusort_torch/csrc/sort_tiles.cu",
+               "tpusort/kernels/bitonic.py:639"),
+        "K10": ("sort_tiles_masked", "tpusort_torch/csrc/sort_tiles.cu",
+                "tpusort/kernels/bitonic.py:868"),
     }
     kernels = []
     for mode, (err, tk, tp, words, ops, *lib) in results.items():

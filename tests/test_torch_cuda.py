@@ -22,9 +22,13 @@ from tpusort_torch import dtypes
 from tpusort_torch.kernels import bitonic as tb
 from tpusort_torch.kernels import collapse as tc
 from tpusort_torch.kernels import partition as tp
+from tpusort_torch.kernels import scanhist as tsh
+from tpusort_torch.ops import histogram as th
+from tpusort_torch.ops import scan as tsc
 from tpusort_torch.ops import msd as tm
-from tpusort_torch.ops.reference import sort_rows_lex, sort_twiddled_reference
-from tpusort_torch.utils.datagen import zipf_keys
+from tpusort_torch.ops.reference import (
+    _mask_plane_bits, sort_rows_lex, sort_twiddled_reference)
+from tpusort_torch.utils.datagen import segment_offsets, zipf_keys
 
 pytestmark = pytest.mark.cuda
 
@@ -606,3 +610,251 @@ def test_equidepth_tier_on_card(gen, call):
     assert c["radix_tiers"] == 0 and c["equidepth_runs"] == 1, c
     assert c["k1b_launches"] >= 2 and c["k2_launches"] >= 1, c
     assert c["overflow_fallbacks"] == 0, c
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.float32])
+@pytest.mark.parametrize("exclusive", [False, True])
+@pytest.mark.parametrize("n", [1, 77, 8192, 8193, (1 << 20) + 4321,
+                               (1 << 26) + 5 * 8192 + 3])
+def test_prefix_sum(gen, dtype, exclusive, n):
+    """K5 against its plain version: integers bit for bit (values up to
+    2^20, so long inputs wrap); float32 of zeros and ones, one in eight,
+    exactly too (every partial sum is below 2^24)."""
+    if dtype == torch.float32:
+        x = (torch.randint(0, 8, (n,), device="cuda", generator=gen)
+             == 0).float()
+    else:
+        x = torch.randint(0, 1 << 20, (n,), dtype=torch.int32,
+                          device="cuda", generator=gen).view(dtype)
+    tm.reset_counters()
+    got = tsh.prefix_sum_tiles(x, exclusive=exclusive)
+    assert tm.mode_counters() == {("K5", 0, 1): 1}
+    want = tsh.prefix_sum_tiles_plain(x, exclusive=exclusive)
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_prefix_sum_unaligned_and_f32(gen):
+    """A view that starts off a 16-byte boundary takes the scalar loads;
+    float32 values that round agree with a float64 sum within 1e-6 of the
+    running sum's magnitude, and two runs give the same bits."""
+    base = torch.randint(0, 1 << 20, ((1 << 18) + 7,), dtype=torch.int32,
+                         device="cuda", generator=gen)
+    for off in (1, 2, 3):
+        x = base[off:]
+        assert torch.equal(tsh.prefix_sum_tiles(x),
+                           tsh.prefix_sum_tiles_plain(x))
+    f = torch.rand(1 << 22, device="cuda", generator=gen)
+    a, b = tsh.prefix_sum_tiles(f), tsh.prefix_sum_tiles(f)
+    assert torch.equal(a, b)
+    exact = torch.cumsum(f.double(), 0)
+    assert float(((a.double() - exact).abs() / exact).max()) < 1e-6
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 1000, (1 << 20) + 4321])
+@pytest.mark.parametrize("shift,bits", [(24, 8), (27, 5), (0, 3), (13, 1)])
+def test_digit_histogram(gen, n, shift, bits):
+    x = _rand(gen, n + 3)[3:] if n % 2 else _rand(gen, n)  # off alignment too
+    got = tsh.digit_histogram_tiles(x.view(torch.uint32), shift, bits)
+    want = tsh.digit_histogram_tiles_plain(x, shift, bits)
+    assert torch.equal(got, want) and int(got.sum()) == n
+
+
+def test_digit_histogram_skew(gen):
+    """All keys in one bin, and runs of equal keys, serialise the shared
+    atomics or take the warp's one add; the counts stay exact."""
+    n = (1 << 22) + 99
+    const = torch.full((n,), 0x5A5A5A5A, dtype=torch.int32, device="cuda")
+    got = tsh.digit_histogram_tiles(const, 24, 8)
+    assert int(got[0x5A]) == n and int(got.sum()) == n
+    ramp = torch.arange(n, dtype=torch.int32, device="cuda") >> 3
+    assert torch.equal(tsh.digit_histogram_tiles(ramp, 2, 8),
+                       tsh.digit_histogram_tiles_plain(ramp, 2, 8))
+
+
+def test_scan_and_histogram_routes(gen):
+    """The public routes launch K5 and K6 once each for CUDA tensors."""
+    x = torch.randint(0, 100, (1 << 16,), dtype=torch.int32, device="cuda",
+                      generator=gen)
+    tm.reset_counters()
+    inc, exc = tsc.inclusive_sum(x), tsc.exclusive_sum(x)
+    assert tm.counters()["k5_launches"] == 2
+    assert torch.equal(inc, torch.cumsum(x, 0, dtype=torch.int32))
+    assert torch.equal(exc, inc - x)
+    tsc.inclusive_sum(x[:1000])            # below 2^16: torch.cumsum
+    tsc.inclusive_sum(x, use_kernel=False)
+    assert tm.counters()["k5_launches"] == 2
+    h = th.digit_histogram(x.view(torch.uint32), 0, 7)
+    assert tm.counters()["k6_launches"] == 1 and h.shape == (1, 128)
+    assert torch.equal(h[0], tsh.digit_histogram_tiles_plain(x, 0, 7))
+    th.digit_histogram(x.view(torch.uint32), 0, 7, tiles=4)
+    assert tm.counters()["k6_launches"] == 1
+
+
+@pytest.mark.parametrize("nk,nv,T,K,q,run", [
+    (1, 0, 5, 2048, 128, 0), (1, 1, 3, 12288, 512, 512),
+    (2, 1, 4, 4096, 256, 256), (3, 1, 2, 16384, 512, 0),   # 224 KB
+    (1, 0, 100, 384, 128, 128), (2, 2, 7, 1536, 128, 0),
+])
+def test_sort_tiles_counts(gen, nk, nv, T, K, q, run):
+    """K9 against its plain version: the key planes over the whole tile,
+    the payloads (unique keys) over the valid prefix."""
+    planes = [_unique(gen, T, K)] + [_rand(gen, T, K) for _ in range(nk - 1)]
+    vals = [_rand(gen, T, K) for _ in range(nv)]
+    counts = torch.randint(0, q + 1, (T, K // q), dtype=torch.int32,
+                           device="cuda", generator=gen)
+    if run:
+        planes, vals = _lex_chunks(planes, vals, q, counts)
+    tm.reset_counters()
+    got = tb.sort_tiles_counts(planes + vals, counts, q, sorted_run=run,
+                               num_keys=nk)
+    assert tm.mode_counters() == {("K9", nk, nv): 1}
+    want = tb.sort_tiles_counts_plain(planes + vals, counts, q, nk)
+    head = torch.arange(K, device="cuda")[None, :] < \
+        counts.sum(dim=1)[:, None]
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w) if i < nk else torch.equal(g[head], w[head])
+    assert bool((got[0][~head] == -1).all())
+
+
+@pytest.mark.parametrize("nk,nv,T,K,as_bool", [
+    (1, 0, 5, 2048, True), (1, 1, 3, 12288, False), (2, 1, 4, 640, True),
+    (3, 2, 2, 16384, False),
+])
+def test_sort_tiles_masked(gen, nk, nv, T, K, as_bool):
+    planes = [_unique(gen, T, K)] + [_rand(gen, T, K) for _ in range(nk - 1)]
+    vals = [_rand(gen, T, K) for _ in range(nv)]
+    mask = torch.rand(T, K, device="cuda", generator=gen) < 0.7
+    mask[0] = False
+    if not as_bool:
+        mask = mask.to(torch.int32) * 7
+    tm.reset_counters()
+    got = tb.sort_tiles_masked(planes + vals, mask, num_keys=nk)
+    assert tm.mode_counters() == {("K10", nk, nv): 1}
+    want = tb.sort_tiles_masked_plain(planes + vals, mask, nk)
+    head = torch.arange(K, device="cuda")[None, :] < \
+        (mask != 0).sum(dim=1)[:, None]
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w) if i < nk else torch.equal(g[head], w[head])
+
+
+@pytest.mark.parametrize("case", ["keys", "pairs", "pairs_pad", "f32_desc",
+                                  "stable", "bit_range", "u64"])
+def test_sort_batched_on_card(gen, case):
+    """Full-range unstable rows of 32-bit keys run K3, once; the others the
+    exact row sort."""
+    b, k = 300, {"pairs_pad": 12288, "keys": 2048}.get(case, 1024)
+    x = _rand(gen, b, k)
+    kw, vals, k3 = {}, None, True
+    keys = x.view(torch.uint32)
+    if case in ("pairs", "pairs_pad"):
+        x[:, 5:200] = -1                  # ties the virtual pad's key
+        vals = torch.arange(b * k, dtype=torch.int32,
+                            device="cuda").reshape(b, k)
+    elif case == "f32_desc":
+        keys, kw = x.view(torch.float32), dict(descending=True)
+    elif case == "stable":
+        vals, kw, k3 = x.clone(), dict(stable=True), False
+    elif case == "bit_range":
+        kw, k3 = dict(begin_bit=4, end_bit=20), False
+    elif case == "u64":
+        keys, k3 = torch.stack([x, x.flip(1)], 2).view(torch.uint64)[..., 0], \
+            False
+    tm.reset_counters()
+    got = tpusort_torch.sort_batched(keys, vals, **kw)
+    assert tm.counters()["k3_launches"] == int(k3)
+    ko = got[0] if vals is not None else got
+    planes, traits = dtypes.twiddle_in(keys.reshape(-1), **{
+        k_: v for k_, v in kw.items() if k_ == "descending"})
+    bits = (kw.get("begin_bit", 0), kw.get("end_bit", traits.bits))
+    cmp = _mask_plane_bits(planes, *bits, traits.bits)
+    _, carried = sort_rows_lex([p.reshape(b, k) for p in cmp],
+                               [p.reshape(b, k) for p in planes])
+    want = dtypes.twiddle_out(tuple(p.reshape(-1) for p in carried), traits,
+                              **{k_: v for k_, v in kw.items()
+                                 if k_ == "descending"})
+    w = torch.int64 if keys.element_size() == 8 else torch.int32
+    assert torch.equal(ko.reshape(-1).view(w), want.view(w))
+    if case in ("pairs", "pairs_pad"):
+        vo = got[1]
+        assert torch.equal(torch.sort(vo, dim=1).values, vals)
+        assert torch.equal(x.reshape(-1)[vo.reshape(-1).long()],
+                           ko.view(torch.int32).reshape(-1))
+
+
+@pytest.mark.parametrize("mode", ["keys", "unstable", "stable", "stable_i64"])
+@pytest.mark.parametrize("shape", ["equal", "ragged", "few", "one"])
+def test_segmented_sort_on_card(gen, mode, shape):
+    """The engine route at 2^20: K1 passes and one K2, no fallback, and the
+    stable reference's answer."""
+    n = (1 << 20) + 4321
+    rng = np.random.default_rng(31)
+    nseg = {"equal": 4096, "ragged": 3000, "few": 3, "one": 1}[shape]
+    offs = segment_offsets(rng, n, nseg) if shape == "ragged" \
+        else np.linspace(0, n, nseg + 1).astype(np.int64)
+    x = _rand(gen, n)
+    if mode != "keys":
+        x[::3] &= -(1 << 14)          # ties, a few copies a value
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    vals = {"keys": None, "stable_i64": idx.long() << 20}.get(mode, idx)
+    tm.reset_counters()
+    got = tpusort_torch.segmented_sort(x.view(torch.uint32), offs, vals,
+                                       stable=mode != "unstable")
+    c = tm.counters()
+    assert c["k1_launches"] >= 1 and c["k2_launches"] == 1, c
+    assert c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0, c
+    seg = torch.searchsorted(torch.from_numpy(offs[1:]).cuda(), idx.long(),
+                             right=True).to(torch.int32)
+    (_, wk), (wi,) = sort_twiddled_reference((seg, x), (idx,), begin_bit=0,
+                                             end_bit=64, total_bits=64)
+    ko = got if vals is None else got[0]
+    assert torch.equal(ko.view(torch.int32), wk)
+    if mode == "stable":
+        assert torch.equal(got[1], wi)
+    elif mode == "stable_i64":
+        assert torch.equal(got[1], wi.long() << 20)
+    elif mode == "unstable":
+        assert torch.equal(x[got[1].long()], wk)
+        assert torch.equal(torch.sort(got[1]).values, idx)
+
+
+def test_segmented_sort_fallback_on_card(gen):
+    """A large segment of one repeated key overflows its run: the exact
+    sort answers, and the fallback is counted."""
+    n = 1 << 20
+    x = _rand(gen, n)
+    x[: n // 2] = 12345
+    offs = np.concatenate([[0], np.arange(n // 2, n + 1, 64)])
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    tm.reset_counters()
+    ko, vo = tpusort_torch.segmented_sort(x, torch.from_numpy(offs).cuda(),
+                                          idx)
+    assert tm.counters()["overflow_fallbacks"] == 1
+    seg = torch.searchsorted(torch.from_numpy(offs[1:]).cuda(), idx.long(),
+                             right=True).to(torch.int32)
+    (_, wk), (wi,) = sort_twiddled_reference(
+        (seg, x ^ dtypes.INT32_MIN), (idx,), begin_bit=0, end_bit=64,
+        total_bits=64)
+    assert torch.equal(ko, wk ^ dtypes.INT32_MIN) and torch.equal(vo, wi)
+
+
+def test_scan_and_histogram_at_the_largest_length(gen):
+    """n = 2^31 - 1, the most K5 and K6 take (64-bit offsets inside the
+    kernels; 8 GiB of keys), against torch.cumsum and torch.bincount over
+    chunks of 2^28 with the carry wrapped in 32 bits."""
+    n = (1 << 31) - 1
+    step = 1 << 28
+    x = torch.randint(0, 1 << 20, (n,), dtype=torch.int32, device="cuda",
+                      generator=gen)
+    got = tsh.prefix_sum_tiles(x, exclusive=True)
+    hist = tsh.digit_histogram_tiles(x, 12, 8)
+    carry = torch.zeros((), dtype=torch.int32, device="cuda")
+    want_hist = torch.zeros(256, dtype=torch.int64, device="cuda")
+    for a in range(0, n, step):
+        chunk = x[a:a + step]
+        inc = torch.cumsum(chunk, 0, dtype=torch.int32) + carry
+        assert torch.equal(got[a:a + step], inc - chunk)
+        carry = inc[-1].clone()
+        want_hist += torch.bincount((chunk >> 12) & 0xFF, minlength=256)
+        del inc
+    assert torch.equal(hist.long(), want_hist) and int(hist.sum()) == n

@@ -329,3 +329,107 @@ def test_no_plain_route_off_the_cpu():
     assert before == (tp.partition_pass_fused.launches,
                       tb.sort_tiles_counts_collapsed.launches,
                       tb.sort_tiles.launches)
+
+
+def _valid_prefix(valid):
+    """(T, K) mask of each row's first #valid slots: where the sorted valid
+    elements lie."""
+    return np.arange(valid.shape[1])[None, :] < valid.sum(axis=1)[:, None]
+
+
+@pytest.mark.parametrize("K,q,nk,nv,sorted_run", [
+    (512, 128, 1, 0, 0),         # as tests/test_kernels.py
+    (384, 128, 1, 1, 128),       # virtual pad, merge from sorted 128-runs
+    (1024, 256, 2, 1, 0),
+    (768, 128, 3, 2, 128),
+])
+def test_sort_tiles_counts_matches_pallas(K, q, nk, nv, sorted_run):
+    """K9: every key plane over the whole tile (the valid keys sorted, then
+    all-ones), the payloads over the valid prefix."""
+    rng = np.random.default_rng(130 + K + nk)
+    T = 3
+    ops = _operands(rng, T, K, nk, nv)
+    counts = rng.integers(0, q + 1, (T, K // q)).astype(np.int32)
+    if sorted_run:
+        ops = _sorted_chunks_lex(ops, nk, q, counts)
+    want = jb.sort_tiles_counts(
+        [jnp.asarray(o) for o in ops], jnp.asarray(counts), q,
+        sorted_run=sorted_run, num_keys=nk, interpret=True)
+    got = tb.sort_tiles_counts(
+        [_i32(o) for o in ops], torch.from_numpy(counts), q,
+        sorted_run=sorted_run, num_keys=nk)
+    valid = (np.arange(K) % q)[None, :] < np.repeat(counts, q, axis=1)
+    head = _valid_prefix(valid)
+    assert len(got) == len(want) == nk + nv
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.numpy().view(np.uint32), np.asarray(w)
+        if i < nk:
+            np.testing.assert_array_equal(g, w)
+            assert (g[~head] == 0xFFFFFFFF).all()
+        else:
+            np.testing.assert_array_equal(g[head], w[head])
+
+
+@pytest.mark.parametrize("K,nk,nv", [(256, 1, 0), (640, 1, 1), (512, 2, 1),
+                                     (384, 3, 0)])
+def test_sort_tiles_masked_matches_pallas(K, nk, nv):
+    """K10: validity from a per-element mask, any integer dtype or bool."""
+    rng = np.random.default_rng(150 + K + nk)
+    T = 2
+    ops = _operands(rng, T, K, nk, nv)
+    mask = (rng.random((T, K)) < 0.6).astype(np.int32)
+    mask[1, :] = 0                                   # a tile with no key
+    want = jb.sort_tiles_masked([jnp.asarray(o) for o in ops],
+                                jnp.asarray(mask), num_keys=nk,
+                                interpret=True)
+    got = tb.sort_tiles_masked([_i32(o) for o in ops],
+                               torch.from_numpy(mask), num_keys=nk)
+    as_bool = tb.sort_tiles_masked([_i32(o) for o in ops],
+                                   torch.from_numpy(mask != 0), num_keys=nk)
+    head = _valid_prefix(mask != 0)
+    for i, (g, b, w) in enumerate(zip(got, as_bool, want)):
+        g, w = g.numpy().view(np.uint32), np.asarray(w)
+        assert torch.equal(got[i], b)
+        if i < nk:
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_array_equal(g[head], w[head])
+    assert (got[0].numpy()[1] == -1).all()
+
+
+def test_valid_tile_sorts_single_form_and_checks():
+    """One tensor in, one tensor out; bad geometry, a device without a
+    kernel and a CPU call that counts no launch."""
+    rng = np.random.default_rng(170)
+    x = rng.integers(0, 2**32 - 1, (2, 512), dtype=np.uint32)
+    counts = rng.integers(0, 129, (2, 4)).astype(np.int32)
+    got = tb.sort_tiles_counts(_i32(x), torch.from_numpy(counts), 128)
+    want = np.asarray(jb.sort_tiles_counts(jnp.asarray(x),
+                                           jnp.asarray(counts), 128,
+                                           interpret=True))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    mask = torch.from_numpy(x & 1)
+    assert tb.sort_tiles_masked(_i32(x), mask).shape == (2, 512)
+    z = torch.zeros(2, 512, dtype=torch.int32)
+    c = torch.zeros(2, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="geometry"):
+        tb.sort_tiles_counts(z, c, 100)
+    with pytest.raises(ValueError, match="counts must be"):
+        tb.sort_tiles_counts(z, c[:, :2], 128)
+    with pytest.raises(ValueError, match="num_keys"):
+        tb.sort_tiles_counts([z], c, 128, num_keys=2)
+    with pytest.raises(ValueError, match="power of two"):
+        tb.sort_tiles_counts(z, c, 128, sorted_run=96)
+    with pytest.raises(ValueError, match="mask must be"):
+        tb.sort_tiles_masked(z, c)
+    with pytest.raises(ValueError, match="multiple"):
+        tb.sort_tiles_masked(z[:, :100], z[:, :100])
+    with pytest.raises(ValueError, match="device"):
+        tb.sort_tiles_counts(z.to("meta"), c.to("meta"), 128)
+    with pytest.raises(ValueError, match="device"):
+        tb.sort_tiles_masked(z.to("meta"), z.to("meta"))
+    before = (tb.sort_tiles_counts.launches, tb.sort_tiles_masked.launches)
+    tb.sort_tiles_counts(z, c, 128)
+    tb.sort_tiles_masked(z, z)
+    assert before == (tb.sort_tiles_counts.launches,
+                      tb.sort_tiles_masked.launches)

@@ -6,11 +6,15 @@ over the whole key or a bit range, plus ``argsort``, the plane interface
 ``sort_planes`` and ``sort_pairs_lsb_in_value``; ``sort`` and
 ``sort_planes`` run the host tiering (radix, then the equi-depth skew
 tier, then the exact sort; presorted inputs come back after one check).
-On a CUDA tensor the
-partition passes, the leaves, the collapse and the single-tile sort run as
-hand-written sm_90a kernels (``tpusort_torch/csrc``), built with nvcc at
-first use; on a CPU tensor they run as their plain PyTorch versions.  The JAX package ``tpusort`` is the
-reference the port is tested against; this package never imports jax.
+``sort_batched`` sorts the rows of a (B, K) tensor and ``segmented_sort``
+ragged segments given by offsets; ``ops.scan`` (prefix sums and scans) and
+``ops.histogram`` (``histogram_even``, ``digit_histogram``) are the scan
+and histogram primitives.  On a CUDA tensor the partition passes, the
+leaves, the collapse, the tile sorts, the prefix sum and the digit
+histogram run as hand-written sm_90a kernels (``tpusort_torch/csrc``),
+built with nvcc at first use; on a CPU tensor they run as their plain
+PyTorch versions.  The JAX package ``tpusort`` is the reference the port is
+tested against; this package never imports jax.
 """
 
 from tpusort_torch.api import (
@@ -26,5 +30,6 @@ from tpusort_torch.api import (
     unstable_sort_pairs,
 )
 from tpusort_torch.configs import SortConfig, get_config, register_config
+from tpusort_torch.ops.segmented import segmented_sort, sort_batched
 
 __version__ = "0.1.0"

@@ -55,6 +55,14 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _I, _P, _P],
     # ops_in, ops_out, n_ops, counts, offsets, n_out, nseg, seg, stream
     "tpusort_collapse": [_PP, _PP, _I, _P, _P, _LL, _I, _I, _P],
+    # in, out, totals, n, is_float, exclusive, stream
+    "tpusort_prefix_sum": [_P, _P, _P, _LL, _I, _I, _P],
+    # in, n, shift, bits, out, stream
+    "tpusort_digit_histogram": [_P, _LL, _I, _I, _P, _P],
+    # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts, q,
+    # mask, T, K, P, sorted_run, stream
+    "tpusort_sort_tiles_valid": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _P, _I,
+                                 _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

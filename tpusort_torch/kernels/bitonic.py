@@ -1,19 +1,22 @@
-"""K2 (the fused raw-key leaf sort + dense collapse) and K3 (the row tile
-sort).
+"""K2 (the fused raw-key leaf sort + dense collapse), K3 (the row tile
+sort), and K9 and K10 (the raw-key tile sorts with validity from a counts
+table and from a mask).
 
 PyTorch port of ``tpusort/kernels/bitonic.py:sort_tiles_counts_collapsed``
-(``_counts_sort_collapse_kernel``, 1-3 key planes and payloads) and
-``sort_tiles`` (``_sort_kernel``).  On a CUDA tensor each wrapper launches
-its hand-written kernel (``csrc/bitonic.cu``, ``csrc/sort_tiles.cu``; one
-CTA per tile, see those files for the design and what bounds it).  On a
-CPU tensor it runs the plain PyTorch version of the same contract
+(``_counts_sort_collapse_kernel``, 1-3 key planes and payloads),
+``sort_tiles`` (``_sort_kernel``), ``sort_tiles_counts``
+(``_counts_sort_kernel``) and ``sort_tiles_masked``
+(``_masked_sort_kernel``).  On a CUDA tensor each wrapper launches its
+hand-written kernel (``csrc/bitonic.cu``, ``csrc/sort_tiles.cu``; one CTA
+per tile, see those files for the design and what bounds it).  On a CPU
+tensor it runs the plain PyTorch version of the same contract
 (``*_plain``).
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -210,3 +213,150 @@ def sort_tiles(operands: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
 
 sort_tiles.launches = 0
 sort_tiles.modes = collections.Counter()
+
+
+def _sort_valid_plain(ops: Sequence[torch.Tensor], valid: torch.Tensor,
+                      num_keys: int) -> list:
+    """Each row sorted by its key planes with the invalid slots' planes
+    rewritten to all-ones, payloads carried along, stably."""
+    sp, sv = sort_rows_lex([torch.where(valid, p, -1)
+                            for p in ops[:num_keys]], ops[num_keys:])
+    return [*sp, *sv]
+
+
+def sort_tiles_counts_plain(ops: Sequence[torch.Tensor],
+                            counts: torch.Tensor, q: int,
+                            num_keys: int = 1) -> list:
+    """Plain PyTorch K9 on (T, K) int32 operands."""
+    return _sort_valid_plain(ops, _valid(ops[0], counts, q, None), num_keys)
+
+
+def sort_tiles_masked_plain(ops: Sequence[torch.Tensor], mask: torch.Tensor,
+                            num_keys: int = 1) -> list:
+    """Plain PyTorch K10 on (T, K) int32 operands."""
+    return _sort_valid_plain(ops, mask != 0, num_keys)
+
+
+def _sort_tiles_valid_cuda(wrapper, ops: Sequence[torch.Tensor],
+                           counts: Optional[torch.Tensor], q: int,
+                           mask: Optional[torch.Tensor], sorted_run: int,
+                           num_keys: int) -> list:
+    """K9 (``counts``) or K10 (``mask``): one launch of the validity
+    template of ``csrc/sort_tiles.cu``, counted on ``wrapper``."""
+    T, K = ops[0].shape
+    p = _pow2(K)                           # virtual power-of-two pad
+    n_vals = len(ops) - num_keys
+    check_fits(wrapper.__name__, p, num_keys, n_vals)
+    if sorted_run and (K % sorted_run or (p - K) % sorted_run):
+        sorted_run = 0
+    outs = [torch.empty_like(o) for o in ops]
+    if T:
+        dev = ops[0].device
+        err = _build.library().tpusort_sort_tiles_valid(
+            _build.pointers(ops[:num_keys]), _build.pointers(outs[:num_keys]),
+            num_keys, _build.pointers(ops[num_keys:]),
+            _build.pointers(outs[num_keys:]), n_vals,
+            None if counts is None else counts.data_ptr(), q,
+            None if mask is None else mask.data_ptr(), T, K, p, sorted_run,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(err, wrapper.__name__)
+        _build.count_launch(wrapper, num_keys, n_vals)
+    return outs
+
+
+def _valid_sort_operands(op, num_keys: int, what: str):
+    """(single, contiguous operands, T, K) of a K9 or K10 call, checked."""
+    single = not isinstance(op, (list, tuple))
+    ops = [op] if single else list(op)
+    if not 1 <= num_keys <= len(ops):
+        raise ValueError(f"num_keys={num_keys} for {len(ops)} operand(s)")
+    T, K = _check_ops(ops, what)
+    if K % LANES or K == 0:
+        raise ValueError(f"tile size {K} must be a positive multiple of "
+                         f"{LANES}")
+    return single, [o.contiguous() for o in ops], T, K
+
+
+def sort_tiles_counts(
+    op,
+    counts: torch.Tensor,
+    q: int,
+    *,
+    sorted_run: int = 0,
+    num_keys: int = 1,
+):
+    """K9: sort each (T, K) int32 tile by its valid slots, validity from a
+    (T, K // q) counts table (slot i valid iff i % q < counts[t, i // q]).
+    The first ``num_keys`` operands are key planes (plane 0 most
+    significant, compared as unsigned words), the rest payload words that
+    ride unstably.  Each tile comes back whole: its valid elements sorted
+    at the head, every key plane 0xFFFFFFFF behind them (a valid all-ones
+    key ties the invalid slots); the payloads behind the valid prefix are
+    unspecified.  K is a multiple of 128 and is padded virtually to a
+    power of two.  ``sorted_run``: the tile already consists of ascending
+    runs of that power-of-two length once invalid slots are rewritten (a
+    hint: the result is the same without it).
+
+    ``op`` is one tensor (returns one) or a list (returns a list), as in
+    the JAX wrapper.
+    """
+    single, ops, T, K = _valid_sort_operands(op, num_keys,
+                                             "sort_tiles_counts")
+    if q <= 0 or q % LANES or K % q:
+        raise ValueError(f"bad tile geometry K={K} q={q}")
+    if tuple(counts.shape) != (T, K // q):
+        raise ValueError(f"counts must be ({T}, {K // q})")
+    dev = ops[0].device
+    if counts.device != dev:
+        raise ValueError("counts must be on the keys' device")
+    if sorted_run & (sorted_run - 1):
+        raise ValueError(f"sorted_run={sorted_run} must be a power of two")
+    if dev.type == "cpu":
+        outs = sort_tiles_counts_plain(ops, counts, q, num_keys)
+    elif dev.type == "cuda":
+        outs = _sort_tiles_valid_cuda(
+            sort_tiles_counts, ops, counts.to(torch.int32).contiguous(), q,
+            None, sorted_run, num_keys)
+    else:
+        raise ValueError(f"no K9 for device {dev}")
+    return outs[0] if single else outs
+
+
+sort_tiles_counts.launches = 0
+sort_tiles_counts.modes = collections.Counter()
+
+
+def sort_tiles_masked(
+    op,
+    mask: torch.Tensor,
+    *,
+    sorted_run: int = 0,
+    num_keys: int = 1,
+):
+    """K10: as :func:`sort_tiles_counts`, with validity from a (T, K) mask
+    (non-zero = valid; bool or any integer dtype).  ``sorted_run`` is
+    accepted and not used: a mask may clear any slot of a run, and the full
+    sort gives the same result."""
+    single, ops, T, K = _valid_sort_operands(op, num_keys,
+                                             "sort_tiles_masked")
+    if tuple(mask.shape) != (T, K):
+        raise ValueError(f"mask must be ({T}, {K})")
+    dev = ops[0].device
+    if mask.device != dev:
+        raise ValueError("mask must be on the keys' device")
+    if sorted_run & (sorted_run - 1):
+        raise ValueError(f"sorted_run={sorted_run} must be a power of two")
+    if dev.type == "cpu":
+        outs = sort_tiles_masked_plain(ops, mask, num_keys)
+    elif dev.type == "cuda":
+        flags = mask if mask.dtype == torch.bool else mask != 0
+        outs = _sort_tiles_valid_cuda(
+            sort_tiles_masked, ops, None, 0, flags.contiguous(), 0, num_keys)
+    else:
+        raise ValueError(f"no K10 for device {dev}")
+    return outs[0] if single else outs
+
+
+sort_tiles_masked.launches = 0
+sort_tiles_masked.modes = collections.Counter()

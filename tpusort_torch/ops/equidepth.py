@@ -40,7 +40,6 @@ import numpy as np
 import torch
 
 from tpusort_torch.configs import get_config
-from tpusort_torch.kernels.bitonic import sort_tiles_counts_collapsed
 from tpusort_torch.kernels.partition import partition_pass_fused
 from tpusort_torch.ops import msd as _msd
 from tpusort_torch.ops.reference import sort_twiddled_reference
@@ -295,11 +294,7 @@ def _run_pipeline(
     # the raw-key leaf, as the radix engine's: segments are value ranges in
     # ascending order, and adjacent segments share only equal (boundary)
     # values, so tiles of whole segments sort into global order
-    nt, tile = _msd.leaf_tiles(plan, nplanes, bool(values))
-    out = sort_tiles_counts_collapsed(
-        [o.reshape(nt, tile) for o in ops], ctable.reshape(nt, tile // qg),
-        qg, n, sorted_run=prev_s & -prev_s, num_keys=nplanes)
-    return out, overflow
+    return _msd.raw_leaf(ops, ctable, qg, plan, nplanes, n), overflow
 
 
 def _prepare(n: int, plan_kwargs: Optional[dict]):

@@ -40,11 +40,14 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from tpusort_torch.kernels.bitonic import (
-    leaf_tile_cap, sort_tiles, sort_tiles_counts_collapsed)
+    leaf_tile_cap, sort_tiles, sort_tiles_counts, sort_tiles_counts_collapsed,
+    sort_tiles_masked)
 from tpusort_torch.kernels.collapse import collapse_segments
 from tpusort_torch.kernels.partition import (
     MAX_PLANES, _partition_pass_general_cuda, _partition_pass_splitter_cuda,
     partition_pass_fused)
+from tpusort_torch.kernels.scanhist import (
+    digit_histogram_tiles, prefix_sum_tiles)
 from tpusort_torch.ops.reference import (
     _mask_plane_bits, sort_twiddled_reference)
 from tpusort_torch.ops.small import single_tile_ok, sort_twiddled_bitonic
@@ -286,7 +289,9 @@ def plan_msd(
 # branch, ``_partition_pass_splitter_cuda.launches`` for its splitter mode
 # K1b, ``_partition_pass_general_cuda.launches`` for its general branch
 # K1c, ``sort_tiles_counts_collapsed.launches``, ``sort_tiles.launches``,
-# ``collapse_segments.launches``, and ``.modes`` by key planes and payload
+# ``collapse_segments.launches``, ``prefix_sum_tiles.launches``,
+# ``digit_histogram_tiles.launches``, ``sort_tiles_counts.launches``,
+# ``sort_tiles_masked.launches``, and ``.modes`` by key planes and payload
 # words), which count only where they launch a CUDA kernel; :func:`counters`
 # and :func:`mode_counters` read them.
 _ROUTES = {"reference_routes": 0, "overflow_fallbacks": 0,
@@ -297,7 +302,11 @@ _KERNELS = {"k1_launches": partition_pass_fused,
             "k1c_launches": _partition_pass_general_cuda,
             "k2_launches": sort_tiles_counts_collapsed,
             "k3_launches": sort_tiles,
-            "k4_launches": collapse_segments}
+            "k4_launches": collapse_segments,
+            "k5_launches": prefix_sum_tiles,
+            "k6_launches": digit_histogram_tiles,
+            "k9_launches": sort_tiles_counts,
+            "k10_launches": sort_tiles_masked}
 
 
 def count_route(name: str) -> None:
@@ -308,11 +317,12 @@ def count_route(name: str) -> None:
 
 def counters() -> dict:
     """Since the last :func:`reset_counters`: K1 (raw branch), K1b
-    (splitter mode), K1c (general branch), K2, K3 and K4 launches;
-    reference routes (an engine delegating: no plan and no single-tile
-    path, or a shape the equi-depth engine does not take); overflow
-    fallbacks (exact sorts after an overflow flag, in an engine or the
-    API's tier chain); the radix tiers the tier chain dispatched; the
+    (splitter mode), K1c (general branch), K2, K3, K4, K5 (prefix sum), K6
+    (digit histogram), K9 and K10 (the tile sorts by counts and by mask)
+    launches; reference routes (an engine delegating: no plan and no
+    single-tile path, or a shape the equi-depth engine does not take);
+    overflow fallbacks (exact sorts after an overflow flag, in an engine,
+    the segmented route or the API's tier chain); the radix tiers the tier chain dispatched; the
     equi-depth pipelines run, and the exact sorts their samples took after
     an overflow; presorted inputs returned as they were."""
     return dict({k: fn.launches for k, fn in _KERNELS.items()}, **_ROUTES)
@@ -320,9 +330,10 @@ def counters() -> dict:
 
 def mode_counters() -> dict:
     """Launches since the last :func:`reset_counters` by kernel and mode:
-    {("K1" | "K1b" | "K1c" | "K2" | "K3" | "K4", key planes, payload
-    words): launches}.  K1c counts its key planes and value words; K4
-    compares no keys, so its mode is (0, operand words)."""
+    {("K1" | "K1b" | "K1c" | "K2" | "K3" | "K4" | "K5" | "K6" | "K9" |
+    "K10", key planes, payload words): launches}.  K1c counts its key
+    planes and value words; K4 compares no keys, so its mode is (0, operand
+    words); K5's is (0, 1) and K6's (1, 0)."""
     return {("K" + k[1:k.index("_")], *mode): c
             for k, fn in _KERNELS.items()
             for mode, c in fn.modes.items() if c}
@@ -344,19 +355,21 @@ def reset_counters() -> None:
 def run_passes(
     ops: Sequence[torch.Tensor], nplanes: int, n: int, plan: MsdPlan,
     unstable: bool = False, general: bool = False,
+    init_chain: Optional[Tuple[torch.Tensor, int]] = None,
 ) -> Tuple[List[torch.Tensor], Tuple[torch.Tensor, int], torch.Tensor]:
     """All partition passes, one K1 (raw) or K1c (``general``) launch each
-    (port of ``_run_passes_pallas``, without ``init_chain``).
+    (port of ``_run_passes_pallas``).
 
     ``ops``: the (plan.m1,) int32 operands, ``nplanes`` key planes then
     payload words, valid below ``n``.  Validity rides as counts tables:
-    pass 0 takes it from ``n``; each pass emits (T, R) counts, which
-    :func:`next_counts_table` turns into the next consumer's table.
-    Returns (flat runs of the last pass per operand, (counts table, q),
-    overflow as a 0-d bool tensor on the device).
+    pass 0 takes it from ``n``, or from ``init_chain`` (a flat counts table
+    and its q) where the caller laid the input out otherwise (the strided
+    feed); each pass emits (T, R) counts, which :func:`next_counts_table`
+    turns into the next consumer's table.  Returns (flat runs of the last
+    pass per operand, (counts table, q), overflow as a 0-d bool tensor on
+    the device).
     """
-    ctable = None
-    q = None
+    ctable, q = init_chain if init_chain is not None else (None, None)
     prev_s = None
     ops = list(ops)
     overflow = torch.zeros((), dtype=torch.bool, device=ops[0].device)
@@ -532,6 +545,21 @@ def _leaf_sort(
         n)
 
 
+def raw_leaf(data: Sequence[torch.Tensor], ctable: torch.Tensor, q: int,
+             plan: MsdPlan, nplanes: int, n: int) -> List[torch.Tensor]:
+    """The raw path's leaf: K2 over tiles of whole final segments of the
+    last pass's runs (``nplanes`` key planes then payload words), which
+    are ascending in chunks of the largest power of two dividing the last
+    S.  Returns the dense (n,) outputs."""
+    nt, tile = leaf_tiles(plan, nplanes, len(data) > nplanes)
+    last_s = plan.passes[-1].s
+    return sort_tiles_counts_collapsed(
+        [o.reshape(nt, tile) for o in data],
+        ctable.reshape(nt, tile // q), q, n,
+        sorted_run=(last_s & -last_s), num_keys=nplanes,
+    )
+
+
 def _reference(planes, values, bits):
     _ROUTES["reference_routes"] += 1
     return sort_twiddled_reference(planes, values, **bits)
@@ -634,13 +662,7 @@ def sort_twiddled_msd(
             for p in planes[1:]:
                 is_max &= p == -1
             overflow |= is_max.any()
-        nt, tile = leaf_tiles(plan, nplanes, bool(values))
-        last_s = plan.passes[-1].s
-        outs = sort_tiles_counts_collapsed(
-            [o.reshape(nt, tile) for o in data],
-            ctable.reshape(nt, tile // q_fin), q_fin, n,
-            sorted_run=(last_s & -last_s), num_keys=nplanes,
-        )
+        outs = raw_leaf(data, ctable, q_fin, plan, nplanes, n)
     del data, ctable                     # free the pass buffers first
     if flag_mode:
         return tuple(outs[:nplanes]), tuple(outs[nplanes:]), overflow

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 __all__ = ["random_keys", "entropy_keys", "enumerated_values", "zipf_keys",
-           "zipf_keys_torch"]
+           "zipf_keys_torch", "segment_offsets"]
 
 _DTYPES = tuple(np.dtype(d) for d in (np.uint32, np.int32, np.float32,
                                       np.uint64, np.int64, np.float64))
@@ -54,6 +54,15 @@ def enumerated_values(n: int, dtype=np.uint32) -> np.ndarray:
     """Values 0..n-1: with them as payloads, the sorted values are the
     permutation, so a pair sort is checked in O(n)."""
     return np.arange(n, dtype=dtype)
+
+
+def segment_offsets(rng: np.random.Generator, n: int,
+                    num_segments: int) -> np.ndarray:
+    """(num_segments + 1,) int64 offsets of a ragged batch covering
+    [0, n): the inner boundaries are uniform draws, sorted, so segment
+    lengths vary about as exponentials do and some segments are empty."""
+    inner = np.sort(rng.integers(0, n + 1, num_segments - 1))
+    return np.concatenate([[0], inner, [n]]).astype(np.int64)
 
 
 def zipf_keys(rng: np.random.Generator, n: int, *, alpha: float = 1.1,

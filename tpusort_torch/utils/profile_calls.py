@@ -6,15 +6,17 @@ Run from the repository root:
 
 For each call of the paths the port has (uniform keys through the raw
 and the general path; Zipf, entropy-3 and presorted keys through the
-host tiering), or each whose name contains an argument, it makes the inputs on the
-card from a seed, runs the call twice to warm it (kernel build, plan cache,
-tier cache), times five calls with the host clock, each ending in a
-``torch.cuda.synchronize()`` (the median is "wall"), then traces one more
-with ``torch.profiler`` and prints the device time of every kernel and
-copy, summed by name, largest first, with their sum ("device") and the
-share of the wall the card was idle (1 - device / wall, as the kernels do
-not overlap on one stream).  The card's name and power limit head the
-output.  It fails without a CUDA card.
+host tiering; the 2^28 prefix sums and digit histogram; ``sort_batched``
+and ``segmented_sort``), or each whose name contains an argument, it
+makes the inputs on the card from a seed, runs the call twice to warm it
+(kernel build, plan cache, tier cache), times five calls with the host
+clock, each ending in a ``torch.cuda.synchronize()`` (the median is
+"wall"), then traces one more with ``torch.profiler`` and prints the
+device time of every kernel and copy, summed by name, the 14 largest
+first, with their sum ("device") and the share of the wall the card was
+idle (1 - device / wall, as the kernels do not overlap on one stream).
+The card's name and power limit head the output.  It fails without a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -29,13 +31,17 @@ import torch
 
 MAIN_N = 1 << 28
 U64_N = 1 << 27
+SEG_N = 1 << 26
 SMALL_N = 1 << 24
 SEED = 20261016
 
 
 def _calls(dev: torch.device) -> Dict[str, Callable]:
+    import numpy as np
+
     import tpusort_torch
-    from tpusort_torch.utils.datagen import zipf_keys_torch
+    from tpusort_torch.ops import histogram, scan
+    from tpusort_torch.utils.datagen import segment_offsets, zipf_keys_torch
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -53,6 +59,12 @@ def _calls(dev: torch.device) -> Dict[str, Callable]:
     v64 = torch.stack([rand(U64_N), rand(U64_N)], 1).view(torch.int64)[:, 0]
     z64 = zipf_keys_torch(gen, U64_N, dtype=torch.uint64)
     i64 = v64[:SMALL_N]
+    small = torch.randint(0, 1 << 20, (MAIN_N,), dtype=torch.int32,
+                          device=dev, generator=gen)
+    f32 = torch.rand(MAIN_N, device=dev, generator=gen)
+    seg_keys, seg_vals = uni[:SEG_N], vals[:SEG_N]
+    equal = np.arange((1 << 16) + 1, dtype=np.int64) * (SEG_N >> 16)
+    ragged = segment_offsets(np.random.default_rng(SEED), SEG_N, 1 << 16)
     return {
         "sort uniform u32 2^28": lambda: tpusort_torch.sort(uni),
         "sort_pairs uniform u32 + u32 2^28 (stable)":
@@ -79,6 +91,24 @@ def _calls(dev: torch.device) -> Dict[str, Callable]:
         "unstable_sort_pairs Zipf 1.1 u32 + u32 2^28":
             lambda: tpusort_torch.unstable_sort_pairs(zipf, vals),
         "sort Zipf 1.1 u64 2^27": lambda: tpusort_torch.sort(z64),
+        "inclusive_sum i32 2^28": lambda: scan.inclusive_sum(small),
+        "exclusive_sum f32 2^28": lambda: scan.exclusive_sum(f32),
+        "digit_histogram (24, 8) uniform u32 2^28":
+            lambda: histogram.digit_histogram(uni, 24, 8),
+        "sort_batched (2^17, 2048) u32":
+            lambda: tpusort_torch.sort_batched(uni.reshape(1 << 17, 2048)),
+        "sort_batched (2^14, 16384) u32 + i32":
+            lambda: tpusort_torch.sort_batched(
+                uni.reshape(1 << 14, 1 << 14), vals.reshape(1 << 14, 1 << 14)),
+        "segmented_sort keys 2^26, 2^16 equal segments":
+            lambda: tpusort_torch.segmented_sort(seg_keys, equal),
+        "segmented_sort unstable pairs 2^26, 2^16 equal segments":
+            lambda: tpusort_torch.segmented_sort(seg_keys, equal, seg_vals,
+                                                 stable=False),
+        "segmented_sort stable pairs 2^26, 2^16 equal segments":
+            lambda: tpusort_torch.segmented_sort(seg_keys, equal, seg_vals),
+        "segmented_sort stable pairs 2^26, 2^16 ragged segments":
+            lambda: tpusort_torch.segmented_sort(seg_keys, ragged, seg_vals),
     }
 
 
