@@ -96,8 +96,10 @@ non-zero:
     planes + a value at (4096, 4096), with ragged counts and a random
     mask: the key planes over the whole tile (all-ones behind the valid
     prefix), the payloads over the valid prefix.  They have no caller above
-    the kernel level, as in the JAX package: their launches are those of
-    one call of the public wrapper each, counters at 0 just before;
+    the kernel level, as in the JAX package: the kernels line reports 0
+    launches on a path for them and says so in ``note``, and one call of
+    the public wrapper must count one launch.  Their bound counts this
+    run's valid words: invalid slots are not read;
 24. ``sort_batched``: (8192, 2048) and (2^14, 16384) uint32 keys + int32
     values, (2^17, 2048) uint32 keys and float32 descending rows with NaN,
     each against ``torch.sort(dim=1)`` and through one K3 launch; K3 vs
@@ -106,11 +108,15 @@ non-zero:
     builds it ((segment id << shift, key) planes in input order through the
     engine in flag mode): its overflow flag is printed.  Then K1 and K2
     with 3 planes + a value and 2 planes + a value vs plain at the
-    route's plans; then 2^16 equal segments and a ragged batch (uniform
-    random offsets), each keys only, unstable pairs and stable pairs with
-    ``values = arange``, against the stable reference sort of (segment,
-    key), the counters printed.  The equal batch must run K1 x passes and
-    K2 x 1 with no fallback;
+    route's plans; then five batches, each keys only, unstable pairs and
+    stable pairs with ``values = arange``, against the stable reference
+    sort of (segment, key), the route and the counters printed: uniform
+    uint32 keys in 2^16 equal segments (which must run K1 x passes and
+    K2 x 1 with no fallback) and in 2^16 ragged ones (uniform random
+    offsets), float32 normal variates in the same two batches, and 16
+    distinct keys in 64 segments of 2^20.  A batch that the sample gate
+    sent to the exact sort is run once more with the gate off, and must
+    then overflow the engine;
 17. timings, median of 5 CUDA-event runs, alternating: the 2^28 sort
     against ``torch.sort``, the 2^28 pairs sort against ``torch.sort``
     (stable) plus the values gather, 2^27 uint64 keys against
@@ -121,8 +127,10 @@ non-zero:
     Zipf, entropy-3 and presorted 2^28 sorts against the same call forced
     through radix then exact (the engine, skew tier off) and
     ``torch.sort``, ``sort_batched`` against ``torch.sort(dim=1)`` (plus
-    the gather), ``segmented_sort`` against ``torch.sort(stable=True)`` of
-    the (segment, key) int64 composite plus the gathers, and each kernel
+    the gather), ``segmented_sort`` of the five batches against
+    ``torch.sort(stable=True)`` of the (segment, key) int64 composite plus
+    the gathers (a gated batch also with the gate off: the engine, its
+    overflow, then the exact sort), and each kernel
     mode against its plain version (and K3, K5, K6 and the one-plane K9
     and K10 against one PyTorch call, or one and its gathers, computing
     the same function).
@@ -131,9 +139,9 @@ The line before the last is a JSON summary of the kernels: each template
 mode compared, with its launches in the run of the path that drives it at
 that shape (counters set to 0 just before), or 0 where no path does, its
 time, its plain version's time, its bound (the least time for the words
-it must move at 3.35 TB/s, or its operations at 67 T/s, the larger) and
-the time of a PyTorch call computing the same function where there is
-one (K3, K5, K6, one-plane K9 and K10); the last line is
+it must move at 3.35 TB/s, or its operations at 67 T/s, the larger), the
+time of a PyTorch call computing the same function where there is one
+(K3, K5, K6, one-plane K9 and K10) and a remark or null; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -183,7 +191,7 @@ def main() -> None:
              "card and has no CPU run")
 
     import tpusort_torch
-    from tpusort_torch import dtypes
+    from tpusort_torch import dtypes, planner
     from tpusort_torch.configs import get_config
     from tpusort_torch.kernels import _build
     from tpusort_torch.kernels.bitonic import (
@@ -509,6 +517,8 @@ def main() -> None:
     # that gives it the shape it was compared at; a mode compared at a shape
     # no path runs reports 0
     launches = {}
+    # kernel mode -> a remark for its row of the kernels line
+    notes = {}
 
     # ---- phase 1: build and report -----------------------------------
     card = card_line()
@@ -1102,7 +1112,7 @@ def main() -> None:
         p_, r_ = len(plan_.passes), plan_.passes[0].r
         table = equidepth._quantile_table(tuple(planes), n, r_ ** p_ - 1,
                                           sample_log2=s_log2)
-        ops, ctable = equidepth._feed([*planes, *values], n, plan_)
+        ops, ctable = msd.strided_feed([*planes, *values], n, plan_)
         qg, prev_s, err, out = 128, None, 0, None
         for j in range(npasses):
             spec = plan_.passes[j]
@@ -1350,6 +1360,9 @@ def main() -> None:
         check(want_fn is None or same_bits(got, want_fn()),
               f"{mode}: the public route differs from plain")
         launches[mode] = modes.get(("K5", 0, 1), 0)
+        notes[mode] = ("one call of the wrapper is three device launches "
+                       "behind one C entry: block totals, their offsets, "
+                       "the scan")
     for name, keys in (("uniform", x), ("constant", const)):
         got, c, modes = drive(lambda: histogram.digit_histogram(keys, 24, 8))
         check(c == dict(quiet, k6_launches=1) and got.shape == (1, 256)
@@ -1405,16 +1418,22 @@ def main() -> None:
                     return [torch.gather(o, 1, order) for o in ops[1:]]
                 fns.append(library)
             tk, tp, *tl = time_alt(*fns)
+            # the words this run's data needs: invalid slots are never
+            # read and the payloads behind the valid prefix never written
+            nvalid = int(valid.sum())
             results[mode] = (err, tk, tp,
-                             2 * t * k * len(ops) + (cnts.numel() if
-                                                     kid == "K9"
-                                                     else t * k // 4),
-                             t * k * log2(k), *tl)
+                             nvalid * len(ops) + t * k * nk + nvalid * nv
+                             + (cnts.numel() if kid == "K9" else t * k // 4),
+                             nvalid * log2(k), *tl)
             _, c, modes = drive(kernel)
-            check(c == dict(quiet, **{f"k{kid[1:]}_launches": 1}),
-                  f"{mode}: not one {kid} launch: {c}")
-            launches[mode] = modes.get((kid, nk, nv), 0)
-            log(f"phase 23 ok: {mode} == plain, max_abs_err {err}")
+            check(c == dict(quiet, **{f"k{kid[1:]}_launches": 1})
+                  and modes.get((kid, nk, nv), 0) == 1,
+                  f"{mode}: a call of the wrapper is not one {kid} launch: "
+                  f"{c} {modes}")
+            notes[mode] = ("no caller above the kernel level: 0 launches on "
+                           "a path (one call of the wrapper is one launch)")
+            log(f"phase 23 ok: {mode} == plain, max_abs_err {err}; "
+                f"{nvalid} of {t * k} slots valid")
     del ops, cnts, mask, flipped, valid
 
     # ---- phase 24: sort_batched -------------------------------------------
@@ -1545,40 +1564,55 @@ def main() -> None:
             torch.arange(SEG_N, dtype=torch.int64, device=dev),
             right=True).to(torch.int32)
 
-    for batch, offs, must_run in (("2^16 equal segments", eq_offs, True),
-                                  ("2^16 ragged segments", rag_offs, False)):
+    def seg_route(c, passes):
+        """Which way a segmented_sort went, by its counters."""
+        if (c["k1_launches"] == passes and c["k2_launches"] == 1
+                and c["overflow_fallbacks"] == 0
+                and c["reference_routes"] == 0):
+            return "engine", f"the engine (K1 x {passes}, K2 x 1)"
+        if (c["reference_routes"] == 1 and c["k1_launches"] == 0
+                and c["overflow_fallbacks"] == 0):
+            return "gated", ("the exact sort, chosen by the sample gate "
+                             "with no engine run")
+        if c["overflow_fallbacks"] == 1:
+            return "overflow", "the exact sort after the engine overflowed"
+        return "other", "an unexpected route"
+
+    def seg_batch(batch, keys, offs, must_run):
+        """segmented_sort of (n,) keys in the batch's segments: keys only,
+        unstable and stable pairs against the stable reference sort of
+        (segment, key), the route of each printed; the route names."""
+        (plane,), traits = dtypes.twiddle_in(keys)
         (_, wk), (wv,) = sort_twiddled_reference(
-            (seg_ids(offs), ski), (svals,), begin_bit=0, end_bit=64,
+            (seg_ids(offs), plane), (svals,), begin_bit=0, end_bit=64,
             total_bits=64)
+        wk = dtypes.twiddle_out((wk,), traits)
         lens = offs[1:] - offs[:-1]
         log(f"{batch}: lengths {int(lens.min())}..{int(lens.max())}")
+        routes = []
         for mode, vals_, stable_, k_mode in (
                 ("keys only", None, True, (2, 0)),
                 ("unstable pairs", svals, False, (2, 1)),
                 ("stable pairs", svals, True, (3, 1))):
             got, c, modes = drive(lambda: tpusort_torch.segmented_sort(
-                sk, offs, vals_, stable=stable_))
+                keys, offs, vals_, stable=stable_))
             plan_ = seg3_plan if k_mode[0] == 3 else seg2_plan
-            ran = (c["k1_launches"] == len(plan_.passes)
-                   and c["k2_launches"] == 1
-                   and c["overflow_fallbacks"] == 0
-                   and c["reference_routes"] == 0)
-            route = "the engine (K1 x %d, K2 x 1)" % c["k1_launches"] \
-                if ran else "the exact sort after an overflow"
+            kind, route = seg_route(c, len(plan_.passes))
+            routes.append(kind)
             print(f"route: segmented_sort {mode}, {batch}: {route}; "
                   f"{c} {modes}", flush=True)
-            if must_run and not ran:
-                fail(f"segmented_sort {mode}, {batch}: did not run through "
-                     f"K1 and K2 without a fallback: {c}")
+            check(kind != "other" and (kind == "engine" or not must_run),
+                  f"segmented_sort {mode}, {batch}: did not run through "
+                  f"K1 and K2 without a fallback: {c}")
             ko = got if vals_ is None else got[0]
-            check(ko.dtype == torch.uint32 and same_bits(ko, wk),
+            check(ko.dtype == keys.dtype and same_bits(ko, wk),
                   f"segmented_sort {mode}, {batch}: keys differ from the "
                   "stable reference of (segment, key)")
             if vals_ is not None and stable_:
                 check(same_bits(got[1], wv),
                       f"segmented_sort {mode}, {batch}: values differ")
             elif vals_ is not None:
-                check(same_bits(ski[got[1].long()], wk)
+                check(same_bits(keys.view(torch.int32)[got[1].long()], wk)
                       and same_bits(torch.sort(got[1]).values, svals),
                       f"segmented_sort {mode}, {batch}: values are not a "
                       "permutation riding with their keys")
@@ -1589,7 +1623,41 @@ def main() -> None:
             del got, ko
         log(f"phase 25 ok: segmented_sort at 2^26, {batch}: keys only, "
             "unstable and stable pairs == the stable reference")
-    del wk, wv
+        return routes
+
+    # keys far from uniform: normal variates crowd a few exponents, 16
+    # distinct keys make groups of 2^16 equal ones in a 2^20 segment.  In
+    # segments shorter than a leaf run that costs nothing; in longer ones
+    # the engine's runs overflow, which the sample gate should foresee
+    normal = torch.randn(SEG_N, device=dev, generator=gen)
+    dup16 = (torch.randint(0, 16, (SEG_N,), dtype=torch.int32, device=dev,
+                           generator=gen) * 0x01234567).view(torch.uint32)
+    big_offs = torch.arange(65, dtype=torch.int64).numpy() << 20
+    seg_cases = (
+        ("uniform uint32, 2^16 equal segments", sk, eq_offs, True),
+        ("uniform uint32, 2^16 ragged segments", sk, rag_offs, False),
+        ("float32 normal variates, 2^16 equal segments", normal, eq_offs,
+         False),
+        ("float32 normal variates, 2^16 ragged segments", normal, rag_offs,
+         False),
+        ("16 distinct uint32 keys, 64 segments of 2^20", dup16, big_offs,
+         False))
+    seg_routes = {batch: seg_batch(batch, keys, offs, must_run)
+                  for batch, keys, offs, must_run in seg_cases}
+    # the gate's verdict held against the engine itself: with the gate
+    # off, a batch it turned away must overflow
+    gate_min_n = planner.PLANNER_MIN_N
+    for batch, keys, offs, _ in seg_cases:
+        if "gated" not in seg_routes[batch]:
+            continue
+        planner.PLANNER_MIN_N = 1 << 62
+        _, c, _ = drive(lambda: tpusort_torch.segmented_sort(keys, offs))
+        planner.PLANNER_MIN_N = gate_min_n
+        print(f"route: segmented_sort keys only, {batch}, sample gate off: "
+              f"{seg_route(c, len(seg2_plan.passes))[1]}; {c}", flush=True)
+        check(c["overflow_fallbacks"] == 1,
+              f"segmented_sort {batch}: the sample gate turned away a "
+              f"batch the engine sorts: {c}")
 
     # ---- phase 17: timings --------------------------------------------
     xi = x.view(torch.int32)
@@ -1689,28 +1757,39 @@ def main() -> None:
           f"{fmt(t_b)} vs torch.sort(dim=1) + gather {fmt(t_t)} on {card}",
           flush=True)
     del bku, bkf, bv
-    for batch, offs in (("2^16 equal segments", eq_offs),
-                        ("2^16 ragged segments", rag_offs)):
+    for batch, keys, offs, _ in seg_cases:
         sid = seg_ids(offs).long()
+        plane = dtypes.twiddle_in(keys)[0][0]
+        kv = keys.view(torch.int32)   # torch indexes no uint32 on a card
 
         def torch_segmented(pairs):
-            s_ = torch.sort((sid << 32) | (ski.long() & 0xFFFFFFFF),
+            s_ = torch.sort((sid << 32) | (plane.long() & 0xFFFFFFFF),
                             stable=True)
-            return (ski[s_.indices], svals[s_.indices]) if pairs \
-                else ski[s_.indices]
+            return (kv[s_.indices], svals[s_.indices]) if pairs \
+                else kv[s_.indices]
 
-        for mode, vals_, stable_ in (("keys only", None, True),
-                                     ("unstable pairs", svals, False),
-                                     ("stable pairs", svals, True)):
+        for (mode, vals_, stable_), kind in zip(
+                (("keys only", None, True), ("unstable pairs", svals, False),
+                 ("stable pairs", svals, True)), seg_routes[batch]):
             t_s, t_t = time_pair(
-                lambda: tpusort_torch.segmented_sort(sk, offs, vals_,
+                lambda: tpusort_torch.segmented_sort(keys, offs, vals_,
                                                      stable=stable_),
                 lambda: torch_segmented(vals_ is not None))
-            print(f"time: tpusort_torch.segmented_sort 2^26 uint32, {batch}, "
-                  f"{mode} {fmt(t_s)} vs torch.sort(stable=True) of the "
-                  f"(segment, key) int64 composite + gathers {fmt(t_t)} on "
-                  f"{card}", flush=True)
-        del sid
+            print(f"time: tpusort_torch.segmented_sort 2^26, {batch}, "
+                  f"{mode} ({kind}) {fmt(t_s)} vs torch.sort(stable=True) "
+                  f"of the (segment, key) int64 composite + gathers "
+                  f"{fmt(t_t)} on {card}", flush=True)
+            if kind == "gated":
+                planner.PLANNER_MIN_N = 1 << 62
+                (t_off,) = time_alt(
+                    lambda: tpusort_torch.segmented_sort(
+                        keys, offs, vals_, stable=stable_))
+                planner.PLANNER_MIN_N = gate_min_n
+                print(f"time: tpusort_torch.segmented_sort 2^26, {batch}, "
+                      f"{mode}, sample gate off (the engine, its overflow, "
+                      f"then the exact sort) {fmt(t_off)} on {card}",
+                      flush=True)
+        del sid, plane, kv
     for name, (err, tk, tp, words, ops, *lib) in results.items():
         extra = f" vs library {fmt(lib[0])}" if lib else ""
         print(f"time: {name} kernel {fmt(tk)} vs plain {fmt(tp)}{extra}, "
@@ -1754,7 +1833,8 @@ def main() -> None:
             max_abs_err=err, ms=statistics.median(tk),
             plain_ms=statistics.median(tp), bound_ms=bound_ms,
             bound_by=bound_by,
-            library_ms=statistics.median(lib[0]) if lib else None))
+            library_ms=statistics.median(lib[0]) if lib else None,
+            note=notes.get(mode)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -838,6 +838,42 @@ def test_segmented_sort_fallback_on_card(gen):
     assert torch.equal(ko, wk ^ dtypes.INT32_MIN) and torch.equal(vo, wi)
 
 
+@pytest.mark.parametrize("keys_kind", ["uniform", "normal", "duplicates"])
+def test_segmented_sort_sample_gate_on_card(gen, keys_kind):
+    """At planner.PLANNER_MIN_N keys the sample gate decides before the
+    engine runs: uniform keys take the engine; normal variates and heavy
+    duplicates in segments longer than a run take the exact sort with no
+    K1 launch; either way the stable reference's answer."""
+    n = 1 << 24
+    offs = np.linspace(0, n, 9).astype(np.int64)
+    if keys_kind == "uniform":
+        keys = _rand(gen, n).view(torch.uint32)
+    elif keys_kind == "normal":
+        keys = torch.randn(n, device="cuda", generator=gen)
+    else:
+        keys = (torch.randint(0, 8, (n,), dtype=torch.int32, device="cuda",
+                              generator=gen) * 0x10203041).view(torch.uint32)
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    tm.reset_counters()
+    ko, vo = tpusort_torch.segmented_sort(keys, offs, idx)
+    c = tm.counters()
+    if keys_kind == "uniform":
+        assert c["k1_launches"] >= 1 and c["k2_launches"] == 1, c
+        assert c["reference_routes"] == 0 and c["overflow_fallbacks"] == 0, c
+    else:
+        assert c["k1_launches"] == 0 and c["reference_routes"] == 1, c
+        assert c["overflow_fallbacks"] == 0, c
+    (plane,), traits = dtypes.twiddle_in(keys)
+    seg = torch.searchsorted(torch.from_numpy(offs[1:]).cuda(), idx.long(),
+                             right=True).to(torch.int32)
+    (_, wk), (wi,) = sort_twiddled_reference((seg, plane), (idx,),
+                                             begin_bit=0, end_bit=64,
+                                             total_bits=64)
+    assert torch.equal(ko.view(torch.int32),
+                       dtypes.twiddle_out((wk,), traits).view(torch.int32))
+    assert torch.equal(vo, wi)
+
+
 def test_scan_and_histogram_at_the_largest_length(gen):
     """n = 2^31 - 1, the most K5 and K6 take (64-bit offsets inside the
     kernels; 8 GiB of keys), against torch.cumsum and torch.bincount over

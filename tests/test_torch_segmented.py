@@ -250,7 +250,7 @@ def test_spread_plane_orders_as_segment_then_key():
         seg = np.searchsorted(offs[1:], np.arange(n), side="right")
         plane = tseg._spread_plane(
             offs.astype(np.int64), torch.from_numpy(seg.astype(np.int32)),
-            torch.from_numpy(key).view(torch.int32)).numpy().view(np.uint32)
+            torch.from_numpy(key).view(torch.int32), n).numpy().view(np.uint32)
         order = np.lexsort((key, seg))
         assert (np.diff(plane[order].astype(np.int64)) >= 0).all()
         starts = plane[order][np.searchsorted(seg[order], np.unique(seg))]
@@ -342,6 +342,65 @@ def test_engine_route_overflow_is_counted():
     want = tpusort.segmented_sort(jnp.asarray(keys), jnp.asarray(offs))
     got = tpusort_torch.segmented_sort(torch.from_numpy(keys), offs)
     _same(got, want)
+
+
+def _skewed_batch(case, rng, n):
+    """(keys, offsets) of a batch whose keys crowd inside segments larger
+    than a run."""
+    if case == "constant_segment":
+        keys = rng.integers(0, 2**32, n, dtype=np.uint32)
+        keys[:30000] = 0x12345678
+        return keys, np.concatenate([[0], np.arange(30000, n + 1, 10)])
+    if case == "normal_floats":
+        return (rng.standard_normal(n).astype(np.float32),
+                np.array([0, 9000, 9000, 25000, n]))
+    keys = rng.integers(0, 4, n, dtype=np.uint32) * np.uint32(0x31415927)
+    return keys, np.array([0, 12000, n])            # duplicates
+
+
+@pytest.mark.parametrize("case", ["constant_segment", "normal_floats",
+                                  "duplicates"])
+def test_engine_gate_sends_skewed_batches_to_the_exact_sort(case,
+                                                            monkeypatch):
+    """From ``planner.PLANNER_MIN_N`` keys on, a sample of the leading
+    plane is checked before the engine runs: these batches overflow it
+    (gate off), and with the gate on they are counted as reference routes
+    with no engine run; the public call's output is JAX's."""
+    rng = np.random.default_rng(21)
+    n = 40000
+    keys, offs = _skewed_batch(case, rng, n)
+    offs = offs.astype(np.int64)
+    tm.reset_counters()
+    assert _engine(keys, offs) is None
+    assert tm.counters()["overflow_fallbacks"] == 1
+    monkeypatch.setattr(tseg._planner, "PLANNER_MIN_N", 1 << 12)
+    tm.reset_counters()
+    assert _engine(keys, offs) is None
+    c = tm.counters()
+    assert c["reference_routes"] == 1 and c["overflow_fallbacks"] == 0
+    want = tpusort.segmented_sort(jnp.asarray(keys), jnp.asarray(offs))
+    _same(tpusort_torch.segmented_sort(torch.from_numpy(keys), offs), want)
+
+
+@pytest.mark.parametrize("nseg,equal", [(1, True), (64, True), (8192, True),
+                                        (40, False), (3000, False)])
+def test_engine_gate_lets_uniform_batches_through(nseg, equal, monkeypatch):
+    monkeypatch.setattr(tseg._planner, "PLANNER_MIN_N", 1 << 12)
+    rng = np.random.default_rng(300 + nseg)
+    n = 49152
+    keys = rng.integers(0, 2**32, n, dtype=np.uint32)
+    vals = np.arange(n, dtype=np.uint32)
+    offs = np.linspace(0, n, nseg + 1).astype(np.int64) if equal \
+        else segment_offsets(rng, n, nseg)
+    tm.reset_counters()
+    got = _engine(keys, offs, vals)
+    c = tm.counters()
+    assert got is not None and c["reference_routes"] == 0 \
+        and c["overflow_fallbacks"] == 0
+    jk, jv = tpusort.segmented_sort(jnp.asarray(keys), jnp.asarray(offs),
+                                    jnp.asarray(vals))
+    np.testing.assert_array_equal(got[0], np.asarray(jk))
+    np.testing.assert_array_equal(got[1], np.asarray(jv))
 
 
 @pytest.mark.parametrize("n,nseg", [(20000, 4), (30000, 64), (49152, 8192)])

@@ -27,7 +27,7 @@ is always read on the host.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,40 +60,6 @@ def _normalize_values(values) -> Tuple[Tuple[torch.Tensor, ...], bool, bool]:
     if isinstance(values, (tuple, list)):
         return tuple(values), True, False
     return (values,), True, True
-
-
-def _value_words(vt: Sequence[torch.Tensor], n: int, device: torch.device
-                 ) -> Tuple[List[torch.Tensor], List[Tuple[str, torch.dtype]]]:
-    """Payloads as int32 words: a 32-bit value is one word (a view), a
-    64-bit value two (hi, lo)."""
-    words, spec = [], []
-    for v in vt:
-        if not isinstance(v, torch.Tensor) or v.dim() != 1 or \
-                v.shape[0] != n or v.device != device:
-            raise ValueError("values must be 1-D tensors of the keys' length "
-                             "on the keys' device")
-        v = v.contiguous()
-        if v.element_size() == 8:
-            words += _dtypes.split64(v)
-            spec.append(("v64", v.dtype))
-        elif v.element_size() == 4:
-            words.append(v.view(torch.int32))
-            spec.append(("v32", v.dtype))
-        else:
-            raise TypeError(f"values must be 32- or 64-bit, got {v.dtype}")
-    return words, spec
-
-
-def _join_values(words: Sequence[torch.Tensor],
-                 spec: Sequence[Tuple[str, torch.dtype]]) -> List[torch.Tensor]:
-    out, it = [], iter(words)
-    for kind, dtype in spec:
-        if kind == "v64":
-            hi, lo = next(it), next(it)
-            out.append(_dtypes.join64(hi, lo, dtype))
-        else:
-            out.append(next(it).view(dtype))
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +224,7 @@ def _sort_tiered(planes, traits, vt, *, kind: str, begin_bit: int,
         raise ValueError(
             f"invalid bit range [{begin_bit}, {eb}) for {traits.name}")
     n = planes[0].shape[0]
-    words, spec = _value_words(vt, n, device)
+    words, spec = _dtypes.value_words(vt, n, device)
     cfg = _configs.get_config(traits.bits, bool(vt), device.type)
     if cfg.default_algorithm != "msd":
         raise NotImplementedError(
@@ -267,7 +233,7 @@ def _sort_tiered(planes, traits, vt, *, kind: str, begin_bit: int,
 
     def dispatch(tier):
         sp, sw, ovf = _dispatch_tier(tier, planes, words, bits, stable, cfg)
-        return finish(sp), _join_values(sw, spec), ovf
+        return finish(sp), _dtypes.join_values(sw, spec), ovf
 
     def decide(sample):
         tier = "radix"
@@ -444,7 +410,7 @@ def sort_pairs_lsb_in_value(keys: torch.Tensor, values: torch.Tensor,
         raise NotImplementedError(
             "lsb-in-value needs a free plane slot: 32-bit key dtypes only")
     (plane,), traits = _dtypes.twiddle_in(keys.contiguous())
-    (v,), _ = _value_words((values,), keys.shape[0], keys.device)
+    (v,), _ = _dtypes.value_words((values,), keys.shape[0], keys.device)
     mask = (1 << (8 * num_lsb_bytes)) - 1
     comp = (plane, v & (mask - (1 << 32) if mask >= 1 << 31 else mask))
     if descending:

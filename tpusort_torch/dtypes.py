@@ -23,7 +23,7 @@ Code that needs the unsigned order compares planes widened to int64
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -37,6 +37,8 @@ __all__ = [
     "twiddle_planes_out",
     "split64",
     "join64",
+    "value_words",
+    "join_values",
     "SUPPORTED_KEY_DTYPES",
 ]
 
@@ -187,3 +189,37 @@ def twiddle_out(
     if traits.planes == 1:
         return raw[0].view(dtype)
     return join64(raw[0], raw[1], dtype)
+
+
+def value_words(vt: Sequence[torch.Tensor], n: int, device: torch.device
+                ) -> Tuple[List[torch.Tensor], List[Tuple[str, torch.dtype]]]:
+    """Payloads as int32 words: a 32-bit value is one word (a view), a
+    64-bit value two (hi, lo)."""
+    words, spec = [], []
+    for v in vt:
+        if not isinstance(v, torch.Tensor) or v.dim() != 1 or \
+                v.shape[0] != n or v.device != device:
+            raise ValueError("values must be 1-D tensors of the keys' length "
+                             "on the keys' device")
+        v = v.contiguous()
+        if v.element_size() == 8:
+            words += split64(v)
+            spec.append(("v64", v.dtype))
+        elif v.element_size() == 4:
+            words.append(v.view(torch.int32))
+            spec.append(("v32", v.dtype))
+        else:
+            raise TypeError(f"values must be 32- or 64-bit, got {v.dtype}")
+    return words, spec
+
+
+def join_values(words: Sequence[torch.Tensor],
+                spec: Sequence[Tuple[str, torch.dtype]]) -> List[torch.Tensor]:
+    out, it = [], iter(words)
+    for kind, dtype in spec:
+        if kind == "v64":
+            hi, lo = next(it), next(it)
+            out.append(join64(hi, lo, dtype))
+        else:
+            out.append(next(it).view(dtype))
+    return out

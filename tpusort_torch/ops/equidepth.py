@@ -47,14 +47,6 @@ from tpusort_torch.ops.reference import sort_twiddled_reference
 __all__ = ["sort_twiddled_equidepth", "supports"]
 
 
-def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A small host array on ``dev``; to a card through pinned memory,
-    asynchronously, so the host does not wait for the queued kernels."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    return t.pin_memory().to(dev, non_blocking=True) \
-        if dev.type == "cuda" else t
-
-
 def _sample_cap(n: int) -> int:
     """The largest sample: 2^22 up to n = 2^28, then n / 64, so the deepest
     splitter level's relative noise stays constant."""
@@ -153,7 +145,7 @@ def _quantile_table(planes: Sequence[torch.Tensor], n: int, nq: int,
     i = np.arange(1, nq + 1, dtype=np.int64)
     ranks = np.minimum(i * m // (nq + 1), m - 1).astype(np.int32)
     dev = samples[0].device
-    rk = _to_device(ranks.astype(np.int64), dev)
+    rk = _msd.to_device(ranks.astype(np.int64), dev)
     q = [s[rk] for s in samples]
     # the run endpoints of each slot's value: the sorted sample's run ids
     # (a running count of value changes) are non-decreasing, so a binary
@@ -185,7 +177,7 @@ def _pass_splitters(table: _EqTable, p: int, j: int, r: int,
     g = np.arange(r ** j, dtype=np.int64)[:, None]
     stride = r ** (p - 1 - j)
     z = (g * r + i) * stride - 1                       # (r^j, r-1)
-    zt = _to_device(z, dev)
+    zt = _msd.to_device(z, dev)
     spl_seg = [qp[zt] for qp in table.q]
     lo = table.lo[zt]                                  # the value's span
     span = torch.clamp(table.hi[zt] - lo, min=1)
@@ -202,7 +194,7 @@ def _pass_splitters(table: _EqTable, p: int, j: int, r: int,
     r_r = rank_at(((g + 1) * r * stride - 1) * np.ones_like(z))
 
     def below(ranks_np):
-        rt = _to_device(ranks_np.astype(np.int32), dev)
+        rt = _msd.to_device(ranks_np.astype(np.int32), dev)
         return torch.minimum(torch.clamp(rt - lo, min=0), span)
 
     num = below(r_z) - below(r_l)
@@ -212,48 +204,6 @@ def _pass_splitters(table: _EqTable, p: int, j: int, r: int,
         .to(torch.int32), 0, 65536)
     return ([sp.repeat_interleave(t_seg, dim=0) for sp in spl_seg],
             frac.repeat_interleave(t_seg, dim=0))
-
-
-def _feed(operands: Sequence[torch.Tensor], n: int, plan: "_msd.MsdPlan"
-          ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Pass 0's input: the (n,) operands padded to plan.m1 and laid out
-    in strided, index-bit-mixed tiles, with the 128-slot counts table of
-    their validity (port of ``tpusort/ops/equidepth.py:285-325``).  Tile t
-    takes elements {j*T + mix(t)}, so every tile mirrors the global
-    distribution; mix swaps the two halves of the tile index (t = a*B + b
-    -> b*A + a), because a pure stride aliases rank-structured (presorted)
-    input at deeper passes.  Every operand moves alike."""
-    k0 = plan.passes[0].k
-    t1 = plan.m1 // k0
-    dev = operands[0].device
-    a_mix = 1 << ((t1.bit_length() - 1) // 2)
-    b_mix = t1 // a_mix
-    t_idx = torch.arange(t1, dtype=torch.int64, device=dev)
-    if a_mix * b_mix == t1:
-        mixvec = (t_idx % b_mix) * a_mix + t_idx // b_mix
-    else:
-        a_mix, b_mix = t1, 1                   # a plain transpose
-        mixvec = t_idx
-    ops = []
-    for o in operands:
-        # out[a, b, j] = in[j, b, a], as two copies: the first transposes
-        # within blocks of 128 rows, so its strided reads stay in a span
-        # the L2 cache holds, and the second moves 128-word runs (one
-        # strided copy would read one word per 32-byte sector across the
-        # whole array)
-        x = torch.nn.functional.pad(o, (0, plan.m1 - n)).reshape(
-            k0 // 128, 128, b_mix, a_mix)
-        x = x.permute(0, 2, 3, 1).contiguous()
-        ops.append(x.permute(2, 1, 0, 3).reshape(-1))
-    del x
-    # tile t's slot j holds element j*T + mix(t), valid iff < n, so its
-    # valid prefix is ceil((n - mix(t)) / T) slots long
-    thr = torch.div(n - mixvec + t1 - 1, t1, rounding_mode="floor")
-    ctable = torch.clamp(
-        thr[:, None] - torch.arange(k0 // 128, dtype=torch.int64,
-                                    device=dev)[None, :] * 128,
-        0, 128).to(torch.int32).reshape(-1)
-    return ops, ctable
 
 
 def _run_pipeline(
@@ -272,7 +222,7 @@ def _run_pipeline(
     p = len(plan.passes)
     r = plan.passes[0].r
     dev = planes[0].device
-    ops, ctable = _feed([*planes, *values], n, plan)
+    ops, ctable = _msd.strided_feed([*planes, *values], n, plan)
     qg = 128
     prev_s = None
     overflow = torch.zeros((), dtype=torch.bool, device=dev)

@@ -37,6 +37,7 @@ import functools
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from tpusort_torch.kernels.bitonic import (
@@ -390,6 +391,56 @@ def run_passes(
         overflow |= (counts > spec.s).any()
         ctable, q = next_counts_table(counts, spec)
     return ops, (ctable, q), overflow
+
+
+def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A small host array on ``dev``; to a card through pinned memory,
+    asynchronously, so the host does not wait for the queued kernels."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory().to(dev, non_blocking=True) \
+        if dev.type == "cuda" else t
+
+
+def strided_feed(operands: Sequence[torch.Tensor], n: int, plan: MsdPlan
+                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Pass 0's input: the (n,) operands padded to plan.m1 and laid out
+    in strided, index-bit-mixed tiles, with the 128-slot counts table of
+    their validity (port of ``tpusort/ops/equidepth.py:285-325``).  Tile t
+    takes elements {j*T + mix(t)}, so every tile mirrors the global
+    distribution; mix swaps the two halves of the tile index (t = a*B + b
+    -> b*A + a), because a pure stride aliases rank-structured (presorted)
+    input at deeper passes.  Every operand moves alike."""
+    k0 = plan.passes[0].k
+    t1 = plan.m1 // k0
+    dev = operands[0].device
+    a_mix = 1 << ((t1.bit_length() - 1) // 2)
+    b_mix = t1 // a_mix
+    t_idx = torch.arange(t1, dtype=torch.int64, device=dev)
+    if a_mix * b_mix == t1:
+        mixvec = (t_idx % b_mix) * a_mix + t_idx // b_mix
+    else:
+        a_mix, b_mix = t1, 1                   # a plain transpose
+        mixvec = t_idx
+    ops = []
+    for o in operands:
+        # out[a, b, j] = in[j, b, a], as two copies: the first transposes
+        # within blocks of 128 rows, so its strided reads stay in a span
+        # the L2 cache holds, and the second moves 128-word runs (one
+        # strided copy would read one word per 32-byte sector across the
+        # whole array)
+        x = torch.nn.functional.pad(o, (0, plan.m1 - n)).reshape(
+            k0 // 128, 128, b_mix, a_mix)
+        x = x.permute(0, 2, 3, 1).contiguous()
+        ops.append(x.permute(2, 1, 0, 3).reshape(-1))
+    del x
+    # tile t's slot j holds element j*T + mix(t), valid iff < n, so its
+    # valid prefix is ceil((n - mix(t)) / T) slots long
+    thr = torch.div(n - mixvec + t1 - 1, t1, rounding_mode="floor")
+    ctable = torch.clamp(
+        thr[:, None] - torch.arange(k0 // 128, dtype=torch.int64,
+                                    device=dev)[None, :] * 128,
+        0, 128).to(torch.int32).reshape(-1)
+    return ops, ctable
 
 
 def next_counts_table(

@@ -51,12 +51,17 @@ def sort_twiddled_reference(
     unsigned value of bits [begin_bit, end_bit).
 
     Lexicographic over planes by stable sorts from the least significant
-    plane up, each on the int64-widened unsigned word."""
+    planes up, two planes a sort: (hi, lo) make one int64 word, hi with its
+    sign bit flipped, so that int64 order is the pair's unsigned order."""
     masked = _mask_plane_bits(tuple(planes), begin_bit, end_bit, total_bits)
     perm = None
-    for m in reversed(masked):
-        key = m if perm is None else m[perm]
-        order = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, stable=True).indices
+    for i in range(len(masked), 0, -2):
+        key = masked[i - 1].to(torch.int64) & 0xFFFFFFFF
+        if i >= 2:
+            key |= (masked[i - 2] ^ INT32_MIN).to(torch.int64) << 32
+        if perm is not None:
+            key = key[perm]
+        order = torch.sort(key, stable=True).indices
         perm = order if perm is None else perm[order]
     return (
         tuple(p[perm] for p in planes),

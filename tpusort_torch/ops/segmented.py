@@ -30,13 +30,17 @@ the contract is the same and the mechanism differs
   (segment, key) does, and on uniform keys it is uniform whatever the
   number, the sizes and the raggedness of the segments, so the digit runs
   fill evenly; the key itself is the second plane and comes back as it is;
-* pass 0 reads strided tiles (``ops.equidepth._feed``): every tile mirrors
+* pass 0 reads strided tiles (``msd.strided_feed``): every tile mirrors
   the whole batch.  The raw path is unstable and the stable route carries a
   position plane, so the input order is free.
 
-A batch that overflows all the same (heavily duplicated or skewed keys in
-segments larger than a run) takes the exact sort and is counted in
-``overflow_fallbacks``.
+Keys far from uniform inside segments larger than a run (normal-variate
+floats, heavy duplicates) overflow all the same.  From
+``planner.PLANNER_MIN_N`` keys on, a strided sample of the leading plane
+goes through the host planner's prefix-mass check first, as the API's tier
+chain does, and a batch it finds doomed takes the exact sort at once
+(counted in ``reference_routes``); one that overflows unforeseen takes it
+after the engine (``overflow_fallbacks``).
 """
 
 from __future__ import annotations
@@ -47,18 +51,23 @@ import numpy as np
 import torch
 
 from tpusort_torch import dtypes as _dtypes
-from tpusort_torch.api import _join_values, _value_words
+from tpusort_torch import planner as _planner
 from tpusort_torch.configs import get_config
 from tpusort_torch.kernels.bitonic import sort_tiles
 from tpusort_torch.kernels.partition import MAX_VALUES
 from tpusort_torch.ops import msd as _msd
-from tpusort_torch.ops.equidepth import _feed, _to_device
 from tpusort_torch.ops.reference import (
     _mask_plane_bits, sort_rows_lex, sort_twiddled_reference)
 
 __all__ = ["segmented_sort", "sort_batched"]
 
 _MAX_TILE = 1 << 14
+# the engine route's sample gate: 2^22 keys are 128 a bucket at the deepest
+# level of a 15-bit plan, where the heaviest of 2^15 uniform buckets lies 4
+# to 5 standard deviations over the mean; under 64 a bucket that noise
+# alone would pass for skew
+_GATE_SAMPLE = 1 << 22
+_GATE_MIN_PER_BUCKET = 64
 
 
 def _masked_planes(planes, traits, begin_bit: int, end_bit: Optional[int]):
@@ -128,7 +137,7 @@ def sort_batched(
     else:
         # the exact way: the stable row sort by the comparison planes, the
         # full planes (under a bit window) and the value words carried
-        words, spec = _value_words([v.reshape(-1) for v in vt], b * k,
+        words, spec = _dtypes.value_words([v.reshape(-1) for v in vt], b * k,
                                    keys.device)
         carry = [] if full_range else list(planes)
         sp, sv = sort_rows_lex([p.reshape(b, k) for p in cmp_planes],
@@ -140,7 +149,7 @@ def sort_batched(
                                    descending=descending).reshape(b, k)
     if values is None:
         return out_keys
-    outs = tuple(o.reshape(b, k) for o in _join_values(
+    outs = tuple(o.reshape(b, k) for o in _dtypes.join_values(
         [w.reshape(-1) for w in sorted_words], spec))
     return out_keys, (outs[0] if single else outs)
 
@@ -163,23 +172,65 @@ def _checked_offsets(segment_offsets, n: int) -> np.ndarray:
 
 
 def _spread_plane(offsets: np.ndarray, seg_id: torch.Tensor,
-                  key: torch.Tensor) -> torch.Tensor:
+                  key: torch.Tensor, n: int) -> torch.Tensor:
     """The leading plane of the engine route's composite key: for each
-    element, where in [0, n) its key would land if its segment's keys were
+    element (all n of the batch, or a sample of them), where in [0, n) its
+    key would land if its segment's keys were
     uniform, start + ((key * length) >> 32), scaled to the 32-bit range
     (an int32 bit pattern, never all-ones).  It rises with the segment and,
     inside a segment, with the key, so sorting by (this plane, key) is
     sorting by (segment, key); and uniform keys spread it evenly over the
     range however long or ragged the segments are, which is what the
     engine's digit runs need."""
-    n = key.shape[0]
     dev = key.device
-    starts = _to_device(offsets[:-1], dev)
-    lens = _to_device(np.diff(offsets), dev)
+    starts = _msd.to_device(offsets[:-1], dev)
+    lens = _msd.to_device(np.diff(offsets), dev)
     est = starts[seg_id] + (((key.to(torch.int64) & 0xFFFFFFFF)
                              * lens[seg_id]) >> 32)
     est = torch.div(est << 32, n, rounding_mode="floor")
     return (est - ((est >> 31) << 32)).to(torch.int32)
+
+
+def _segment_ids(offsets: np.ndarray, pos: torch.Tensor) -> torch.Tensor:
+    """The segment of each position, int32."""
+    return torch.searchsorted(
+        _msd.to_device(offsets[1:].astype(np.int32), pos.device), pos,
+        right=True, out_int32=True)
+
+
+def _looks_doomed(offsets: np.ndarray, key: torch.Tensor, plan) -> bool:
+    """The host planner's prefix-mass check on a strided sample of the
+    spread plane: whether some digit prefix of the plan holds so much of
+    the batch that its runs would overflow (keys far from uniform inside
+    segments larger than a run: normal-variate floats, heavy duplicates).
+    The sample (up to ``_GATE_SAMPLE`` keys) is counted on the device by
+    its leading digit bits, and the host reads the heaviest bucket of each
+    pass's level, one number a pass, before anything of the sort is
+    queued.  Levels with under ``_GATE_MIN_PER_BUCKET`` samples a bucket
+    are left to the engine's flag.  A wrong guess costs time only: the
+    flag still guards the output."""
+    n = key.shape[0]
+    pos = torch.arange(0, n, max(1, n // _GATE_SAMPLE), dtype=torch.int32,
+                       device=key.device)
+    m = pos.shape[0]
+    levels, cumw = [], 0
+    for spec in plan.passes:
+        cumw += spec.width
+        if cumw > 32 or m < _GATE_MIN_PER_BUCKET << cumw:
+            break
+        levels.append((cumw, spec))
+    if not levels:
+        return False
+    sample = _spread_plane(offsets, _segment_ids(offsets, pos),
+                           key[pos.long()], n)
+    deepest = levels[-1][0]
+    counts = torch.bincount(
+        (sample.to(torch.int64) & 0xFFFFFFFF) >> (32 - deepest),
+        minlength=1 << deepest)
+    heaviest = torch.stack([counts.reshape(1 << w, -1).sum(dim=1).max()
+                            for w, _ in levels]).cpu().tolist()
+    return any(_planner.prefix_mass_overflows(float(c), m, w, spec, n)
+               for c, (w, spec) in zip(heaviest, levels))
 
 
 def _sort_on_engine(
@@ -191,11 +242,13 @@ def _sort_on_engine(
     words of a batch with these host ``offsets`` and per-element segment
     ids, ascending by the planes (:func:`_spread_plane`, key), and by a
     position plane after them when ``stable`` and there are values.
-    Returns (sorted key plane, sorted words), or None when a run
-    overflowed (counted in ``overflow_fallbacks``; the caller then takes
-    the exact sort).  Reads the overflow flag on the host, the one sync of
-    the route.  ``config`` defaults to the 64-bit row of the tensors'
-    device.
+    Returns (sorted key plane, sorted words), or None when the caller is to
+    take the exact sort: the sample gate said the runs would overflow
+    (batches of ``planner.PLANNER_MIN_N`` keys and more; counted in
+    ``reference_routes``, nothing launched), or a run did overflow (counted
+    in ``overflow_fallbacks``).  Reads the sample's heaviest buckets and
+    the overflow flag on the host, the two syncs of the route.  ``config`` defaults to the
+    64-bit row of the tensors' device.
 
     Pass 0 reads strided tiles (in input order a tile would hold one
     stretch of one segment, so one digit).  The spread plane is never
@@ -206,16 +259,20 @@ def _sort_on_engine(
     n = key.shape[0]
     if config is None:
         config = get_config(64, bool(words), key.device.type)
-    planes = [_spread_plane(offsets, seg_id, key), key]
-    if stable and words:
-        planes.append(torch.arange(n, dtype=torch.int32, device=key.device))
-    nplanes = len(planes)
+    nplanes = 3 if stable and words else 2
     total = 32 * nplanes
     kwargs = config.plan_kwargs()
     min_n = kwargs.pop("min_n")
     plan = _msd._plan_cached(n, 0, total, "raw",
                              tuple(sorted(kwargs.items()))) \
         if n >= min_n else None
+    if (plan is not None and n >= _planner.PLANNER_MIN_N
+            and _looks_doomed(offsets, key, plan)):
+        _msd.count_route("reference_routes")
+        return None
+    planes = [_spread_plane(offsets, seg_id, key, n), key]
+    if nplanes == 3:
+        planes.append(torch.arange(n, dtype=torch.int32, device=key.device))
     if plan is None:
         sp, sv, overflow = _msd.sort_twiddled_msd(
             tuple(planes), tuple(words), begin_bit=0, end_bit=total,
@@ -223,7 +280,7 @@ def _sort_on_engine(
             on_overflow="flag")
         outs = [*sp, *sv]
     else:
-        ops, ctable = _feed([*planes, *words], n, plan)
+        ops, ctable = _msd.strided_feed([*planes, *words], n, plan)
         del planes
         data, (ctable, q), overflow = _msd.run_passes(
             ops, nplanes, n, plan, unstable=bool(words),
@@ -266,20 +323,18 @@ def segmented_sort(
     planes, traits = _dtypes.twiddle_in(keys.contiguous(),
                                         descending=descending)
     vt, single = _normalize(values)
-    words, spec = _value_words(vt, n, dev)
+    words, spec = _dtypes.value_words(vt, n, dev)
     cmp_planes, full_range = _masked_planes(planes, traits, begin_bit,
                                             end_bit)
-    seg_id = torch.searchsorted(
-        _to_device(offsets[1:].astype(np.int32), dev),
-        torch.arange(n, dtype=torch.int32, device=dev), right=True,
-        out_int32=True)
+    seg_id = _segment_ids(offsets,
+                          torch.arange(n, dtype=torch.int32, device=dev))
 
     def finish(sorted_planes, sorted_words):
         out_keys = _dtypes.twiddle_out(tuple(sorted_planes), traits,
                                        descending=descending)
         if values is None:
             return out_keys
-        outs = tuple(_join_values(sorted_words, spec))
+        outs = tuple(_dtypes.join_values(sorted_words, spec))
         return out_keys, (outs[0] if single else outs)
 
     # the engine route (JAX gates it to the TPU alike): 32-bit keys over

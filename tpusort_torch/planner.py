@@ -28,7 +28,8 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["predict_radix_overflow", "predict_presorted",
+__all__ = ["predict_radix_overflow", "prefix_mass_overflows",
+           "predict_presorted",
            "PLANNER_MIN_N", "SAMPLE_TARGET"]
 
 # Below this the radix attempt is cheap enough to just run (the sample
@@ -99,18 +100,26 @@ def predict_radix_overflow(
         shift = np.uint32(32 - cumw)
         pref = (sample_top >> shift).astype(np.int64)
         counts = np.bincount(pref, minlength=nbuckets)
-        # debias the max bucket by the expected max-order-statistic excess
-        # of a uniform multinomial (~sqrt(2 ln B * mean)) so sampling noise
-        # at deep levels doesn't flag uniform inputs.  The excess uses the
-        # UNIFORM MEAN m/B, not cmax itself — debiasing by the observed max
-        # would scale the correction with the very skew being detected and
-        # eat ~sqrt(cmax/mean) x too much of a heavy bucket's mass
-        mean = m / nbuckets
-        cmax = float(counts.max())
-        cmax -= np.sqrt(2.0 * np.log(nbuckets) * max(mean, 1.0))
-        # run (tile, digit) at this pass holds the elements of one full
-        # cumw-bit prefix, split across the segment's t_seg tiles
-        exp_max = n * (cmax / m) / max(spec.t_seg, 1)
-        if exp_max > _MASS_MARGIN * spec.s:
+        if prefix_mass_overflows(float(counts.max()), m, cumw, spec, n):
             return True
     return False
+
+
+def prefix_mass_overflows(cmax: float, m: int, cumw: int, spec,
+                          n: int) -> bool:
+    """Whether pass ``spec``'s runs look doomed, given that the heaviest of
+    the 2^cumw digit prefixes it completes holds ``cmax`` of ``m`` sampled
+    keys (of ``n``)."""
+    nbuckets = 1 << cumw
+    # debias the max bucket by the expected max-order-statistic excess
+    # of a uniform multinomial (~sqrt(2 ln B * mean)) so sampling noise
+    # at deep levels doesn't flag uniform inputs.  The excess uses the
+    # UNIFORM MEAN m/B, not cmax itself — debiasing by the observed max
+    # would scale the correction with the very skew being detected and
+    # eat ~sqrt(cmax/mean) x too much of a heavy bucket's mass
+    mean = m / nbuckets
+    cmax -= np.sqrt(2.0 * np.log(nbuckets) * max(mean, 1.0))
+    # run (tile, digit) at this pass holds the elements of one full
+    # cumw-bit prefix, split across the segment's t_seg tiles
+    exp_max = n * (cmax / m) / max(spec.t_seg, 1)
+    return bool(exp_max > _MASS_MARGIN * spec.s)

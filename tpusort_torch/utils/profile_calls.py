@@ -63,6 +63,7 @@ def _calls(dev: torch.device) -> Dict[str, Callable]:
                           device=dev, generator=gen)
     f32 = torch.rand(MAIN_N, device=dev, generator=gen)
     seg_keys, seg_vals = uni[:SEG_N], vals[:SEG_N]
+    normal = torch.randn(SEG_N, device=dev, generator=gen)
     equal = np.arange((1 << 16) + 1, dtype=np.int64) * (SEG_N >> 16)
     ragged = segment_offsets(np.random.default_rng(SEED), SEG_N, 1 << 16)
     return {
@@ -109,6 +110,9 @@ def _calls(dev: torch.device) -> Dict[str, Callable]:
             lambda: tpusort_torch.segmented_sort(seg_keys, equal, seg_vals),
         "segmented_sort stable pairs 2^26, 2^16 ragged segments":
             lambda: tpusort_torch.segmented_sort(seg_keys, ragged, seg_vals),
+        "segmented_sort stable pairs 2^26, float32 normal variates, 2^16 "
+        "ragged segments (the sample gate's exact sort)":
+            lambda: tpusort_torch.segmented_sort(normal, ragged, seg_vals),
     }
 
 
