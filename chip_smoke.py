@@ -117,6 +117,25 @@ non-zero:
     distinct keys in 64 segments of 2^20.  A batch that the sample gate
     sent to the exact sort is run once more with the gate off, and must
     then overflow the engine;
+26. K7 (``parallel.ring.ring_all_to_all``) vs its plain version, bit for
+    bit, for all 8 shards at the send buffers of the global sort's rdma
+    route at 2^28 keys and capacity factor 2.0 ((8, 2^23) words each);
+27. K1 emit-only (``sorted_run`` = K, the windows finish's pass 0) vs its
+    plain version at that route's pass-0 shape ((4096, 16384) tiles, one
+    count a tile), keys and a key with a value;
+28. ``parallel.make_global_sort`` over ``InProcessComm(8)`` on the card at
+    2^28 uint32 keys, each case against the reference sort of the whole
+    tensor with its launches checked: the collective exchange with the
+    collapse finish (K4 once a shard), the rdma exchange with the windows
+    finish at factor 2.0 (K7 and emit-only K1 once a shard and operand;
+    its windows span many tiles, so its pass 0 overflows and each shard
+    takes the exact sort), keys and unstable pairs (values a permutation
+    riding with their keys), Zipf 1.1 keys (the default route), 2^20 keys
+    through the windows finish with no overflow, presorted keys at factor
+    1.0 (the
+    exchange overflows; the gathered exact sort), ``adaptive=True`` (the
+    second call takes no fallback), and ``make_global_sort_planes`` on
+    2^27 uint64 keys; then K4 vs plain at the collapse finish's shape;
 17. timings, median of 5 CUDA-event runs, alternating: the 2^28 sort
     against ``torch.sort``, the 2^28 pairs sort against ``torch.sort``
     (stable) plus the values gather, 2^27 uint64 keys against
@@ -130,10 +149,11 @@ non-zero:
     the gather), ``segmented_sort`` of the five batches against
     ``torch.sort(stable=True)`` of the (segment, key) int64 composite plus
     the gathers (a gated batch also with the gate off: the engine, its
-    overflow, then the exact sort), and each kernel
-    mode against its plain version (and K3, K5, K6 and the one-plane K9
-    and K10 against one PyTorch call, or one and its gathers, computing
-    the same function).
+    overflow, then the exact sort), each global sort case of phase 28
+    against ``torch.sort`` of the whole tensor, and each kernel
+    mode against its plain version (and K3, K5, K6, the one-plane K9
+    and K10 and K7 against one PyTorch call, or one and its gathers,
+    computing the same function).
 
 The line before the last is a JSON summary of the kernels: each template
 mode compared, with its launches in the run of the path that drives it at
@@ -141,7 +161,7 @@ that shape (counters set to 0 just before), or 0 where no path does, its
 time, its plain version's time, its bound (the least time for the words
 it must move at 3.35 TB/s, or its operations at 67 T/s, the larger), the
 time of a PyTorch call computing the same function where there is one
-(K3, K5, K6, one-plane K9 and K10) and a remark or null; the last line is
+(K3, K5, K6, one-plane K9 and K10, K7) and a remark or null; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -1659,6 +1679,248 @@ def main() -> None:
               f"segmented_sort {batch}: the sample gate turned away a "
               f"batch the engine sorts: {c}")
 
+    # ---- phase 26: K7 vs plain at the rdma route's send shape ---------
+    from tpusort_torch.parallel import (
+        InProcessComm, make_global_sort, make_global_sort_planes)
+    from tpusort_torch.parallel.ring import (
+        ring_all_to_all, ring_all_to_all_plain)
+
+    gs_d = 8
+    gs_shard = MAIN_N // gs_d
+    # the rdma + windows route's window at capacity factor 2.0: whole
+    # engine tiles (K 16384), 2^23 words at 2^28 keys
+    gs_cap = -(-2 * (gs_shard // gs_d) // 16384) * 16384
+    sends = [random_i32(gs_d * gs_cap).reshape(gs_d, gs_cap)
+             for _ in range(gs_d)]
+    k7_err = 0
+    for r in range(gs_d):
+        got, want = ring_all_to_all(sends, r), ring_all_to_all_plain(sends, r)
+        check(same_bits(got, want), f"K7 rank {r}: differs from plain")
+        k7_err = max(k7_err, max_abs_err(got, want))
+    del got, want
+
+    def k7_all():
+        return [ring_all_to_all(sends, r) for r in range(gs_d)]
+
+    def k7_plain_all():
+        return [ring_all_to_all_plain(sends, r) for r in range(gs_d)]
+
+    t7 = time_alt(k7_all, k7_plain_all,
+                  lambda: torch.stack(sends).transpose(0, 1).contiguous())
+    # one row is one operand's exchange over the d shards: d launches
+    results[f"K7 ({gs_d}, {gs_cap}) x {gs_d} shards"] = (
+        k7_err, *t7[:2], 2 * gs_d * gs_d * gs_cap, 0, t7[2])
+    notes[f"K7 ({gs_d}, {gs_cap}) x {gs_d} shards"] = (
+        "one operand's exchange: one launch a shard, each pulling window r "
+        "of the d send buffers; library: torch.stack of the send buffers, "
+        "transposed, made contiguous")
+    del sends
+    log(f"phase 26 ok: K7 == plain bit for bit for all {gs_d} ranks at "
+        f"({gs_d}, {gs_cap}) send buffers; max_abs_err {k7_err}")
+
+    # ---- phase 27: K1 emit-only vs plain at the windows finish's pass 0 --
+    wcfg = get_config(32, False, "cuda")
+    wkw = wcfg.plan_kwargs()
+    wkw.pop("min_n")
+    w_plan = msd.plan_msd(gs_shard, 0, 32, t1_force=gs_d * gs_cap // 16384,
+                          **wkw)
+    check(w_plan is not None and w_plan.m1 == gs_d * gs_cap,
+          f"no windows plan at 2^28 / {gs_d} shards, factor 2.0: {w_plan}")
+    log(f"windows plan for n_shard={gs_shard}, {gs_d} windows of {gs_cap}: "
+        f"{[(p.n_seg, p.t_seg, p.k, p.s) for p in w_plan.passes]} "
+        f"leaf {msd.leaf_tiles(w_plan)}")
+    wspec = w_plan.passes[0]
+    w_t = wspec.n_seg * wspec.t_seg
+    # each window a sorted run of unique keys, its valid prefix about
+    # n_shard / d long, a random tail
+    w_counts = torch.randint(gs_shard // gs_d - 4096, gs_shard // gs_d + 4097,
+                             (gs_d,), dtype=torch.int64, device=dev,
+                             generator=gen)
+    w_keys = (torch.sort(unique_i32(gs_d * gs_cap).reshape(gs_d, gs_cap)
+                         ^ dtypes.INT32_MIN, dim=1).values ^ dtypes.INT32_MIN)
+    w_pos = torch.arange(gs_cap, device=dev)[None, :]
+    w_keys = torch.where(w_pos < w_counts[:, None], w_keys,
+                         random_i32(gs_d * gs_cap).reshape(gs_d, gs_cap))
+    w_val = random_i32(gs_d * gs_cap)
+    c0 = (w_counts[:, None] - torch.arange(gs_cap // 16384, device=dev)
+          * 16384).clamp(0, 16384).to(torch.int32).reshape(w_t, 1)
+    n_valid = int(w_counts.sum())
+    for name, vals_ in (("K1 emit-only keys", []),
+                        ("K1 emit-only key+value", [w_val.reshape(w_t, -1)])):
+        tiles = [w_keys.reshape(w_t, 16384)]
+        kw0 = dict(q_in=16384, r=wspec.r, s=wspec.s, lo_bit=wspec.lo_bit,
+                   width=wspec.width, t_seg=wspec.t_seg)
+
+        def kernel():
+            return partition_pass_fused(tiles, vals_, c0, sorted_run=16384,
+                                        unstable=True, **kw0)
+
+        def plain():
+            return partition_pass_fused_plain(tiles, vals_, c0, n=None,
+                                              **kw0)
+
+        (k_out, k_cnt), c, modes = drive(kernel)
+        check(modes == {("K1", 1, len(vals_), "emit-only"): 1},
+              f"{name}: not one emit-only K1 launch: {modes}")
+        p_out, p_cnt = plain()
+        check(torch.equal(k_cnt, p_cnt), f"{name}: counts differ")
+        check(int(k_cnt.sum()) == n_valid, f"{name}: counts != valid slots")
+        m = valid_slots(k_cnt, wspec)
+        err = 0
+        for k, p in zip(k_out, p_out):
+            check(same_bits(k[m], p[m]), f"{name}: valid slots differ")
+            err = max(err, max_abs_err(k[m], p[m]))
+        del k_out, p_out, m
+        tk, tp = time_pair(kernel, plain)
+        n_ops = 1 + len(vals_)
+        results[name] = (err, tk, tp,
+                         2 * n_valid * n_ops + w_t + w_t * wspec.r, n_valid)
+        log(f"phase 27 ok: {name} == plain at ({w_t}, 16384), S={wspec.s}, "
+            f"q_in=16384, sorted_run=16384; max_abs_err {err}")
+    del w_keys, w_val, w_pos, c0
+
+    # ---- phase 28: the global sort over 8 in-process shards at 2^28 ------
+    def check_pairs(name, keys, ko, vo, want):
+        ki = keys.view(torch.int32)
+        check(same_bits(ko, want), f"{name}: keys differ from the reference")
+        check(same_bits(ki[vo.view(torch.int32).long()], ko.view(torch.int32))
+              and same_bits(torch.sort(vo.view(torch.int32)).values,
+                            vals.view(torch.int32)),
+              f"{name}: values are not a permutation riding with their keys")
+
+    x_ref = reference_sort(x)
+    gs_cases = {}          # name -> (sorter, call), timed in phase 17
+
+    def gs_case(name, sorter, call, expect):
+        """Run one global sort with the counters at 0; ``expect(c,
+        modes)`` says what its route must have launched."""
+        out, c, modes = drive(lambda: call(sorter))
+        print(f"route: global_sort {name}: {c} {modes}", flush=True)
+        check(expect(c, modes), f"global_sort {name}: unexpected route: "
+              f"{c} {modes}")
+        gs_cases[name] = (sorter, call)
+        return out, c, modes
+
+    def emit_only(modes):
+        return sum(v for m, v in modes.items() if m[-1] == "emit-only")
+
+    comm8 = InProcessComm(gs_d, dev)
+    s_col = make_global_sort(comm8, finish="collapse")
+    got, _, modes = gs_case(
+        "collective + collapse, keys", s_col, lambda s: s(x),
+        lambda c, m: c["k4_launches"] == gs_d and c["k7_launches"] == 0
+        and c["exchange_fallbacks"] == 0 and c["overflow_fallbacks"] == 0
+        and emit_only(m) == 0)
+    check(same_bits(got, x_ref), "global_sort collapse: keys differ")
+    col_cap = max(g[-1] for g in s_col._shard_fns)
+    launches[f"K4c ({gs_d}, {col_cap}) 1 operand"] = modes.get(("K4", 0, 1),
+                                                              0)
+    log("phase 28 ok: global_sort 2^28 over 8 shards, collective exchange, "
+        f"collapse finish (K4 at ({gs_d}, {col_cap})) == reference")
+    # at 2^28 a window holds 2^22 keys, 256 tiles: each tile of pass 0 is a
+    # slice of one sorted run and falls into a few digits, so the windows
+    # finish overflows and every shard compacts and sorts exactly (counted)
+    s_rdma = make_global_sort(comm8, finish="windows", exchange="rdma",
+                              capacity_factor=2.0)
+    got, c, modes = gs_case(
+        "rdma + windows (factor 2.0), keys", s_rdma, lambda s: s(x),
+        lambda c, m: c["k7_launches"] == gs_d
+        and c["exchange_fallbacks"] == 0 and emit_only(m) == gs_d)
+    print(f"windows finish at 2^28 / {gs_d} shards: {c['overflow_fallbacks']}"
+          f" of {gs_d} shards overflowed and took the exact sort", flush=True)
+    check(same_bits(got, x_ref), "global_sort rdma + windows: keys differ")
+    check(max(g[-1] for g in s_rdma._shard_fns) == gs_cap,
+          f"rdma + windows: capacity {list(s_rdma._shard_fns)}")
+    launches[f"K7 ({gs_d}, {gs_cap}) x {gs_d} shards"] = \
+        modes.get(("K7", 0, 1), 0)
+    launches["K1 emit-only keys"] = modes.get(("K1", 1, 0, "emit-only"), 0)
+    log("phase 28 ok: global_sort rdma + windows == reference: K7 once a "
+        "shard, K1 emit-only once a shard")
+    (ko, vo), _, modes = gs_case(
+        "rdma + windows (factor 2.0), unstable u32 + u32 pairs", s_rdma,
+        lambda s: s(x, vals),
+        lambda c, m: c["k7_launches"] == 2 * gs_d
+        and c["exchange_fallbacks"] == 0 and emit_only(m) == gs_d)
+    check_pairs("global_sort rdma pairs", x, ko, vo, x_ref)
+    launches["K1 emit-only key+value"] = modes.get(("K1", 1, 1, "emit-only"),
+                                                   0)
+    del ko, vo
+    log("phase 28 ok: global_sort rdma + windows pairs: keys exact, values "
+        "a permutation riding with their keys")
+    s_auto = make_global_sort(comm8)
+    got, _, _ = gs_case(
+        "default (collective, auto -> collapse), Zipf 1.1", s_auto,
+        lambda s: s(zu),
+        lambda c, m: c["exchange_fallbacks"] == 0
+        and c["k4_launches"] == gs_d)
+    check(same_bits(got, reference_sort(zu)), "global_sort Zipf: differs")
+    log("phase 28 ok: global_sort of 2^28 Zipf 1.1 keys == reference")
+    # where a window fits one tile (2^20 keys: 2^14 a window) "auto" takes
+    # the windows finish, and it runs without overflow
+    xs20 = x[:1 << 20]
+    got, _, modes = gs_case(
+        "default (auto -> windows), 2^20 keys", s_auto, lambda s: s(xs20),
+        lambda c, m: c["exchange_fallbacks"] == 0 and c["k4_launches"] == 0
+        and c["overflow_fallbacks"] == 0 and emit_only(m) == gs_d)
+    check(same_bits(got, reference_sort(xs20)),
+          "global_sort 2^20 windows: differs")
+    log("phase 28 ok: global_sort of 2^20 keys through the windows finish "
+        "with no overflow == reference")
+    s_pre = make_global_sort(comm8, capacity_factor=1.0)
+    got, _, _ = gs_case(
+        "presorted, factor 1.0 (the gathered fallback)", s_pre,
+        lambda s: s(presorted),
+        lambda c, m: c["exchange_fallbacks"] == 1 and c["k7_launches"] == 0
+        and c["k4_launches"] == 0)
+    check(same_bits(got, presorted), "global_sort presorted: differs")
+    log("phase 28 ok: presorted keys at factor 1.0 overflowed the exchange "
+        "and the gathered exact sort took over")
+    s_ad = make_global_sort(InProcessComm(gs_d, dev), capacity_factor=1.0,
+                            adaptive=True)
+    got, c1, _ = drive(lambda: s_ad(x))
+    check(same_bits(got, x_ref) and c1["exchange_fallbacks"] == 1,
+          f"adaptive: the first call at factor 1.0 did not overflow: {c1}")
+    got, _, _ = gs_case(
+        "adaptive, after one overflow", s_ad, lambda s: s(x),
+        lambda c, m: c["exchange_fallbacks"] == 0)
+    check(same_bits(got, x_ref), "global_sort adaptive: differs")
+    log(f"phase 28 ok: adaptive: the factor doubled ({s_ad._factors}), the "
+        "second call took no fallback")
+    s_u64 = make_global_sort_planes(comm8, key_dtype="uint64")
+    u64_planes = tuple(p.view(torch.uint32) for p in
+                       dtypes.split64(x64.view(torch.uint64)))
+    (ohi, olo), _, _ = gs_case(
+        "make_global_sort_planes u64 2^27", s_u64, lambda s: s(u64_planes),
+        lambda c, m: c["exchange_fallbacks"] == 0
+        and c["k4_launches"] == gs_d)
+    want_hi, want_lo = dtypes.split64(reference_sort(x64.view(torch.uint64)))
+    check(same_bits(ohi.view(torch.int32), want_hi)
+          and same_bits(olo.view(torch.int32), want_lo),
+          "global_sort u64 planes: differs from the reference")
+    del got, ohi, olo, want_hi, want_lo
+    log("phase 28 ok: make_global_sort_planes of 2^27 uint64 keys == "
+        "reference")
+
+    # K4 at the collapse finish's shape: the received (d, capacity) runs
+    col_segs = [random_i32(gs_d * col_cap).reshape(gs_d, col_cap)]
+    col_counts = torch.full((gs_d,), gs_shard // gs_d, dtype=torch.int32,
+                            device=dev) + torch.randint(
+        -4096, 4097, (gs_d,), dtype=torch.int32, device=dev, generator=gen)
+    col_counts[-1] = gs_shard - int(col_counts[:-1].sum())
+    k_dense = collapse_segments(col_segs, col_counts, gs_shard)
+    p_dense = collapse_segments_plain(col_segs, col_counts, gs_shard)
+    check(same_bits(k_dense[0], p_dense[0]),
+          f"K4 at ({gs_d}, {col_cap}): differs from plain")
+    results[f"K4c ({gs_d}, {col_cap}) 1 operand"] = (
+        max_abs_err(k_dense[0], p_dense[0]),
+        *time_pair(lambda: collapse_segments(col_segs, col_counts, gs_shard),
+                   lambda: collapse_segments_plain(col_segs, col_counts,
+                                                   gs_shard)),
+        2 * gs_shard + gs_d, 0)
+    del col_segs, k_dense, p_dense
+    log(f"phase 28 ok: K4 == plain at the collapse finish's ({gs_d}, "
+        f"{col_cap})")
+
     # ---- phase 17: timings --------------------------------------------
     xi = x.view(torch.int32)
     sort_times, torch_times = time_pair(lambda: tpusort_torch.sort(x),
@@ -1790,6 +2052,17 @@ def main() -> None:
                       f"then the exact sort) {fmt(t_off)} on {card}",
                       flush=True)
         del sid, plane, kv
+    for name, (sorter, call) in gs_cases.items():
+        whole = {"make_global_sort_planes u64 2^27": x64s}.get(name, None)
+        if whole is None:
+            keys_ = zu if "Zipf" in name else (
+                presorted if "presorted" in name else (
+                    xs20 if "2^20" in name else x))
+            whole = keys_.view(torch.int32) ^ dtypes.INT32_MIN
+        t_g, t_t = time_pair(lambda: call(sorter), lambda: torch.sort(whole))
+        print(f"time: global_sort over {gs_d} in-process shards, {name} "
+              f"{fmt(t_g)} vs torch.sort of the whole tensor {fmt(t_t)} on "
+              f"{card}", flush=True)
     for name, (err, tk, tp, words, ops, *lib) in results.items():
         extra = f" vs library {fmt(lib[0])}" if lib else ""
         print(f"time: {name} kernel {fmt(tk)} vs plain {fmt(tp)}{extra}, "
@@ -1821,6 +2094,8 @@ def main() -> None:
                "tpusort/kernels/bitonic.py:639"),
         "K10": ("sort_tiles_masked", "tpusort_torch/csrc/sort_tiles.cu",
                 "tpusort/kernels/bitonic.py:868"),
+        "K7": ("ring_all_to_all", "tpusort_torch/csrc/ring.cu",
+               "tpusort/parallel/ring.py:89"),
     }
     kernels = []
     for mode, (err, tk, tp, words, ops, *lib) in results.items():

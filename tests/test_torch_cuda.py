@@ -894,3 +894,96 @@ def test_scan_and_histogram_at_the_largest_length(gen):
         want_hist += torch.bincount((chunk >> 12) & 0xFF, minlength=256)
         del inc
     assert torch.equal(hist.long(), want_hist) and int(hist.sum()) == n
+
+
+@pytest.mark.parametrize("d,window", [(2, 128), (3, 384), (3, 1152),
+                                      (8, 1152), (8, 1 << 16)])
+def test_ring_all_to_all(gen, d, window):
+    """K7 vs its plain version, bit for bit, at odd window counts (in
+    units of 128) and shard counts; one launch a shard."""
+    from tpusort_torch.parallel import ring
+
+    sends = [_rand(gen, d, window) for _ in range(d)]
+    tm.reset_counters()
+    for r in range(d):
+        assert torch.equal(ring.ring_all_to_all(sends, r),
+                           ring.ring_all_to_all_plain(sends, r))
+    assert tm.mode_counters() == {("K7", 0, 1): d}
+
+
+def test_ring_all_to_all_rejects_misaligned(gen):
+    """The kernel moves 16-byte words: a send buffer off a 16-byte
+    boundary is refused, not read wrongly."""
+    from tpusort_torch.parallel import ring
+
+    flat = _rand(gen, 2 * 256 + 1)
+    sends = [flat[1:].reshape(2, 256), _rand(gen, 2, 256)]
+    with pytest.raises(RuntimeError, match="ring_all_to_all"):
+        ring.ring_all_to_all(sends, 0)
+
+
+@pytest.mark.parametrize("nv", [0, 1])
+def test_partition_emit_only(gen, nv):
+    """K1 with sorted_run == K (the windows finish's pass 0): each tile is
+    one sorted run with a valid prefix from one count a tile, so K1 only
+    cuts and emits; counts and valid slots equal the plain version's, and
+    the launch counts in the "emit-only" mode."""
+    T, K, R, S = 32, 16384, 32, 768
+    counts = torch.randint(0, K + 1, (T, 1), dtype=torch.int32,
+                           device="cuda", generator=gen)
+    counts[0] = K
+    counts[1] = 0
+    keys, vals = _lex_chunks([_unique(gen, T, K)], [_rand(gen, T, K)] * nv,
+                             K, counts)
+    kw = dict(q_in=K, r=R, s=S, lo_bit=27, width=5, t_seg=T)
+    tm.reset_counters()
+    k_out, k_cnt = tp.partition_pass_fused(keys, vals, counts, sorted_run=K,
+                                           unstable=True, **kw)
+    assert tm.mode_counters() == {("K1", 1, nv, "emit-only"): 1}
+    p_out, p_cnt = tp.partition_pass_fused_plain(keys, vals, counts, n=None,
+                                                 **kw)
+    assert torch.equal(k_cnt, p_cnt)
+    c = p_cnt.clamp(max=S).reshape(1, T, R).transpose(1, 2)
+    m = (torch.arange(S, device="cuda") < c[..., None]).reshape(-1)
+    for k, p in zip(k_out, p_out):
+        assert torch.equal(k[m], p[m])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(finish="collapse"),
+    dict(finish="windows", exchange="rdma", capacity_factor=2.0),
+    dict(exchange="rdma", chunks=2),
+], ids=["auto", "collapse", "windows-rdma", "rdma-chunks2"])
+def test_global_sort_on_card(gen, kw):
+    """The global sort over four in-process shards on the card: keys equal
+    torch.sort's, pairs ride with their keys, and the route's kernels
+    launched (K4 for the collapse, K7 once a shard and operand for rdma,
+    K1's emit-only pass for the windows finish, which "auto" takes here:
+    a window of n / d^2 = 2^14 keys fits one tile), with no fallback."""
+    from tpusort_torch.parallel import InProcessComm, make_global_sort
+
+    n, d = 1 << 18, 4
+    keys = _rand(gen, n)
+    sorter = make_global_sort(InProcessComm(d, "cuda"), **kw)
+    want = (torch.sort(keys ^ dtypes.INT32_MIN).values
+            ^ dtypes.INT32_MIN).view(torch.uint32)
+    for pairs in (False, True):
+        vals = torch.arange(n, dtype=torch.int32, device="cuda")
+        tm.reset_counters()
+        if pairs:
+            ko, vo = sorter(keys.view(torch.uint32), vals)
+            assert torch.equal(keys[vo.long()], ko.view(torch.int32))
+            assert torch.equal(torch.sort(vo).values, vals)
+        else:
+            ko = sorter(keys.view(torch.uint32))
+        torch.cuda.synchronize()
+        assert torch.equal(ko.view(torch.int32), want.view(torch.int32))
+        c, modes = tm.counters(), tm.mode_counters()
+        assert c["exchange_fallbacks"] == c["overflow_fallbacks"] == 0, c
+        windows = kw.get("finish", "windows") == "windows"
+        assert (c["k4_launches"] > 0) == (not windows), c
+        assert c["k7_launches"] == (d * (1 + pairs)
+                                    if kw.get("exchange") == "rdma" else 0)
+        emit = sum(v for m, v in modes.items() if m[-1] == "emit-only")
+        assert (emit > 0) == windows, modes

@@ -208,9 +208,11 @@ def test_reference_route_below_min_n():
                                  k3_launches=0, k4_launches=0,
                                  k5_launches=0, k6_launches=0,
                                  k9_launches=0, k10_launches=0,
+                                 k7_launches=0,
                                  reference_routes=1, overflow_fallbacks=0,
                                  radix_tiers=0, equidepth_runs=0,
-                                 sample_fallbacks=0, identity_routes=0)
+                                 sample_fallbacks=0, identity_routes=0,
+                                 exchange_fallbacks=0)
 
 
 def test_mode_counters():

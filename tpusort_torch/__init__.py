@@ -9,9 +9,14 @@ tier, then the exact sort; presorted inputs come back after one check).
 ``sort_batched`` sorts the rows of a (B, K) tensor and ``segmented_sort``
 ragged segments given by offsets; ``ops.scan`` (prefix sums and scans) and
 ``ops.histogram`` (``histogram_even``, ``digit_histogram``) are the scan
-and histogram primitives.  On a CUDA tensor the partition passes, the
-leaves, the collapse, the tile sorts, the prefix sum and the digit
-histogram run as hand-written sm_90a kernels (``tpusort_torch/csrc``),
+and histogram primitives.  ``algorithm=`` names an engine of the registry
+(``register_engine``, ``available_engines``).  ``parallel.global_sort``,
+``make_global_sort`` and ``make_global_sort_planes`` sort across shards
+of a communicator: ``parallel.InProcessComm`` (d shards on one device, in
+one process) or ``parallel.ProcessGroupComm`` (a ``torch.distributed``
+group).  On a CUDA tensor the partition passes, the leaves, the collapse,
+the tile sorts, the prefix sum, the digit histogram and the global sort's
+window exchange run as hand-written sm_90a kernels (``tpusort_torch/csrc``),
 built with nvcc at first use; on a CPU tensor they run as their plain
 PyTorch versions.  The JAX package ``tpusort`` is the reference the port is
 tested against; this package never imports jax.
@@ -19,6 +24,8 @@ tested against; this package never imports jax.
 
 from tpusort_torch.api import (
     argsort,
+    available_engines,
+    register_engine,
     sort,
     sort_keys,
     sort_keys_descending,

@@ -7,6 +7,12 @@ uint32/int32/float32 and uint64/int64/float64 keys with optional 32- or
 on a CUDA device (the hand-written kernels) or on the CPU (their plain
 PyTorch versions).  Outputs lie on the input's device.
 
+Engines are looked up by name in a registry (``register_engine``,
+``available_engines``), as in ``tpusort/api.py:53-134``: ``algorithm="auto"``
+takes the config's ``default_algorithm``, and the radix names in
+``_TIERED_ALGOS`` run the host tiering below; any other name calls that
+engine once on the twiddled planes.
+
 64-bit keys and values are split into (hi, lo) int32 planes with views on
 the device (``dtypes.split64``) and joined back the same way: the same
 words the JAX package's numpy host boundary makes, without the round trip.
@@ -27,6 +33,8 @@ is always read on the host.
 
 from __future__ import annotations
 
+import functools
+import inspect
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +46,7 @@ from tpusort_torch import planner
 from tpusort_torch.ops.equidepth import sort_twiddled_equidepth
 from tpusort_torch.ops.msd import _plan_cached, count_route, sort_twiddled_msd
 from tpusort_torch.ops.reference import sort_twiddled_reference
+from tpusort_torch.ops.small import sort_twiddled_bitonic
 
 __all__ = [
     "sort",
@@ -50,7 +59,72 @@ __all__ = [
     "sort_planes",
     "unstable_sort_keys",
     "unstable_sort_pairs",
+    "register_engine",
+    "available_engines",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Engine registry (port of tpusort/api.py:53-134)
+# ---------------------------------------------------------------------------
+
+# An engine sorts twiddled int32 plane(s) + int32 payload words ascending:
+#   engine(planes, values, *, begin_bit, end_bit, total_bits[, config])
+#     -> (sorted planes, sorted values)
+Engine = Callable[..., Tuple[Tuple[torch.Tensor, ...],
+                             Tuple[torch.Tensor, ...]]]
+
+_ENGINES: Dict[str, Engine] = {}
+
+# the engines that run the host tiering (radix -> equi-depth -> exact)
+_TIERED_ALGOS = ("msd", "lsd", "msd_unstable")
+
+
+def register_engine(name: str, fn: Engine) -> None:
+    """Make ``fn`` callable as ``algorithm=name``."""
+    _ENGINES[name] = fn
+
+
+def available_engines() -> Tuple[str, ...]:
+    return tuple(sorted(_ENGINES))
+
+
+def _call_engine(engine: Engine, planes, values_tuple, **kw):
+    """Call an engine, passing ``config=`` only if its signature takes it
+    (engines written against the contract without it keep working)."""
+    try:
+        params = inspect.signature(engine).parameters
+        takes_config = "config" in params or any(
+            p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
+    except (TypeError, ValueError):
+        takes_config = False
+    if not takes_config:
+        kw.pop("config", None)
+    return engine(planes, values_tuple, **kw)
+
+
+def _resolve_engine(algorithm: str, config: _configs.SortConfig) -> Engine:
+    if algorithm == "auto":
+        algorithm = config.default_algorithm
+        if algorithm not in _ENGINES:
+            algorithm = "reference"
+    if algorithm not in _ENGINES:
+        raise ValueError(f"unknown algorithm {algorithm!r}; available: "
+                         f"{available_engines()}")
+    return _ENGINES[algorithm]
+
+
+# the exact sort; "xla" is JAX's name for the same one
+register_engine("reference", sort_twiddled_reference)
+register_engine("xla", sort_twiddled_reference)
+register_engine("msd", sort_twiddled_msd)
+register_engine("msd_unstable",
+                functools.partial(sort_twiddled_msd, stable=False))
+register_engine("msd_equidepth", sort_twiddled_equidepth)
+# the MSD engine is stable, so it stands for CUB's stable LSD sort too
+register_engine("lsd", sort_twiddled_msd)
+# the single-tile path (K3), unstable; larger inputs go to the exact sort
+register_engine("bitonic", sort_twiddled_bitonic)
 
 
 def _normalize_values(values) -> Tuple[Tuple[torch.Tensor, ...], bool, bool]:
@@ -214,11 +288,14 @@ def _dispatch_tier(tier: str, planes, words, bits: dict, stable: bool, cfg):
 def _sort_tiered(planes, traits, vt, *, kind: str, begin_bit: int,
                  end_bit: Optional[int], stable: bool, descending: bool,
                  device: torch.device, finish: Callable,
-                 identity: Callable):
-    """Check the bit range, pick the config and sort twiddled planes
-    through the host tiering.  ``finish(sorted planes)`` makes the output
-    keys; ``identity()`` gives (keys, values) for an input found sorted.
-    Returns (keys, list of values)."""
+                 identity: Callable, algorithm: str = "auto"):
+    """Check the bit range, pick the config and the engine, and sort
+    twiddled planes: through the host tiering where ``algorithm`` (or the
+    config's default, for "auto") is a radix engine, else by one call of
+    the named engine (port of ``tpusort.api._sort_impl``).
+    ``finish(sorted planes)`` makes the output keys; ``identity()`` gives
+    (keys, values) for an input found sorted.  Returns (keys, list of
+    values)."""
     eb = traits.bits if end_bit is None else end_bit
     if not 0 <= begin_bit < eb <= traits.bits:
         raise ValueError(
@@ -226,10 +303,17 @@ def _sort_tiered(planes, traits, vt, *, kind: str, begin_bit: int,
     n = planes[0].shape[0]
     words, spec = _dtypes.value_words(vt, n, device)
     cfg = _configs.get_config(traits.bits, bool(vt), device.type)
-    if cfg.default_algorithm != "msd":
-        raise NotImplementedError(
-            f"engine {cfg.default_algorithm!r} is not ported; only 'msd' is")
     bits = dict(begin_bit=begin_bit, end_bit=eb, total_bits=traits.bits)
+    algo = cfg.default_algorithm if algorithm == "auto" else algorithm
+    if algo not in _TIERED_ALGOS:
+        if not stable and algorithm in ("auto", "msd", "lsd") and \
+                "msd_unstable" in _ENGINES:
+            algorithm = "msd_unstable"
+        engine = _resolve_engine(algorithm, cfg)
+        sp, sw = _call_engine(engine, tuple(planes), tuple(words),
+                              config=cfg, **bits)
+        return finish(tuple(sp)), _dtypes.join_values(sw, spec)
+    stable = stable and algo != "msd_unstable"
 
     def dispatch(tier):
         sp, sw, ovf = _dispatch_tier(tier, planes, words, bits, stable, cfg)
@@ -259,6 +343,7 @@ def sort(
     descending: bool = False,
     begin_bit: int = 0,
     end_bit: Optional[int] = None,
+    algorithm: str = "auto",
     stable: bool = True,
 ):
     """Radix sort of a 1-D tensor of uint32/int32/float32 or
@@ -276,7 +361,10 @@ def sort(
 
     The call runs the host tiering (module docstring): radix, then, on an
     overflow flag, the equi-depth tier (on a card, or with
-    ``skew_tier=True``), then the exact reference sort."""
+    ``skew_tier=True``), then the exact reference sort.  ``algorithm``
+    names a registered engine (:func:`available_engines`); "auto" and the
+    radix engines take the tiering, any other engine runs once, and an
+    unknown name raises ValueError."""
     if not isinstance(keys, torch.Tensor):
         raise TypeError("keys must be a torch.Tensor")
     if keys.dim() != 1:
@@ -289,7 +377,8 @@ def sort(
         stable=stable, descending=descending, device=keys.device,
         finish=lambda sp: _dtypes.twiddle_out(sp, traits,
                                               descending=descending),
-        identity=lambda: (keys.clone(), [v.clone() for v in vt]))
+        identity=lambda: (keys.clone(), [v.clone() for v in vt]),
+        algorithm=algorithm)
     if not had:
         return out
     return out, (sv[0] if single else tuple(sv))
@@ -303,6 +392,7 @@ def sort_planes(
     descending: bool = False,
     begin_bit: int = 0,
     end_bit: Optional[int] = None,
+    algorithm: str = "auto",
     stable: bool = True,
 ):
     """Sort keys given as 32-bit bit-pattern planes (plane 0 the most
@@ -333,7 +423,8 @@ def sort_planes(
         stable=stable, descending=descending, device=planes[0].device,
         finish=finish,
         identity=lambda: (tuple(p.clone().view(torch.uint32) for p in raw),
-                          [v.clone() for v in vt]))
+                          [v.clone() for v in vt]),
+        algorithm=algorithm)
     if not had:
         return out
     return out, (sv[0] if single else tuple(sv))
@@ -345,26 +436,30 @@ def argsort(
     descending: bool = False,
     begin_bit: int = 0,
     end_bit: Optional[int] = None,
+    algorithm: str = "auto",
 ) -> torch.Tensor:
     """Indices (int64) that stably sort ``keys``.
 
     Full-range 32-bit keys sort the composite (twiddled key, index) planes
-    keys-only: the index plane is both the stable tiebreak and the output.
-    Other keys (64-bit, or a ``begin_bit``/``end_bit`` range) take the
-    stable pairs path with the index as payload."""
+    keys-only (with ``algorithm`` "auto", "msd" or "lsd"): the index plane
+    is both the stable tiebreak and the output.  Other keys (64-bit, or a
+    ``begin_bit``/``end_bit`` range) and other engines take the stable
+    pairs path with the index as payload."""
     if not isinstance(keys, torch.Tensor) or keys.dim() != 1:
         raise NotImplementedError("tpusort_torch sorts 1-D tensors")
     n = keys.shape[0]
     idx = torch.arange(n, dtype=torch.int32, device=keys.device)
     traits = _dtypes.traits_for(keys.dtype)
     eb = traits.bits if end_bit is None else end_bit
-    if begin_bit == 0 and eb == traits.bits == 32:
+    if begin_bit == 0 and eb == traits.bits == 32 and \
+            algorithm in ("auto", "msd", "lsd"):
         (tw,), _ = _dtypes.twiddle_in(keys.contiguous(),
                                       descending=descending)
-        _, perm = sort_planes((tw, idx), key_dtype="uint64", stable=False)
+        _, perm = sort_planes((tw, idx), key_dtype="uint64", stable=False,
+                              algorithm=algorithm)
     else:
         _, perm = sort(keys, idx, descending=descending, begin_bit=begin_bit,
-                       end_bit=end_bit)
+                       end_bit=end_bit, algorithm=algorithm)
     return perm.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
 

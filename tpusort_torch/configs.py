@@ -28,7 +28,7 @@ class SortConfig:
     # -> exact) and the engine's overflow route; None = on for CUDA tensors
     skew_tier: Optional[bool] = None
     skew_sample_log2: Optional[int] = None  # splitter sample size (None = auto)
-    default_algorithm: str = "msd" # the only engine this port has
+    default_algorithm: str = "msd" # the engine algorithm="auto" calls
 
     def plan_kwargs(self) -> dict:
         """The ``plan_msd`` keyword arguments this config pins."""

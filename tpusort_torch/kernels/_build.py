@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -59,6 +60,8 @@ _SIGNATURES = {
     "tpusort_prefix_sum": [_P, _P, _P, _LL, _I, _I, _P],
     # in, n, shift, bits, out, stream
     "tpusort_digit_histogram": [_P, _LL, _I, _I, _P, _P],
+    # sends, d, rank, window, out, stream
+    "tpusort_ring_pull": [_PP, _I, _I, _LL, _P, _P],
     # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts, q,
     # mask, T, K, P, sorted_run, stream
     "tpusort_sort_tiles_valid": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _P, _I,
@@ -66,6 +69,9 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+# the global sort's in-process shards are threads: one builds, and the
+# counters are not lost to a thread switch between a read and its write
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -132,15 +138,16 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.tpusort_error_string.argtypes = [ctypes.c_int]
-        lib.tpusort_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    with _LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.tpusort_error_string.argtypes = [ctypes.c_int]
+            lib.tpusort_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 
@@ -150,12 +157,13 @@ def pointers(tensors) -> ctypes.Array:
         *[t.data_ptr() for t in tensors])
 
 
-def count_launch(wrapper, n_planes: int, n_vals: int) -> None:
+def count_launch(wrapper, n_planes: int, n_vals: int, *tag: str) -> None:
     """Count one kernel launch on its Python wrapper: in all
     (``wrapper.launches``) and by mode (``wrapper.modes[(key planes,
-    payload words)]``)."""
-    wrapper.launches += 1
-    wrapper.modes[(n_planes, n_vals)] += 1
+    payload words, *tag)]``; a tag names a variant of the mode)."""
+    with _LOCK:
+        wrapper.launches += 1
+        wrapper.modes[(n_planes, n_vals, *tag)] += 1
 
 
 def check(err: int, what: str) -> None:

@@ -298,7 +298,9 @@ def _partition_pass_cuda(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "partition_pass_fused")
-    _build.count_launch(partition_pass_fused, np_, len(values))
+    # a tile that is one sorted run skips the network: K1 only emits
+    _build.count_launch(partition_pass_fused, np_, len(values),
+                        *(("emit-only",) if sorted_run == K else ()))
     return outs, counts
 
 

@@ -40,6 +40,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tpusort_torch.kernels import _build
 from tpusort_torch.kernels.bitonic import (
     leaf_tile_cap, sort_tiles, sort_tiles_counts, sort_tiles_counts_collapsed,
     sort_tiles_masked)
@@ -52,6 +53,7 @@ from tpusort_torch.kernels.scanhist import (
 from tpusort_torch.ops.reference import (
     _mask_plane_bits, sort_twiddled_reference)
 from tpusort_torch.ops.small import single_tile_ok, sort_twiddled_bitonic
+from tpusort_torch.parallel.ring import ring_all_to_all
 
 # ---------------------------------------------------------------------------
 # Geometry planning (verbatim from tpusort/ops/msd.py)
@@ -292,12 +294,12 @@ def plan_msd(
 # K1c, ``sort_tiles_counts_collapsed.launches``, ``sort_tiles.launches``,
 # ``collapse_segments.launches``, ``prefix_sum_tiles.launches``,
 # ``digit_histogram_tiles.launches``, ``sort_tiles_counts.launches``,
-# ``sort_tiles_masked.launches``, and ``.modes`` by key planes and payload
-# words), which count only where they launch a CUDA kernel; :func:`counters`
-# and :func:`mode_counters` read them.
+# ``sort_tiles_masked.launches``, ``ring_all_to_all.launches``, and
+# ``.modes`` by key planes and payload words), which count only where they
+# launch a CUDA kernel; :func:`counters` and :func:`mode_counters` read them.
 _ROUTES = {"reference_routes": 0, "overflow_fallbacks": 0,
            "radix_tiers": 0, "equidepth_runs": 0, "sample_fallbacks": 0,
-           "identity_routes": 0}
+           "identity_routes": 0, "exchange_fallbacks": 0}
 _KERNELS = {"k1_launches": partition_pass_fused,
             "k1b_launches": _partition_pass_splitter_cuda,
             "k1c_launches": _partition_pass_general_cuda,
@@ -307,45 +309,53 @@ _KERNELS = {"k1_launches": partition_pass_fused,
             "k5_launches": prefix_sum_tiles,
             "k6_launches": digit_histogram_tiles,
             "k9_launches": sort_tiles_counts,
-            "k10_launches": sort_tiles_masked}
+            "k10_launches": sort_tiles_masked,
+            "k7_launches": ring_all_to_all}
 
 
 def count_route(name: str) -> None:
     """Count one route taken (a key of :func:`counters` that is not a
     kernel's launches)."""
-    _ROUTES[name] += 1
+    with _build._LOCK:
+        _ROUTES[name] += 1
 
 
 def counters() -> dict:
     """Since the last :func:`reset_counters`: K1 (raw branch), K1b
     (splitter mode), K1c (general branch), K2, K3, K4, K5 (prefix sum), K6
     (digit histogram), K9 and K10 (the tile sorts by counts and by mask)
-    launches; reference routes (an engine delegating: no plan and no
-    single-tile path, or a shape the equi-depth engine does not take);
-    overflow fallbacks (exact sorts after an overflow flag, in an engine,
-    the segmented route or the API's tier chain); the radix tiers the tier chain dispatched; the
-    equi-depth pipelines run, and the exact sorts their samples took after
-    an overflow; presorted inputs returned as they were."""
+    and K7 (the global sort's window exchange) launches; reference routes
+    (an engine delegating: no plan and no single-tile path, or a shape the
+    equi-depth engine does not take); overflow fallbacks (exact sorts after
+    an overflow flag, in an engine, the segmented route, the API's tier
+    chain or a shard's windows finish); the radix tiers the tier chain
+    dispatched; the equi-depth pipelines run, and the exact sorts their
+    samples took after an overflow; presorted inputs returned as they
+    were; global sorts whose exchange would overflow its capacity, which
+    gather and sort every shard instead (once a call)."""
     return dict({k: fn.launches for k, fn in _KERNELS.items()}, **_ROUTES)
 
 
 def mode_counters() -> dict:
     """Launches since the last :func:`reset_counters` by kernel and mode:
-    {("K1" | "K1b" | "K1c" | "K2" | "K3" | "K4" | "K5" | "K6" | "K9" |
-    "K10", key planes, payload words): launches}.  K1c counts its key
-    planes and value words; K4 compares no keys, so its mode is (0, operand
-    words); K5's is (0, 1) and K6's (1, 0)."""
+    {("K1" | "K1b" | "K1c" | "K2" | "K3" | "K4" | "K5" | "K6" | "K7" | "K9"
+    | "K10", key planes, payload words[, tag]): launches}.  K1c counts its
+    key planes and value words; K4 compares no keys, so its mode is (0,
+    operand words); K5's and K7's are (0, 1) and K6's (1, 0).  K1's
+    emit-only launches (tiles that are one sorted run, the windows
+    finish's pass 0) carry the tag "emit-only"."""
     return {("K" + k[1:k.index("_")], *mode): c
             for k, fn in _KERNELS.items()
             for mode, c in fn.modes.items() if c}
 
 
 def reset_counters() -> None:
-    for fn in _KERNELS.values():
-        fn.launches = 0
-        fn.modes.clear()
-    for key in _ROUTES:
-        _ROUTES[key] = 0
+    with _build._LOCK:
+        for fn in _KERNELS.values():
+            fn.launches = 0
+            fn.modes.clear()
+        for key in _ROUTES:
+            _ROUTES[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -356,22 +366,23 @@ def reset_counters() -> None:
 def run_passes(
     ops: Sequence[torch.Tensor], nplanes: int, n: int, plan: MsdPlan,
     unstable: bool = False, general: bool = False,
-    init_chain: Optional[Tuple[torch.Tensor, int]] = None,
+    init_chain: Optional[Tuple[torch.Tensor, int, Optional[int]]] = None,
 ) -> Tuple[List[torch.Tensor], Tuple[torch.Tensor, int], torch.Tensor]:
     """All partition passes, one K1 (raw) or K1c (``general``) launch each
     (port of ``_run_passes_pallas``).
 
     ``ops``: the (plan.m1,) int32 operands, ``nplanes`` key planes then
     payload words, valid below ``n``.  Validity rides as counts tables:
-    pass 0 takes it from ``n``, or from ``init_chain`` (a flat counts table
-    and its q) where the caller laid the input out otherwise (the strided
-    feed); each pass emits (T, R) counts, which :func:`next_counts_table`
-    turns into the next consumer's table.  Returns (flat runs of the last
-    pass per operand, (counts table, q), overflow as a 0-d bool tensor on
-    the device).
+    pass 0 takes it from ``n``, or from ``init_chain`` = (flat counts
+    table, its q, sorted run) where the caller laid the input out
+    otherwise: the strided feed (sorted run None) or the sorted windows
+    (sorted run K, which makes K1's pass 0 emit-only).  Each pass emits
+    (T, R) counts, which :func:`next_counts_table` turns into the next
+    consumer's table.  Returns (flat runs of the last pass per operand,
+    (counts table, q), overflow as a 0-d bool tensor on the device).
     """
-    ctable, q = init_chain if init_chain is not None else (None, None)
-    prev_s = None
+    ctable, q, prev_run = init_chain if init_chain is not None \
+        else (None, None, None)
     ops = list(ops)
     overflow = torch.zeros((), dtype=torch.bool, device=ops[0].device)
     for spec in plan.passes:
@@ -380,14 +391,13 @@ def run_passes(
         cin = None if ctable is None else ctable.reshape(t, spec.k // q)
         # emitted runs are monotone slices of sorted tiles, so chunks of
         # the previous run size's pow2 part are sorted: K1 only merges
-        sorted_run = None if prev_s is None else (prev_s & -prev_s)
         ops, counts = partition_pass_fused(
             tiled[:nplanes], tiled[nplanes:], cin, q_in=q, r=spec.r,
             s=spec.s, lo_bit=spec.lo_bit, width=spec.width,
-            n=(n if ctable is None else None), sorted_run=sorted_run,
+            n=(n if ctable is None else None), sorted_run=prev_run,
             unstable=unstable, t_seg=spec.t_seg, general=general,
         )
-        prev_s = spec.s
+        prev_run = spec.s & -spec.s
         overflow |= (counts > spec.s).any()
         ctable, q = next_counts_table(counts, spec)
     return ops, (ctable, q), overflow
@@ -611,8 +621,70 @@ def raw_leaf(data: Sequence[torch.Tensor], ctable: torch.Tensor, q: int,
     )
 
 
+def sort_windows_msd(
+    planes: Tuple[torch.Tensor, ...],
+    values: Sequence[torch.Tensor],
+    *,
+    window_counts: torch.Tensor,
+    window: int,
+    n: int,
+    total_bits: int,
+    plan_kwargs: Optional[dict] = None,
+    config=None,
+):
+    """Finish a padded layout of windows that are already sorted (port of
+    ``tpusort.ops.msd.sort_windows_msd``).
+
+    The inputs are flat (m0,) int32 operands, m0 = n_windows * window,
+    ``nplanes`` key planes then payload words; window w holds a sorted
+    valid prefix of ``window_counts[w]`` slots ((n_windows,) integers on
+    the operands' device), then unspecified words.  The window counts seed
+    the validity chain at tile granularity, pass 0 runs K1 with
+    ``sorted_run`` = K, which only emits (the tile is already one sorted
+    run), the later passes merge, and the raw leaf (K2, :func:`raw_leaf`)
+    writes the dense (n,) result.  Keys only or unstable pairs; with
+    payloads the caller checks for valid keys equal to the all-ones
+    sentinel, as on the raw path.  A tile of pass 0 is a slice of one
+    window's sorted run, so a window of more than about one tile of keys
+    crowds a few digits and overflows, as JAX's does.
+
+    Returns ``(ops, overflow)``, ops = [planes..., values...] dense (n,)
+    and the flag a 0-d bool tensor on the device, or ``None`` where the
+    geometry admits no plan (the caller then compacts and sorts).  The
+    leaf packs whole segments as :func:`leaf_tiles` does, so a tile fits
+    K2's shared memory (JAX packs up to 2^15 slots).
+    """
+    nplanes = len(planes)
+    ops = [*planes, *values]
+    m0 = ops[0].shape[0]
+    if plan_kwargs is None and config is not None:
+        plan_kwargs = config.plan_kwargs()
+    kwargs = dict(plan_kwargs or {})
+    kwargs.pop("min_n", None)
+    kwargs.setdefault("leaf_profile", "raw")
+    k = kwargs.get("k", 1 << 16)
+    if nplanes > MAX_PLANES or total_bits != 32 * nplanes:
+        return None
+    if m0 % k or window % k or m0 // window < 1:
+        return None
+    plan = plan_msd(n, 0, total_bits, t1_force=m0 // k, **kwargs)
+    if plan is None or plan.m1 != m0:
+        return None
+    # tile j of window w holds clip(count_w - j*K, 0, K) valid slots as a
+    # prefix (tiles never straddle windows: window % K == 0)
+    tiles_per_w = window // k
+    c0 = (window_counts.to(torch.int32)[:, None]
+          - torch.arange(tiles_per_w, dtype=torch.int32,
+                         device=window_counts.device)[None, :] * k
+          ).clamp(0, k).reshape(-1)
+    data, (ctable, q), overflow = run_passes(
+        ops, nplanes, n, plan, unstable=bool(values), init_chain=(c0, k, k))
+    del ops
+    return raw_leaf(data, ctable, q, plan, nplanes, n), overflow
+
+
 def _reference(planes, values, bits):
-    _ROUTES["reference_routes"] += 1
+    count_route("reference_routes")
     return sort_twiddled_reference(planes, values, **bits)
 
 
@@ -627,6 +699,7 @@ def sort_twiddled_msd(
     stable: bool = True,
     on_overflow: str = "fallback",
     skew_tier: Optional[bool] = None,
+    strided: bool = False,
 ):
     """Ascending sort of twiddled int32 planes (plane 0 most significant)
     by the unsigned value of bits [begin_bit, end_bit), with int32 payload
@@ -659,6 +732,12 @@ def sort_twiddled_msd(
     Keys-only bit-range sorts take K1c, not JAX's route: the Pallas engine
     sends them to its raw-key branch, which sorts each tile by the whole
     key and so loses input order within the range (ROADMAP Queue 3).
+
+    ``strided=True`` (the raw path only; not in JAX) lays pass 0's input
+    out in strided tiles (:func:`strided_feed`), so that each tile mirrors
+    the whole input: for inputs made of long ascending runs, whose
+    contiguous tiles would each fall into a few digits and overflow.  The
+    global sort's finish sorts such inputs (the received runs).
     """
     if on_overflow not in ("fallback", "flag"):
         raise ValueError(f"on_overflow must be 'fallback' or 'flag', got "
@@ -697,11 +776,16 @@ def sort_twiddled_msd(
     # The host reads the overflow flag (JAX's on_overflow="flag" mode), so
     # no fallback workspace is reserved in advance and the JAX engine's
     # 2^29 in-graph cap does not apply.
-    ops = [torch.nn.functional.pad(o, (0, plan.m1 - n))
-           if plan.m1 > n else o for o in (*planes, *values)]
+    init = None
+    if strided and raw:
+        ops, ctable0 = strided_feed([*planes, *values], n, plan)
+        init = (ctable0, 128, None)
+    else:
+        ops = [torch.nn.functional.pad(o, (0, plan.m1 - n))
+               if plan.m1 > n else o for o in (*planes, *values)]
     data, (ctable, q_fin), overflow = run_passes(
         ops, nplanes, n, plan, unstable=raw and bool(values),
-        general=not raw)
+        general=not raw, init_chain=init)
     del ops
     if not raw:
         outs = _leaf_sort(data, nplanes, ctable, q_fin, plan, n)
@@ -730,6 +814,6 @@ def sort_twiddled_msd(
             from tpusort_torch.ops.equidepth import sort_twiddled_equidepth
 
             return sort_twiddled_equidepth(planes, (), config=config, **bits)
-        _ROUTES["overflow_fallbacks"] += 1
+        count_route("overflow_fallbacks")
         return sort_twiddled_reference(planes, values, **bits)
     return tuple(outs[:nplanes]), tuple(outs[nplanes:])

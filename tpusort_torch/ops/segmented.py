@@ -284,7 +284,7 @@ def _sort_on_engine(
         del planes
         data, (ctable, q), overflow = _msd.run_passes(
             ops, nplanes, n, plan, unstable=bool(words),
-            init_chain=(ctable, 128))
+            init_chain=(ctable, 128, None))
         del ops
         outs = _msd.raw_leaf(data, ctable, q, plan, nplanes, n)
     if bool(overflow):

@@ -6,15 +6,17 @@ Run from the repository root:
 
 For each call of the paths the port has (uniform keys through the raw
 and the general path; Zipf, entropy-3 and presorted keys through the
-host tiering; the 2^28 prefix sums and digit histogram; ``sort_batched``
-and ``segmented_sort``), or each whose name contains an argument, it
+host tiering; the 2^28 prefix sums and digit histogram; ``sort_batched``,
+``segmented_sort`` and the global sort over 8 in-process shards), or each
+whose name contains an argument, it
 makes the inputs on the card from a seed, runs the call twice to warm it
 (kernel build, plan cache, tier cache), times five calls with the host
 clock, each ending in a ``torch.cuda.synchronize()`` (the median is
 "wall"), then traces one more with ``torch.profiler`` and prints the
 device time of every kernel and copy, summed by name, the 14 largest
 first, with their sum ("device") and the share of the wall the card was
-idle (1 - device / wall, as the kernels do not overlap on one stream).
+idle (1 - device / wall, as the kernels do not overlap on one stream),
+then the 6 host operations with the most host time of their own.
 The card's name and power limit head the output.  It fails without a CUDA
 card.
 """
@@ -41,6 +43,7 @@ def _calls(dev: torch.device) -> Dict[str, Callable]:
 
     import tpusort_torch
     from tpusort_torch.ops import histogram, scan
+    from tpusort_torch.parallel import InProcessComm, make_global_sort
     from tpusort_torch.utils.datagen import segment_offsets, zipf_keys_torch
 
     gen = torch.Generator(device=dev)
@@ -66,6 +69,11 @@ def _calls(dev: torch.device) -> Dict[str, Callable]:
     normal = torch.randn(SEG_N, device=dev, generator=gen)
     equal = np.arange((1 << 16) + 1, dtype=np.int64) * (SEG_N >> 16)
     ragged = segment_offsets(np.random.default_rng(SEED), SEG_N, 1 << 16)
+    comm = InProcessComm(8, dev)
+    gs_collapse = make_global_sort(comm, finish="collapse")
+    gs_rdma = make_global_sort(comm, finish="windows", exchange="rdma",
+                               capacity_factor=2.0)
+    gs_auto = make_global_sort(comm)
     return {
         "sort uniform u32 2^28": lambda: tpusort_torch.sort(uni),
         "sort_pairs uniform u32 + u32 2^28 (stable)":
@@ -113,6 +121,12 @@ def _calls(dev: torch.device) -> Dict[str, Callable]:
         "segmented_sort stable pairs 2^26, float32 normal variates, 2^16 "
         "ragged segments (the sample gate's exact sort)":
             lambda: tpusort_torch.segmented_sort(normal, ragged, seg_vals),
+        "global_sort u32 2^28, 8 in-process shards, collective + collapse":
+            lambda: gs_collapse(uni),
+        "global_sort u32 2^28, 8 in-process shards, rdma + windows (2.0)":
+            lambda: gs_rdma(uni),
+        "global_sort u32 2^20, 8 in-process shards, auto (windows)":
+            lambda: gs_auto(uni[:1 << 20]),
     }
 
 
@@ -163,6 +177,11 @@ def main(argv) -> None:
               f"idle share {1 - busy / wall:.3f} on {card}", flush=True)
         for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
             print(f"   {ms:9.3f} ms  {k[:110]}", flush=True)
+        host = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)[:6]
+        print("   host: " + "; ".join(
+            f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}"
+            for e in host), flush=True)
 
 
 if __name__ == "__main__":
