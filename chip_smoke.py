@@ -154,6 +154,19 @@ non-zero:
     mode against its plain version (and K3, K5, K6, the one-plane K9
     and K10 and K7 against one PyTorch call, or one and its gathers,
     computing the same function).
+29. the per-phase engine (``utils/profiling.py``): K8
+    (``partition_tiles``) vs its plain version, fed as ``_partition_pass``
+    feeds it, at the 2^28 uint32 plan's pass 0 ((16384, 16384) tiles,
+    R 32, S 768) and pass 1 (S 512, the counts pass 0 gave), with the key
+    as the one data operand and with the key and a value, bit for bit on
+    every valid slot; the phase chain (``run_msd_phases``: K8 x 3, the
+    packed leaf on K3 with the key rebuilt from its word, K4) at 2^28
+    keys and 2^28 pairs (``values = arange``), and at 2^27 uint64 keys
+    (K8 x 3, the wide leaf on K9, K4), each equal to the stable reference
+    with no overflow and exactly those launches; K9 vs plain at that wide
+    leaf's shape; then ``profile_msd_phases(1 << 28)`` and its pairs on
+    the card, their tables printed; it runs after the timings of 17 and
+    times its kernel modes itself.
 
 The line before the last is a JSON summary of the kernels: each template
 mode compared, with its launches in the run of the path that drives it at
@@ -161,9 +174,9 @@ that shape (counters set to 0 just before), or 0 where no path does, its
 time, its plain version's time, its bound (the least time for the words
 it must move at 3.35 TB/s, or its operations at 67 T/s, the larger), the
 time of a PyTorch call computing the same function where there is one
-(K3, K5, K6, one-plane K9 and K10, K7) and a remark or null; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
-and prints no result.
+(K3, K5, K6, one-plane K9 and K10, K7, K8) and a remark or null; the last
+line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -223,13 +236,16 @@ def main() -> None:
     from tpusort_torch import api as tapi
     from tpusort_torch.kernels.partition import (
         partition_pass_fused, partition_pass_fused_plain,
-        partition_pass_general_plain, partition_pass_splitter_plain)
+        partition_pass_general_plain, partition_pass_splitter_plain,
+        partition_tiles, partition_tiles_plain)
     from tpusort_torch.kernels.scanhist import (
         digit_histogram_tiles, digit_histogram_tiles_plain, prefix_sum_tiles,
         prefix_sum_tiles_plain)
     from tpusort_torch.ops import equidepth, histogram, msd, scan
     from tpusort_torch.ops.reference import sort_twiddled_reference
     from tpusort_torch.utils.datagen import segment_offsets, zipf_keys_torch
+    from tpusort_torch.utils.profiling import (
+        msd_phase_inputs, profile_msd_phases, run_msd_phases)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -1450,8 +1466,12 @@ def main() -> None:
                   and modes.get((kid, nk, nv), 0) == 1,
                   f"{mode}: a call of the wrapper is not one {kid} launch: "
                   f"{c} {modes}")
-            notes[mode] = ("no caller above the kernel level: 0 launches on "
-                           "a path (one call of the wrapper is one launch)")
+            notes[mode] = (
+                "no path at this shape: 0 launches (one call of the wrapper "
+                "is one launch); the per-phase engine's wide leaf runs K9 "
+                "(its row below)" if kid == "K9" else
+                "no caller above the kernel level: 0 launches on a path "
+                "(one call of the wrapper is one launch)")
             log(f"phase 23 ok: {mode} == plain, max_abs_err {err}; "
                 f"{nvalid} of {t * k} slots valid")
     del ops, cnts, mask, flipped, valid
@@ -2063,11 +2083,173 @@ def main() -> None:
         print(f"time: global_sort over {gs_d} in-process shards, {name} "
               f"{fmt(t_g)} vs torch.sort of the whole tensor {fmt(t_t)} on "
               f"{card}", flush=True)
+    log("phase 17 ok")
+
+    # ---- phase 29: K8 and the per-phase engine (the profiler's path) -----
+    # after phase 17, whose global sort timings need the memory as the
+    # phases before left it; the kernel times of every phase print below
+    torch.cuda.empty_cache()
+    def k8_vs_plain(name, ops, run_counts, s_prev, spec, nplanes):
+        """K8 kernel vs plain at one pass of the per-phase engine, fed as
+        ``_partition_pass`` feeds it (every operand a data operand);
+        returns (max abs err, kernel times, plain times, words, operations,
+        library times).  The sortkey is unique, so the valid slots compare
+        bit for bit.  The library call sorts the sortkey with torch.sort,
+        gathers its indices at the run positions (computed beforehand from
+        the starts) and gathers each data operand there."""
+        t = spec.n_seg * spec.t_seg
+        tiled = [o.reshape(t, spec.k) for o in ops]
+        sortkey, starts, counts = msd.pass_sortkey(tiled[:nplanes],
+                                                   run_counts, s_prev, spec)
+        k8_ops = [sortkey, *tiled]
+        got = partition_tiles(k8_ops, starts, r=spec.r, s=spec.s)
+        want = partition_tiles_plain(k8_ops, starts, r=spec.r, s=spec.s)
+        cl = counts.clamp(max=spec.s)
+        m = (torch.arange(spec.s, device=dev) < cl[..., None]) \
+            .reshape(t, spec.r * spec.s)
+        err = 0
+        for g, w in zip(got, want):
+            check(same_bits(g[m], w[m]), f"K8 {name}: valid slots differ")
+            err = max(err, max_abs_err(g[m], w[m]))
+        n_valid, n_out = int(m.sum()), int(cl.sum())
+        del got, want, m
+        pos = (starts.long()[:, :, None]
+               + torch.arange(spec.s, device=dev)).clamp(0, spec.k - 1) \
+            .reshape(t, spec.r * spec.s)
+
+        def library():
+            src = torch.gather(torch.sort(sortkey, dim=1).indices, 1, pos)
+            return [torch.gather(o, 1, src) for o in tiled]
+
+        times = time_alt(
+            lambda: partition_tiles(k8_ops, starts, r=spec.r, s=spec.s),
+            lambda: partition_tiles_plain(k8_ops, starts, r=spec.r,
+                                          s=spec.s), library)
+        del pos
+        log(f"K8 {name} == plain at ({t}, {spec.k}), R={spec.r}, "
+            f"S={spec.s}, {len(tiled)} data operand(s); max_abs_err {err}")
+        # the valid sortkey and data words read once, the starts, and the
+        # valid words of each run written once
+        return (err, *times[:2],
+                n_valid * (1 + len(tiled)) + starts.numel()
+                + n_out * len(tiled), n_valid * log2(spec.k), times[2])
+
+    x_ops, x_np, x_plan = msd_phase_inputs(x)
+    check([(p.k, p.s) for p in x_plan.passes]
+          == [(16384, 768), (16384, 512), (16384, 512)]
+          and x_plan.seg == 12288 and not msd.leaf_is_wide(x_plan)
+          and msd.key_from_sortkey(x_plan, 1),
+          f"the per-phase plan at 2^28: {x_plan}")
+    sp0 = x_plan.passes[0]
+    rc0 = msd.initial_run_counts(MAIN_N, x_plan, dev)
+    for name, data in (("keys", []), ("key+value", [vals.view(torch.int32)])):
+        ops0 = [*x_ops, *(torch.nn.functional.pad(v, (0, x_plan.m1 - MAIN_N))
+                          for v in data)]
+        results[f"K8 pass 0 {name}"] = k8_vs_plain(
+            f"pass 0 {name}", ops0, rc0, sp0.k, sp0, x_np)
+        ops1, rc1, ovf = msd._partition_pass(ops0, slice(0, 1), rc0, sp0.k,
+                                             sp0)
+        check(not bool(ovf), f"K8 pass 0 {name}: uniform keys overflowed")
+        del ops0
+        results[f"K8 pass 1 {name}"] = k8_vs_plain(
+            f"pass 1 {name}", ops1, rc1, sp0.s, x_plan.passes[1], x_np)
+        del ops1, rc1
+    del x_ops, rc0
+    log("phase 29 ok: K8 == plain at the 2^28 plan's pass 0 and pass 1, "
+        "keys and key + value")
+
+    for name, pairs in (("keys", False), ("pairs", True)):
+        ops, nplanes, plan_ = msd_phase_inputs(x, pairs)
+        (outs, ovf), c, modes = drive(
+            lambda: run_msd_phases(ops, nplanes, MAIN_N, plan_))
+        del ops
+        print(f"route: per-phase engine 2^28 {name}: {c} {modes}",
+              flush=True)
+        check(not bool(ovf), f"per-phase 2^28 {name}: overflow")
+        check(c == dict(quiet, k8_launches=3, k3_launches=1, k4_launches=1),
+              f"per-phase 2^28 {name}: not K8 x 3, K3, K4: {c}")
+        check(same_bits(outs[0].view(torch.uint32), x_ref),
+              f"per-phase 2^28 {name}: keys differ from the reference")
+        if pairs:
+            _, (order,) = reference_sort(x, (vals.view(torch.int32),))
+            check(same_bits(outs[1], order),
+                  "per-phase 2^28 pairs: values differ from the stable "
+                  "reference")
+            del order
+        for mode in ("pass 0", "pass 1"):
+            launches[f"K8 {mode} {'key+value' if pairs else 'keys'}"] = \
+                modes.get(("K8", 1, 1 + pairs), 0)
+        del outs
+        log(f"phase 29 ok: the per-phase chain at 2^28 {name} == stable "
+            "reference: K8 x 3, K3 (the key rebuilt), K4")
+
+    ops, nplanes, plan64 = msd_phase_inputs(u64)
+    check(msd.leaf_is_wide(plan64) and nplanes == 2,
+          f"the per-phase plan at 2^27 uint64: {plan64}")
+    (outs, ovf), c, modes = drive(
+        lambda: run_msd_phases(ops, nplanes, U64_N, plan64))
+    print(f"route: per-phase engine 2^27 uint64: {c} {modes}", flush=True)
+    check(not bool(ovf) and c == dict(quiet, k8_launches=3, k9_launches=1,
+                                      k4_launches=1),
+          f"per-phase 2^27 uint64: not K8 x 3, K9, K4 without overflow: {c}")
+    check(same_bits(dtypes.twiddle_out(tuple(outs),
+                                       dtypes.traits_for(torch.uint64)),
+                    reference_sort(u64)),
+          "per-phase 2^27 uint64: differs from the reference")
+    del outs
+    # K9 at the wide leaf's shape: the masked planes and the position as
+    # keys, the two key planes riding
+    rc = msd.initial_run_counts(U64_N, plan64, dev)
+    s_prev = plan64.passes[0].k
+    for spec in plan64.passes:
+        ops, rc, _ = msd._partition_pass(ops, slice(0, 2), rc, s_prev, spec)
+        s_prev = spec.s
+    ctable, q = msd.counts_table(rc, s_prev)
+    wide_ops, ct = msd.wide_leaf_operands(ops, 2, ctable, q, plan64)
+    del ops, ctable
+    got = sort_tiles_counts(wide_ops, ct, q, num_keys=3)
+    want = sort_tiles_counts_plain(wide_ops, ct, q, 3)
+    head = torch.arange(plan64.seg, device=dev)[None, :] \
+        < ct.sum(dim=1)[:, None]
+    err = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(same_bits(g, w) if i < 3 else same_bits(g[head], w[head]),
+              f"K9 wide leaf: operand {i} differs from plain")
+        err = max(err, max_abs_err(g, w) if i < 3
+                  else max_abs_err(g[head], w[head]))
+    del got, want
+    w_mode = (f"K9 wide leaf ({plan64.n_segments}, {plan64.seg}) 3 planes "
+              "+ 2 values")
+    tk, tp = time_pair(
+        lambda: sort_tiles_counts(wide_ops, ct, q, num_keys=3),
+        lambda: sort_tiles_counts_plain(wide_ops, ct, q, 3))
+    n_valid = int(ct.sum())
+    results[w_mode] = (err, tk, tp, n_valid * 5 + head.numel() * 3
+                       + n_valid * 2 + ct.numel(),
+                       n_valid * log2(plan64.seg))
+    launches[w_mode] = modes.get(("K9", 3, 2), 0)
+    del wide_ops, ct, head
+    log(f"phase 29 ok: the per-phase chain at 2^27 uint64 == reference (K8 "
+        f"x 3, K9, K4); {w_mode} == plain, max_abs_err {err}")
+
+    for pairs in (False, True):
+        prof = profile_msd_phases(MAIN_N, pairs=pairs)
+        print(prof.table(), flush=True)
+        m = prof.runs[0]
+        check(len(m.arrays.get("partition_ms", [])) == 3
+              and all(m.metrics.get(k, 0) > 0
+                      for k in ("leaf_ms", "collapse_ms", "fused_total_ms"))
+              and m.metrics["overflow"] is False,
+              f"profile_msd_phases(2^28, pairs={pairs}): {m}")
+        print(f"profile: {prof.json_lines()} on {card}", flush=True)
+    del prof
+    log("phase 29 ok: profile_msd_phases at 2^28, keys and pairs; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+
     for name, (err, tk, tp, words, ops, *lib) in results.items():
         extra = f" vs library {fmt(lib[0])}" if lib else ""
         print(f"time: {name} kernel {fmt(tk)} vs plain {fmt(tp)}{extra}, "
               f"bound {bound(words, ops)[0]:.3f} ms on {card}", flush=True)
-    log("phase 17 ok")
 
     where = {
         "K1": ("partition_pass_fused", "tpusort_torch/csrc/partition.cu",
@@ -2096,6 +2278,8 @@ def main() -> None:
                 "tpusort/kernels/bitonic.py:868"),
         "K7": ("ring_all_to_all", "tpusort_torch/csrc/ring.cu",
                "tpusort/parallel/ring.py:89"),
+        "K8": ("partition_tiles", "tpusort_torch/csrc/partition_tiles.cu",
+               "tpusort/kernels/partition.py:605"),
     }
     kernels = []
     for mode, (err, tk, tp, words, ops, *lib) in results.items():

@@ -987,3 +987,101 @@ def test_global_sort_on_card(gen, kw):
                                     if kw.get("exchange") == "rdma" else 0)
         emit = sum(v for m, v in modes.items() if m[-1] == "emit-only")
         assert (emit > 0) == windows, modes
+
+
+def _k8_case(gen, T, K, r, s, n_data, past_k):
+    """K8's inputs as the per-phase engine builds them: digits below r or r
+    (invalid), the unique sortkey digit << log2(K) | slot, the exclusive
+    cumsum of each tile's digit counts as starts; with ``past_k`` random
+    starts in [0, K + S), so runs reach past the tile's end."""
+    digit = torch.randint(0, r + 1, (T, K), device="cuda", generator=gen)
+    sortkey = ((digit << (K.bit_length() - 1))
+               | torch.arange(K, device="cuda")).to(torch.int32)
+    counts = torch.zeros(T, r + 1, dtype=torch.int32, device="cuda") \
+        .scatter_add_(1, digit, torch.ones_like(digit, dtype=torch.int32))
+    counts = counts[:, :r]
+    starts = (torch.cumsum(counts, 1, dtype=torch.int32) - counts) \
+        .contiguous()
+    if past_k:
+        starts = torch.randint(0, K + s, (T, r), dtype=torch.int32,
+                               device="cuda", generator=gen)
+    return [sortkey] + [_rand(gen, T, K) for _ in range(n_data)], starts
+
+
+@pytest.mark.parametrize("T,K,r,s,n_data,past_k", [
+    (3, 128, 1, 128, 1, False), (5, 256, 4, 128, 8, True),
+    (2, 2048, 8, 384, 2, False), (9, 1024, 16, 256, 5, True),
+    (7, 4096, 128, 128, 3, True), (4, 16384, 32, 768, 1, False),
+    (3, 16384, 32, 512, 2, True), (2, 32768, 128, 384, 8, True),
+    (1, 32768, 32, 1536, 2, False),
+])
+def test_partition_tiles(gen, T, K, r, s, n_data, past_k):
+    """K8 against its plain version at odd geometries: the sortkey is
+    unique, so every slot compares, the clamped ones past the tile too;
+    one launch in the mode (1, data operands)."""
+    ops, starts = _k8_case(gen, T, K, r, s, n_data, past_k)
+    tm.reset_counters()
+    got = tp.partition_tiles(ops, starts, r=r, s=s)
+    assert tm.mode_counters() == {("K8", 1, n_data): 1}
+    want = tp.partition_tiles_plain(ops, starts, r=r, s=s)
+    assert len(got) == n_data
+    for g, w in zip(got, want):
+        assert g.shape == (T, r * s) and torch.equal(g, w)
+
+
+def test_partition_tiles_rejects_what_the_kernel_cannot_take(gen):
+    ops, starts = _k8_case(gen, 1, 2048, 8, 256, 9, False)
+    with pytest.raises(ValueError, match="data operand"):
+        tp.partition_tiles(ops, starts, r=8, s=256)
+    big = [_rand(gen, 1, 65536), _rand(gen, 1, 65536)]
+    with pytest.raises(ValueError, match="slots"):
+        tp.partition_tiles(big, starts, r=8, s=256)
+    wide = torch.zeros(1, 129, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="R=129"):
+        tp.partition_tiles(ops[:2], wide, r=129, s=256)
+    with pytest.raises(ValueError, match="geometry"):
+        tp.partition_tiles([o[:, :1536] for o in ops[:2]], starts, r=8,
+                           s=256)
+    assert tm.mode_counters().get(("K8", 1, 1), 0) == 0
+
+
+@pytest.mark.parametrize("dtype,pairs", [(torch.uint32, False),
+                                         (torch.uint32, True),
+                                         (torch.uint64, False)])
+def test_msd_phases_on_card(gen, dtype, pairs):
+    """The per-phase engine at 2^20 keys: K8 once a pass, the packed leaf
+    (K3) or the wide one (K9), K4; the dense result is the stable sort."""
+    from tpusort_torch.utils.profiling import (
+        msd_phase_inputs, run_msd_phases)
+
+    n = 1 << 20
+    words = 2 if dtype == torch.uint64 else 1
+    keys = _rand(gen, n * words).view(dtype)
+    ops, nplanes, plan = msd_phase_inputs(keys, pairs)
+    tm.reset_counters()
+    outs, overflow = run_msd_phases(ops, nplanes, n, plan)
+    torch.cuda.synchronize()
+    c = tm.counters()
+    assert not bool(overflow)
+    leaf = "k9_launches" if tm.leaf_is_wide(plan) else "k3_launches"
+    assert c["k8_launches"] == len(plan.passes) and c[leaf] == 1 \
+        and c["k4_launches"] == 1, c
+    planes, traits = dtypes.twiddle_in(keys)
+    want, (order,) = sort_twiddled_reference(
+        planes, (torch.arange(n, dtype=torch.int32, device="cuda"),),
+        begin_bit=0, end_bit=32 * words, total_bits=32 * words)
+    for g, w in zip(outs[:nplanes], want):
+        assert torch.equal(g, w)
+    if pairs:
+        assert torch.equal(outs[-1], order)
+
+
+def test_profile_msd_phases_on_card(gen):
+    from tpusort_torch.utils.profiling import profile_msd_phases
+
+    m = profile_msd_phases(1 << 20, pairs=True).runs[0]
+    assert m.metrics["device"].startswith("cuda")
+    assert m.metrics["overflow"] is False
+    assert len(m.arrays["partition_ms"]) == m.metrics["passes"]
+    for name in ("leaf_ms", "collapse_ms", "fused_total_ms"):
+        assert m.metrics[name] > 0

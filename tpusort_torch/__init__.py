@@ -15,11 +15,13 @@ and histogram primitives.  ``algorithm=`` names an engine of the registry
 of a communicator: ``parallel.InProcessComm`` (d shards on one device, in
 one process) or ``parallel.ProcessGroupComm`` (a ``torch.distributed``
 group).  On a CUDA tensor the partition passes, the leaves, the collapse,
-the tile sorts, the prefix sum, the digit histogram and the global sort's
-window exchange run as hand-written sm_90a kernels (``tpusort_torch/csrc``),
-built with nvcc at first use; on a CPU tensor they run as their plain
-PyTorch versions.  The JAX package ``tpusort`` is the reference the port is
-tested against; this package never imports jax.
+the tile sorts, the prefix sum, the digit histogram, the global sort's
+window exchange and the tile partition of the per-phase engine (which
+``utils.profiling.profile_msd_phases`` times) run as hand-written sm_90a
+kernels (``tpusort_torch/csrc``), built with nvcc at first use; on a CPU
+tensor they run as their plain PyTorch versions.  The JAX package
+``tpusort`` is the reference the port is tested against; this package
+never imports jax.
 """
 
 from tpusort_torch.api import (

@@ -66,6 +66,8 @@ _SIGNATURES = {
     # mask, T, K, P, sorted_run, stream
     "tpusort_sort_tiles_valid": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _P, _I,
                                  _I, _I, _I, _P],
+    # sortkey, vals_in, vals_out, n_vals, starts, T, K, R, S, stream
+    "tpusort_partition_tiles": [_P, _PP, _PP, _I, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,5 +1,5 @@
 """K1, K1b and K1c: the fused MSD partition pass, raw-key, splitter and
-general branches.
+general branches; K8: the tile partition by a caller's sortkey.
 
 PyTorch port of ``tpusort/kernels/partition.py:partition_pass_fused``:
 
@@ -14,11 +14,17 @@ PyTorch port of ``tpusort/kernels/partition.py:partition_pass_fused``:
   planes and payload words riding in input order; on a CUDA tensor it
   launches ``csrc/partition_general.cu`` (a counting partition, no sort).
 
+K8 (:func:`partition_tiles`, the port of ``partition_tiles``) sorts each
+tile by a sortkey its caller built and cuts the data operands at the
+caller's run starts; on a CUDA tensor it launches
+``csrc/partition_tiles.cu``.
+
 See those files for the designs and what bounds them.  On a CPU tensor
 the wrapper runs the plain PyTorch version of the same contract
 (:func:`partition_pass_fused_plain`, :func:`partition_pass_splitter_plain`,
-:func:`partition_pass_general_plain`), which the tests hold against the
-Pallas kernel and the card holds the CUDA kernels against.
+:func:`partition_pass_general_plain`, :func:`partition_tiles_plain`), which
+the tests hold against the Pallas kernel and the card holds the CUDA
+kernels against.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ MAX_RADIX = 256        # the kernel's shared-memory histogram
 MAX_PLANES = 3         # key planes the kernels compare
 MAX_VALUES = 8         # payload words per launch
 MAX_OPERANDS = 16      # planes + payload words of a K1c or K4 launch
+MAX_RUNS = 128         # K8's runs a tile: the Pallas kernel's one lane row
 SMEM_MAX = 232_448     # dynamic + static shared memory of one CTA (sm_90)
 _K1_STATIC_SMEM = (2 * MAX_RADIX + 1) * 4
 
@@ -553,3 +560,88 @@ def partition_pass_fused(
 
 partition_pass_fused.launches = 0
 partition_pass_fused.modes = collections.Counter()
+
+
+def partition_tiles_plain(ops: Sequence[torch.Tensor], starts: torch.Tensor,
+                          *, r: int, s: int) -> List[torch.Tensor]:
+    """Plain PyTorch K8 (the counterpart of ``_sort_tiles_xla`` +
+    ``_expand_xla``): each (T, K) row's slots ordered by the sortkey
+    ``ops[0]`` as unsigned (ties in slot order), then each data operand
+    gathered at the sorted slots clamp(starts[t, d] + j, 0, K - 1), run d
+    at columns [d * S, (d + 1) * S).  Returns one (T, R*S) int32 tensor per
+    data operand."""
+    T, K = ops[0].shape
+    order = torch.sort(ops[0] ^ INT32_MIN, dim=1, stable=True).indices
+    pos = (starts.to(torch.int64)[:, :, None]
+           + torch.arange(s, device=starts.device)).clamp(0, K - 1)
+    src = torch.gather(order, 1, pos.reshape(T, r * s))
+    return [torch.gather(o, 1, src) for o in ops[1:]]
+
+
+def _partition_tiles_cuda(ops: Sequence[torch.Tensor], starts: torch.Tensor,
+                          *, r: int, s: int) -> List[torch.Tensor]:
+    T, K = ops[0].shape
+    data = ops[1:]
+    if K > MAX_TILE or len(data) > MAX_VALUES:
+        raise ValueError(
+            f"partition_tiles: a tile of {K} slots with {len(data)} data "
+            f"operand(s) exceeds the kernel's limits ({MAX_TILE} slots, "
+            f"{MAX_VALUES} data operands)")
+    dev = ops[0].device
+    outs = [torch.empty(T, r * s, dtype=torch.int32, device=dev)
+            for _ in data]
+    err = _build.library().tpusort_partition_tiles(
+        ops[0].data_ptr(), _build.pointers(data), _build.pointers(outs),
+        len(data), starts.data_ptr(), T, K, r, s,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "partition_tiles")
+    _build.count_launch(partition_tiles, 1, len(data))
+    return outs
+
+
+def partition_tiles(ops: Sequence[torch.Tensor], starts: torch.Tensor, *,
+                    r: int, s: int) -> List[torch.Tensor]:
+    """K8: sort each tile by a sortkey the caller built and emit its data
+    operands as R runs of S slots from the caller's run starts (port of
+    ``tpusort/kernels/partition.py:partition_tiles``).
+
+    ``ops`` = [sortkey, data...], each (T, K) int32 (bit patterns; the
+    sortkey compares as unsigned); ``starts``: (T, R) int32 run starts in
+    the sorted tile.  Returns one (T, R*S) int32 tensor per data operand:
+    out[t, d*S + j] = sorted[t, starts[t, d] + j]; the sortkey is not
+    emitted.  Slots past a run's count are unspecified (they repeat slots
+    of the same tile, never words past it).  The engine's sortkey, (digit
+    or R) << log2(K) | slot, is unique; the order of equal sortkeys is
+    unspecified.  K is a power of two and a multiple of 128, S a multiple
+    of 128, R at most 128, and there are 1 to ``MAX_VALUES`` data
+    operands; on a card K is at most ``MAX_TILE``.  The TPU-only ``batch``
+    and ``interpret`` arguments are gone.
+    """
+    ops = [o.contiguous() for o in ops]
+    if len(ops) < 2 or any(o.dtype != torch.int32 or o.dim() != 2
+                           for o in ops):
+        raise ValueError("partition_tiles takes a sortkey and 1 or more data "
+                         "operands, (T, K) int32 bit-pattern tensors")
+    T, K = ops[0].shape
+    dev = ops[0].device
+    if any(o.shape != ops[0].shape or o.device != dev for o in ops):
+        raise ValueError("every operand must have the same shape and device")
+    if K % 128 or K & (K - 1) or s <= 0 or s % 128:
+        raise ValueError(f"bad tile geometry K={K} S={s}")
+    if not 1 <= r <= MAX_RUNS:
+        raise ValueError(f"R={r} must be in [1, {MAX_RUNS}]")
+    if starts.dtype != torch.int32 or tuple(starts.shape) != (T, r) \
+            or starts.device != dev:
+        raise ValueError(f"starts must be a ({T}, {r}) int32 tensor on the "
+                         "operands' device")
+    starts = starts.contiguous()
+    if dev.type == "cpu":
+        return partition_tiles_plain(ops, starts, r=r, s=s)
+    if dev.type == "cuda":
+        return _partition_tiles_cuda(ops, starts, r=r, s=s)
+    raise ValueError(f"no K8 for device {dev}")
+
+
+partition_tiles.launches = 0
+partition_tiles.modes = collections.Counter()

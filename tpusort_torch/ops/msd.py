@@ -29,6 +29,13 @@ with payloads, and stable pairs of multi-plane keys.
   result;
 * inputs too small for a plan go to the single-tile path (K3,
   ``ops/small.py``) where it applies, and to the reference sort otherwise.
+
+The per-phase engine (``utils/profiling.py``, JAX's per-phase profiler)
+runs the same passes apart: :func:`_partition_pass` computes the digit
+histogram, run starts and a sortkey in plain PyTorch, K8
+(``kernels.partition.partition_tiles``) sorts and cuts each tile, and
+:func:`_exchange` copies the runs into digit-major order; then
+:func:`sort_segments` (the leaf without its collapse) and K4.
 """
 
 from __future__ import annotations
@@ -46,8 +53,9 @@ from tpusort_torch.kernels.bitonic import (
     sort_tiles_masked)
 from tpusort_torch.kernels.collapse import collapse_segments
 from tpusort_torch.kernels.partition import (
-    MAX_PLANES, _partition_pass_general_cuda, _partition_pass_splitter_cuda,
-    partition_pass_fused)
+    MAX_PLANES, _histogram, _partition_pass_general_cuda,
+    _partition_pass_splitter_cuda, extract_bits, partition_pass_fused,
+    partition_tiles)
 from tpusort_torch.kernels.scanhist import (
     digit_histogram_tiles, prefix_sum_tiles)
 from tpusort_torch.ops.reference import (
@@ -294,7 +302,8 @@ def plan_msd(
 # K1c, ``sort_tiles_counts_collapsed.launches``, ``sort_tiles.launches``,
 # ``collapse_segments.launches``, ``prefix_sum_tiles.launches``,
 # ``digit_histogram_tiles.launches``, ``sort_tiles_counts.launches``,
-# ``sort_tiles_masked.launches``, ``ring_all_to_all.launches``, and
+# ``sort_tiles_masked.launches``, ``ring_all_to_all.launches``,
+# ``partition_tiles.launches`` (K8, the per-phase engine's passes), and
 # ``.modes`` by key planes and payload words), which count only where they
 # launch a CUDA kernel; :func:`counters` and :func:`mode_counters` read them.
 _ROUTES = {"reference_routes": 0, "overflow_fallbacks": 0,
@@ -310,7 +319,8 @@ _KERNELS = {"k1_launches": partition_pass_fused,
             "k6_launches": digit_histogram_tiles,
             "k9_launches": sort_tiles_counts,
             "k10_launches": sort_tiles_masked,
-            "k7_launches": ring_all_to_all}
+            "k7_launches": ring_all_to_all,
+            "k8_launches": partition_tiles}
 
 
 def count_route(name: str) -> None:
@@ -323,8 +333,9 @@ def count_route(name: str) -> None:
 def counters() -> dict:
     """Since the last :func:`reset_counters`: K1 (raw branch), K1b
     (splitter mode), K1c (general branch), K2, K3, K4, K5 (prefix sum), K6
-    (digit histogram), K9 and K10 (the tile sorts by counts and by mask)
-    and K7 (the global sort's window exchange) launches; reference routes
+    (digit histogram), K9 and K10 (the tile sorts by counts and by mask),
+    K7 (the global sort's window exchange) and K8 (the per-phase engine's
+    partition passes) launches; reference routes
     (an engine delegating: no plan and no single-tile path, or a shape the
     equi-depth engine does not take); overflow fallbacks (exact sorts after
     an overflow flag, in an engine, the segmented route, the API's tier
@@ -338,12 +349,12 @@ def counters() -> dict:
 
 def mode_counters() -> dict:
     """Launches since the last :func:`reset_counters` by kernel and mode:
-    {("K1" | "K1b" | "K1c" | "K2" | "K3" | "K4" | "K5" | "K6" | "K7" | "K9"
-    | "K10", key planes, payload words[, tag]): launches}.  K1c counts its
-    key planes and value words; K4 compares no keys, so its mode is (0,
-    operand words); K5's and K7's are (0, 1) and K6's (1, 0).  K1's
-    emit-only launches (tiles that are one sorted run, the windows
-    finish's pass 0) carry the tag "emit-only"."""
+    {("K1" | "K1b" | "K1c" | "K2" | "K3" | "K4" | "K5" | "K6" | "K7" | "K8"
+    | "K9" | "K10", key planes, payload words[, tag]): launches}.  K1c
+    counts its key planes and value words; K4 compares no keys, so its mode
+    is (0, operand words); K5's and K7's are (0, 1), K6's (1, 0) and K8's
+    (1, data operands).  K1's emit-only launches (tiles that are one sorted
+    run, the windows finish's pass 0) carry the tag "emit-only"."""
     return {("K" + k[1:k.index("_")], *mode): c
             for k, fn in _KERNELS.items()
             for mode, c in fn.modes.items() if c}
@@ -453,20 +464,31 @@ def strided_feed(operands: Sequence[torch.Tensor], n: int, plan: MsdPlan
     return ops, ctable
 
 
+def exchanged_counts(counts: torch.Tensor, spec: PassSpec) -> torch.Tensor:
+    """A pass's (T, R) counts clipped to S, flat in the digit-major order
+    of its exchanged runs: the valid prefix of each run of S slots."""
+    return counts.clamp(max=spec.s).reshape(
+        spec.n_seg, spec.t_seg, spec.r).transpose(1, 2).reshape(-1)
+
+
+def counts_table(run_counts: torch.Tensor, s: int) -> Tuple[torch.Tensor, int]:
+    """The validity table of runs of ``s`` slots with ``run_counts`` (flat,
+    at most ``s``) valid slots each: every run split into chunks of q =
+    s & -s slots (the largest power of two dividing S, so each chunk of a
+    pass's run is an ascending subrun).  Returns (flat table, q)."""
+    q = s & -s
+    c = (run_counts[:, None] - torch.arange(s // q, dtype=torch.int32,
+                                            device=run_counts.device) * q)
+    return c.clamp(0, q).reshape(-1), q
+
+
 def next_counts_table(
     counts: torch.Tensor, spec: PassSpec
 ) -> Tuple[torch.Tensor, int]:
-    """The validity table a pass's (T, R) counts give its consumer:
-    clipped to S, exchanged to digit-major order, and split into chunks of
-    q = s & -s slots (the largest power of two dividing S, so each chunk
-    is an ascending subrun).  Returns (flat table, q)."""
-    q = spec.s & -spec.s
-    chunks = spec.s // q
-    c = counts.clamp(max=spec.s).reshape(
-        spec.n_seg, spec.t_seg, spec.r).transpose(1, 2)
-    c = (c[..., None] - torch.arange(chunks, dtype=torch.int32,
-                                     device=counts.device) * q).clamp(0, q)
-    return c.reshape(-1), q
+    """The validity table a pass's (T, R) counts give its consumer
+    (:func:`counts_table` of the :func:`exchanged_counts`).  Returns (flat
+    table, q)."""
+    return counts_table(exchanged_counts(counts, spec), spec.s)
 
 
 def leaf_tiles(plan: MsdPlan, nplanes: int = 1,
@@ -570,6 +592,58 @@ def wide_leaf_operands(
     return [*masked, pos, *tiled], ctable.reshape(nseg, seg // q)
 
 
+def key_from_sortkey(plan: MsdPlan, nplanes: int) -> bool:
+    """Whether the packed leaf can rebuild the key plane from its sorted
+    word instead of carrying it (JAX's ``key_from_sortkey``): one plane,
+    whose passes, each at its full digit width, and remainder cover all 32
+    bits, so that a final segment's index is the key's prefix."""
+    return (nplanes == 1 and plan.rem_lo == 0
+            and sum(sp.width for sp in plan.passes) + plan.rem_width == 32
+            and all(sp.width == sp.r.bit_length() - 1 for sp in plan.passes))
+
+
+def sort_segments(
+    ops: List[torch.Tensor], nplanes: int, ctable: torch.Tensor, q: int,
+    plan: MsdPlan,
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Sort each final segment stably by its remaining key bits: the leaf
+    without the collapse (port of ``tpusort/ops/msd.py:_leaf_sort``).
+    ``ops``: the last pass's flat runs, ``nplanes`` key planes then payload
+    words, valid where the counts table (``ctable``, ``q``) says; the list
+    is emptied.  Returns ((nseg, seg) int32 tensors, one per operand, each
+    segment's valid slots sorted at its head and unspecified words behind
+    them; the (nseg,) int32 valid counts).
+
+    Where the word fits (:func:`leaf_is_wide` false), K3 sorts the
+    :func:`packed_leaf_rows`; when :func:`key_from_sortkey` holds the key
+    plane does not ride, and is rebuilt from the sorted word as the
+    segment index above its remainder bits.  Otherwise K9 sorts each
+    segment by the range-masked planes and the position
+    (:func:`wide_leaf_operands`; JAX sorts them with ``lax.sort``, outside
+    any kernel).
+    """
+    nseg, seg = plan.n_segments, plan.seg
+    if leaf_is_wide(plan):
+        operands, ct = wide_leaf_operands(ops, nplanes, ctable, q, plan)
+        out = sort_tiles_counts(operands, ct, q, num_keys=nplanes + 1)
+        return out[nplanes + 1:], ct.sum(dim=1, dtype=torch.int32)
+    rows, seg_counts = packed_leaf_rows(ops, nplanes, ctable, q, plan)
+    rebuild = key_from_sortkey(plan, nplanes)
+    if rebuild:
+        del rows[1]                      # the key plane, rebuilt below
+    out = [o.reshape(nseg, seg) for o in sort_tiles(rows)]
+    del rows
+    if not rebuild:
+        return out[1:], seg_counts
+    # the word's remainder field; its segment id and the arithmetic
+    # shift's sign bits are masked off
+    rem = (out[0] >> _idx_bits(seg)) & ((1 << plan.rem_width) - 1)
+    prefix = torch.arange(nseg, dtype=torch.int64,
+                          device=rem.device) << plan.rem_width
+    prefix = (prefix - ((prefix >> 31) << 32)).to(torch.int32)
+    return [rem | prefix[:, None], *out[1:]], seg_counts
+
+
 def _leaf_sort(
     ops: List[torch.Tensor], nplanes: int, ctable: torch.Tensor, q: int,
     plan: MsdPlan, n: int,
@@ -584,26 +658,19 @@ def _leaf_sort(
 
     Within a segment the valid slots hold input order (K1c is stable), so
     the segment-local position breaks ties in input order.  Where
-    (remainder, position) fits one word with a bit to spare, K3 sorts the
-    :func:`packed_leaf_rows` and K4 collapses them.  Otherwise (the wide
-    remainder) K2 sorts each segment by the range-masked planes plus the
-    position (:func:`wide_leaf_operands`), which is unique, and writes the
-    dense output itself.  JAX's leaf can rebuild a single full-range key
-    plane from the packed word (``key_from_sortkey``); such a call takes
-    the raw or composite path here and never reaches this leaf, so the
-    rebuild is not ported.
+    (remainder, position) fits one word with a bit to spare,
+    :func:`sort_segments` sorts the packed rows on K3 and K4 collapses
+    them.  Otherwise (the wide remainder) K2 sorts each segment by the
+    range-masked planes plus the position (:func:`wide_leaf_operands`),
+    which is unique, and writes the dense output itself.
     """
     if leaf_is_wide(plan):
         operands, ct = wide_leaf_operands(ops, nplanes, ctable, q, plan)
         outs = sort_tiles_counts_collapsed(operands, ct, q, n,
                                            num_keys=nplanes + 1)
         return outs[nplanes + 1:]
-    rows, seg_counts = packed_leaf_rows(ops, nplanes, ctable, q, plan)
-    out = sort_tiles(rows)
-    del rows
-    return collapse_segments(
-        [o.reshape(plan.n_segments, plan.seg) for o in out[1:]], seg_counts,
-        n)
+    return collapse_segments(*sort_segments(ops, nplanes, ctable, q, plan),
+                             n)
 
 
 def raw_leaf(data: Sequence[torch.Tensor], ctable: torch.Tensor, q: int,
@@ -619,6 +686,88 @@ def raw_leaf(data: Sequence[torch.Tensor], ctable: torch.Tensor, q: int,
         ctable.reshape(nt, tile // q), q, n,
         sorted_run=(last_s & -last_s), num_keys=nplanes,
     )
+
+
+# ---------------------------------------------------------------------------
+# The per-phase engine: partition passes with the histogram, starts and
+# sortkey in plain PyTorch and K8 between them (``utils/profiling.py``)
+# ---------------------------------------------------------------------------
+
+
+def _valid_mask(run_counts: torch.Tensor, s_prev: int, t: int,
+                k: int) -> torch.Tensor:
+    """(T, K) bool validity from the previous pass's run counts (port of
+    ``_valid_mask``): the element at flat position p is valid iff
+    p mod S_prev < run_counts[p div S_prev]."""
+    pos = torch.arange(s_prev, dtype=torch.int32, device=run_counts.device)
+    return (pos[None, :] < run_counts.reshape(-1, 1)).reshape(t, k)
+
+
+def initial_run_counts(n: int, plan: MsdPlan,
+                       device=None) -> torch.Tensor:
+    """Pass 0's run counts for n keys padded to plan.m1: one run a tile
+    of K slots, the first n slots valid ((m1 // K,) int32)."""
+    k0 = plan.passes[0].k
+    return (n - torch.arange(plan.m1 // k0, device=device) * k0) \
+        .clamp(0, k0).to(torch.int32)
+
+
+def pass_sortkey(
+    planes: Sequence[torch.Tensor], run_counts: torch.Tensor, s_prev: int,
+    spec: PassSpec,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8's inputs for one pass over the (T, K) tiles of the key planes
+    (the plain PyTorch part of JAX's ``_partition_pass``): validity from
+    the previous pass's run counts, each tile's (T, R) int32 digit counts
+    and their exclusive cumsum (the run starts), and the (T, K) int32
+    sortkey (digit, or R where invalid) << log2(K) | slot.  Returns
+    (sortkey, starts, counts)."""
+    t, k, r = spec.n_seg * spec.t_seg, spec.k, spec.r
+    if (r + 1) * k > 1 << 32:
+        raise ValueError("sortkey overflow: (r+1) * K must fit in 32 bits")
+    valid = _valid_mask(run_counts, s_prev, t, k)
+    digit = torch.where(valid, extract_bits(planes, spec.lo_bit, spec.width),
+                        r)
+    del valid
+    # JAX sums a one-hot (T, K, R) array; R + 1 bins, R for the invalid
+    # slots, give the same counts without it (8.6 G elements at 2^28)
+    counts = _histogram(digit, r + 1)[:, :r].contiguous()
+    starts = torch.cumsum(counts, dim=1, dtype=torch.int32) - counts
+    key = (digit << (k.bit_length() - 1)) | torch.arange(k,
+                                                         device=digit.device)
+    del digit
+    return (key - ((key >> 31) << 32)).to(torch.int32), starts, counts
+
+
+def _exchange(o: torch.Tensor, spec: PassSpec) -> torch.Tensor:
+    """Digit-major exchange within each segment: the (T, R*S) tile-major
+    runs, flat, run d of tile (seg, j) at [seg, d, j].  A copy here (free
+    in XLA's fused pass)."""
+    return o.reshape(spec.n_seg, spec.t_seg, spec.r, spec.s) \
+        .transpose(1, 2).reshape(-1)
+
+
+def _partition_pass(
+    ops: List[torch.Tensor], planes_slice: slice, run_counts: torch.Tensor,
+    s_prev: int, spec: PassSpec,
+) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """One MSD partition pass over flat int32 operands, [plane0, plane1?,
+    values...], valid where the previous pass's ``run_counts`` (runs of
+    ``s_prev`` slots; pass 0: of K slots, from n) say (port of
+    ``tpusort/ops/msd.py:_partition_pass``): :func:`pass_sortkey`, then K8
+    (``partition_tiles``: the kernel on a card, its plain version on the
+    CPU; JAX's ``use_pallas``), then :func:`_exchange`.  Returns (the
+    exchanged runs of every operand, flat; their (n_seg*R*t_seg,) int32
+    counts clipped to S; a 0-d bool overflow flag on the device)."""
+    t = spec.n_seg * spec.t_seg
+    tiled = [o.reshape(t, spec.k) for o in ops]
+    sortkey, starts, counts = pass_sortkey(tiled[planes_slice], run_counts,
+                                           s_prev, spec)
+    overflow = (counts > spec.s).any()
+    out = partition_tiles([sortkey, *tiled], starts, r=spec.r, s=spec.s)
+    del sortkey, tiled
+    return ([_exchange(o, spec) for o in out], exchanged_counts(counts, spec),
+            overflow)
 
 
 def sort_windows_msd(
