@@ -151,9 +151,11 @@ non-zero:
     the gathers (a gated batch also with the gate off: the engine, its
     overflow, then the exact sort), each global sort case of phase 28
     against ``torch.sort`` of the whole tensor, and each kernel
-    mode against its plain version (and K3, K5, K6, the one-plane K9
-    and K10 and K7 against one PyTorch call, or one and its gathers,
-    computing the same function).
+    mode against its plain version (and K3, K5, K6, K9, K10, K7 and K4
+    against one PyTorch call, or one and its gathers, computing the same
+    function: for K9 and K10 with two planes and K9's wide leaf a stable
+    ``torch.sort(dim=1)`` of the planes' int64 composite, for K4 boolean
+    mask indexing).
 29. the per-phase engine (``utils/profiling.py``): K8
     (``partition_tiles``) vs its plain version, fed as ``_partition_pass``
     feeds it, at the 2^28 uint32 plan's pass 0 ((16384, 16384) tiles,
@@ -166,7 +168,17 @@ non-zero:
     with no overflow and exactly those launches; K9 vs plain at that wide
     leaf's shape; then ``profile_msd_phases(1 << 28)`` and its pairs on
     the card, their tables printed; it runs after the timings of 17 and
-    times its kernel modes itself.
+    times its kernel modes itself;
+30. K3, K9 and K10 at the edge shapes of their geometry
+    (``kernels/bitonic.py:tile_sort_geometry``): the ``-Xptxas -v`` lines
+    of every instance in ``sort_tiles.cu`` (23; none may spill); K3 vs
+    plain bit for bit at every P from 128 to 32768, K = P and P - 128,
+    keys of 16 distinct words with a block of 0xFFFFFFFF, 0, 1 and 8
+    payloads (index ties make it stable, so the payloads compare too), one
+    row and enough rows to fill every SM, operands 4 bytes off a 16-byte
+    boundary; K9 and K10 with 1-3 planes at every P the shared memory
+    takes, every ``sorted_run`` from 128 to K, the key planes over the
+    tile and the payloads over the valid prefix.
 
 The line before the last is a JSON summary of the kernels: each template
 mode compared, with its launches in the run of the path that drives it at
@@ -174,7 +186,7 @@ that shape (counters set to 0 just before), or 0 where no path does, its
 time, its plain version's time, its bound (the least time for the words
 it must move at 3.35 TB/s, or its operations at 67 T/s, the larger), the
 time of a PyTorch call computing the same function where there is one
-(K3, K5, K6, one-plane K9 and K10, K7, K8) and a remark or null; the last
+(K3, K5, K6, K9 and K10, K7, K8, K4 and K4c) and a remark or null; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -182,6 +194,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -242,7 +255,8 @@ def main() -> None:
         digit_histogram_tiles, digit_histogram_tiles_plain, prefix_sum_tiles,
         prefix_sum_tiles_plain)
     from tpusort_torch.ops import equidepth, histogram, msd, scan
-    from tpusort_torch.ops.reference import sort_twiddled_reference
+    from tpusort_torch.kernels.partition import SMEM_MAX, tile_smem_bytes
+    from tpusort_torch.ops.reference import sort_rows_lex, sort_twiddled_reference
     from tpusort_torch.utils.datagen import segment_offsets, zipf_keys_torch
     from tpusort_torch.utils.profiling import (
         msd_phase_inputs, profile_msd_phases, run_msd_phases)
@@ -292,6 +306,13 @@ def main() -> None:
     def time_pair(kernel_fn, plain_fn):
         return time_alt(kernel_fn, plain_fn)
 
+    def k4_library(segs, seg_counts):
+        """K4's PyTorch call: each operand's valid row prefixes by boolean
+        mask indexing, ``x[arange(seg) < counts[:, None]]``."""
+        keep = torch.arange(segs[0].shape[1], device=dev)[None, :] \
+            < seg_counts[:, None]
+        return [o[keep] for o in segs]
+
     def bound(words: int, ops: int = 0):
         """(ms, "bytes" | "operations"): the least time of ``words`` 32-bit
         words moved at the H100's 3.35 TB/s, or of ``ops`` 32-bit integer
@@ -301,6 +322,14 @@ def main() -> None:
 
     def log2(k: int) -> int:
         return (k - 1).bit_length()
+
+    INT64_MAX = (1 << 63) - 1
+
+    def composite64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+        """Two unsigned 32-bit planes as one int64 whose signed order is
+        their lexicographic unsigned order (the sign bit flipped)."""
+        return ((hi.long() & 0xFFFFFFFF) << 32 | (lo.long() & 0xFFFFFFFF)) \
+            ^ (-(1 << 63))
 
     def fmt(ts) -> str:
         """Median ms of the samples, with their range."""
@@ -488,8 +517,9 @@ def main() -> None:
             check(same_bits(k, p), f"K4 {name}: dense outputs differ")
             err4 = max(err4, max_abs_err(k, p))
         del p_dense
-        t4 = time_pair(lambda: collapse_segments(segs, seg_counts, n),
-                       lambda: collapse_segments_plain(segs, seg_counts, n))
+        t4 = time_alt(lambda: collapse_segments(segs, seg_counts, n),
+                      lambda: collapse_segments_plain(segs, seg_counts, n),
+                      lambda: k4_library(segs, seg_counts))
         w4 = 2 * n * len(segs) + nseg
         del segs
         log(f"K4 {name} == plain at ({nseg}, {seg}) with {len(k_dense)} "
@@ -502,7 +532,7 @@ def main() -> None:
               and all(same_bits(a, b) for a, b in zip(k_dense[1:], wv)),
               f"{name}: the packed leaf's output is not the stable sort")
         return (err3, *t3[:2], w3, o3, t3[2]), \
-            (err4, *t4, w4, 0)
+            (err4, *t4[:2], w4, 0, t4[2])
 
     def wide_leaf_vs_plain(name, planes, values, plan, n):
         """K2 on the wide leaf's operands (range-masked planes + position
@@ -999,11 +1029,12 @@ def main() -> None:
     p_dense = collapse_segments_plain(segs, seg_counts, n_out)
     check(all(same_bits(k, p) for k, p in zip(k_dense, p_dense)),
           "K4 at (64, 2^21): dense outputs differ")
+    t4c = time_alt(lambda: collapse_segments(segs, seg_counts, n_out),
+                   lambda: collapse_segments_plain(segs, seg_counts, n_out),
+                   lambda: k4_library(segs, seg_counts))
     results["K4c (64, 2^21) 2 operands"] = (
         max(max_abs_err(k, p) for k, p in zip(k_dense, p_dense)),
-        *time_pair(lambda: collapse_segments(segs, seg_counts, n_out),
-                   lambda: collapse_segments_plain(segs, seg_counts, n_out)),
-        2 * 2 * n_out + 64, 0)
+        *t4c[:2], 2 * 2 * n_out + 64, 0, t4c[2])
     del segs, k_dense, p_dense
     log("phase 14 ok: K3 on the packed rows and K4 after it equal their "
         "plain versions, and their output is the stable sort; K4 equals "
@@ -1421,6 +1452,7 @@ def main() -> None:
                              device=dev, generator=gen)
         mask = torch.rand(t, k, device=dev, generator=gen) < 0.7
         flipped = ops[0] ^ dtypes.INT32_MIN
+        comp = composite64(ops[0], ops[1]) if nk == 2 else None
         for kid, kernel, plain, valid in (
                 ("K9", lambda: sort_tiles_counts(ops, cnts, q_, num_keys=nk),
                  lambda: sort_tiles_counts_plain(ops, cnts, q_, nk),
@@ -1452,7 +1484,12 @@ def main() -> None:
                     order = torch.sort(torch.where(valid, flipped, top),
                                        dim=1).indices
                     return [torch.gather(o, 1, order) for o in ops[1:]]
-                fns.append(library)
+            else:                # a stable sort of the int64 composite
+                def library(valid=valid):
+                    order = torch.sort(torch.where(valid, comp, INT64_MAX),
+                                       dim=1, stable=True).indices
+                    return [torch.gather(o, 1, order) for o in ops[1:]]
+            fns.append(library)
             tk, tp, *tl = time_alt(*fns)
             # the words this run's data needs: invalid slots are never
             # read and the payloads behind the valid prefix never written
@@ -1474,7 +1511,7 @@ def main() -> None:
                 "(one call of the wrapper is one launch)")
             log(f"phase 23 ok: {mode} == plain, max_abs_err {err}; "
                 f"{nvalid} of {t * k} slots valid")
-    del ops, cnts, mask, flipped, valid
+    del ops, cnts, mask, flipped, valid, comp
 
     # ---- phase 24: sort_batched -------------------------------------------
     def batched(name, keys, values, k3_mode, **kw):
@@ -1931,12 +1968,13 @@ def main() -> None:
     p_dense = collapse_segments_plain(col_segs, col_counts, gs_shard)
     check(same_bits(k_dense[0], p_dense[0]),
           f"K4 at ({gs_d}, {col_cap}): differs from plain")
+    t4c = time_alt(
+        lambda: collapse_segments(col_segs, col_counts, gs_shard),
+        lambda: collapse_segments_plain(col_segs, col_counts, gs_shard),
+        lambda: k4_library(col_segs, col_counts))
     results[f"K4c ({gs_d}, {col_cap}) 1 operand"] = (
-        max_abs_err(k_dense[0], p_dense[0]),
-        *time_pair(lambda: collapse_segments(col_segs, col_counts, gs_shard),
-                   lambda: collapse_segments_plain(col_segs, col_counts,
-                                                   gs_shard)),
-        2 * gs_shard + gs_d, 0)
+        max_abs_err(k_dense[0], p_dense[0]), *t4c[:2], 2 * gs_shard + gs_d,
+        0, t4c[2])
     del col_segs, k_dense, p_dense
     log(f"phase 28 ok: K4 == plain at the collapse finish's ({gs_d}, "
         f"{col_cap})")
@@ -2220,13 +2258,25 @@ def main() -> None:
     del got, want
     w_mode = (f"K9 wide leaf ({plan64.n_segments}, {plan64.seg}) 3 planes "
               "+ 2 values")
-    tk, tp = time_pair(
+    # the library call: the third plane is the slot position, so the order
+    # is the stable order of the two masked planes' int64 composite
+    w_valid = (torch.arange(plan64.seg, device=dev) % q)[None, :] \
+        < ct.repeat_interleave(q, dim=1)
+    w_comp = composite64(wide_ops[0], wide_ops[1])
+
+    def wide_library():
+        order = torch.sort(torch.where(w_valid, w_comp, INT64_MAX), dim=1,
+                           stable=True).indices
+        return [torch.gather(o, 1, order) for o in wide_ops[2:]]
+
+    tk, tp, tl = time_alt(
         lambda: sort_tiles_counts(wide_ops, ct, q, num_keys=3),
-        lambda: sort_tiles_counts_plain(wide_ops, ct, q, 3))
+        lambda: sort_tiles_counts_plain(wide_ops, ct, q, 3), wide_library)
     n_valid = int(ct.sum())
     results[w_mode] = (err, tk, tp, n_valid * 5 + head.numel() * 3
                        + n_valid * 2 + ct.numel(),
-                       n_valid * log2(plan64.seg))
+                       n_valid * log2(plan64.seg), tl)
+    del w_valid, w_comp
     launches[w_mode] = modes.get(("K9", 3, 2), 0)
     del wide_ops, ct, head
     log(f"phase 29 ok: the per-phase chain at 2^27 uint64 == reference (K8 "
@@ -2245,6 +2295,135 @@ def main() -> None:
     del prof
     log("phase 29 ok: profile_msd_phases at 2^28, keys and pairs; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+
+    # ---- phase 30: K3, K9 and K10 vs plain at the edge shapes -----------
+    torch.cuda.empty_cache()
+    instances, fn_name = {}, None
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn_name = line.split("'")[1]
+        elif fn_name and ("sort_tiles_kernel" in fn_name
+                          or "sort_tiles_valid_kernel" in fn_name) \
+                and ("spill" in line or "registers" in line):
+            print(f"  ptxas sort_tiles.cu {fn_name}: {line.strip()}",
+                  flush=True)
+            if "spill" in line:
+                instances[fn_name] = [int(w) for w in re.findall(
+                    r"(\d+) bytes spill", line)]
+    # every (planes, payloads, slots a thread) whose slots fit 32 registers
+    # (csrc/reg_sort.cuh: fits_registers): K3 has one plane, K9/K10 1-3
+    n_inst = sum(e * (nk + idx) <= 32 for e in (4, 8, 16, 32)
+                 for idx in (0, 1) for nk in (1, 1, 2, 3))
+    check(len(instances) == n_inst,
+          f"sort_tiles.cu: {len(instances)} kernel instances in the "
+          f"build log, expected {n_inst}")
+    check(not any(sum(v) for v in instances.values()),
+          "sort_tiles.cu: an instance spills: "
+          f"{[k for k, v in instances.items() if sum(v)]}")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def rows_to_fill(p_: int) -> int:
+        """Rows enough to give every SM 16 CTAs of 128-slot rows, or two
+        of 32,768 (2^16 slots an SM, 2^23 words an operand)."""
+        return n_sm * max(2, (1 << 16) // p_)
+
+    def edge_keys(t, k):
+        """16 distinct words over the range and a block of 0xFFFFFFFF."""
+        x = torch.randint(0, 16, (t, k), device=dev, generator=gen) \
+            .to(torch.int32) * 0x10EF0F01
+        x[:, k // 4: k // 4 + max(k // 8, 1)] = -1
+        return x
+
+    def off16(x: torch.Tensor) -> torch.Tensor:
+        """The same words in a view that starts 4 bytes past a 16-byte
+        boundary (what the vector path must not take)."""
+        buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=dev)
+        v = buf[1:1 + x.numel()].view(x.shape)
+        v.copy_(x)
+        return v
+
+    n_edge = 0
+    for lp in range(7, 16):
+        p_ = 1 << lp
+        for k in (p_, p_ - 128):
+            if k == 0:
+                continue
+            for nv in (0, 1, 8):
+                for t, shift in ((1, False), (rows_to_fill(p_), True)):
+                    ops = [edge_keys(t, k)] + \
+                        [random_i32(t * k).reshape(t, k) for _ in range(nv)]
+                    if shift:
+                        ops = [off16(o) for o in ops]
+                        check(ops[0].data_ptr() % 16 == 4,
+                              "phase 30: the shifted view is aligned")
+                    got, want = sort_tiles(ops), sort_tiles_plain(ops)
+                    check(all(same_bits(g, w) for g, w in zip(got, want)),
+                          f"phase 30: K3 ({t}, {k}) + {nv} values "
+                          f"(shifted {shift}) differs from plain")
+                    n_edge += 1
+                    del ops, got, want
+    log(f"phase 30 ok: K3 == plain bit for bit (payloads too: index ties "
+        f"make it stable) at every P from 128 to 32768, K = P and P - 128, "
+        f"0, 1 and 8 payloads, T = 1 and enough rows to fill the "
+        f"{n_sm} SMs (off 16 bytes): {n_edge} calls")
+    n_edge = 0
+    for nk in (1, 2, 3):
+        for lp in range(7, 16):
+            p_ = 1 << lp
+            for k in (p_, p_ - 128):
+                if k == 0:
+                    continue
+                runs = [0] + [1 << r for r in range(7, lp + 1)
+                              if k % (1 << r) == 0 and (p_ - k) % (1 << r) == 0]
+                for i, run in enumerate(runs):
+                    nv = (0, 1, 8)[i % 3]
+                    if tile_smem_bytes(p_, nk, nv > 0) > SMEM_MAX:
+                        continue
+                    t, shift = ((1, False), (rows_to_fill(p_), True))[i % 2]
+                    q_ = run or 128
+                    planes = [edge_keys(t, k) for _ in range(nk)]
+                    vals_ = [random_i32(t * k).reshape(t, k)
+                             for _ in range(nv)]
+                    cnts = torch.randint(0, q_ + 1, (t, k // q_),
+                                         dtype=torch.int32, device=dev,
+                                         generator=gen)
+                    valid = (torch.arange(k, device=dev) % q_)[None, :] \
+                        < cnts.repeat_interleave(q_, dim=1)
+                    if run:      # each run's valid prefix sorted
+                        sp, sv = sort_rows_lex(
+                            [torch.where(valid, pl, -1).reshape(-1, q_)
+                             for pl in planes],
+                            [v.reshape(-1, q_) for v in vals_])
+                        planes = [torch.where(valid, a.reshape(t, k), pl)
+                                  for a, pl in zip(sp, planes)]
+                        vals_ = [a.reshape(t, k) for a in sv]
+                    ops = planes + vals_
+                    if shift:
+                        ops = [off16(o) for o in ops]
+                    mask = torch.rand(t, k, device=dev, generator=gen) < 0.6
+                    for kid, got, want, vmask in (
+                            ("K9", sort_tiles_counts(ops, cnts, q_,
+                                                     sorted_run=run,
+                                                     num_keys=nk),
+                             sort_tiles_counts_plain(ops, cnts, q_, nk),
+                             valid),
+                            ("K10", sort_tiles_masked(ops, mask, num_keys=nk),
+                             sort_tiles_masked_plain(ops, mask, nk), mask)):
+                        head = torch.arange(k, device=dev)[None, :] \
+                            < vmask.sum(dim=1)[:, None]
+                        check(all(same_bits(g, w) for g, w in
+                                  zip(got[:nk], want[:nk]))
+                              and all(same_bits(g[head], w[head]) for g, w
+                                      in zip(got[nk:], want[nk:])),
+                              f"phase 30: {kid} ({t}, {k}) {nk} planes + "
+                              f"{nv} values, sorted_run {run} (shifted "
+                              f"{shift}) differs from plain")
+                        n_edge += 1
+                    del ops, planes, vals_, cnts, valid, mask, got, want
+    log(f"phase 30 ok: K9 and K10 == plain (key planes over the tile, "
+        f"payloads over the valid prefix) with 1-3 planes at every P from "
+        f"128 to the shared-memory limit, K = P and P - 128, every "
+        f"sorted_run from 128 to K: {n_edge} calls")
 
     for name, (err, tk, tp, words, ops, *lib) in results.items():
         extra = f" vs library {fmt(lib[0])}" if lib else ""

@@ -738,6 +738,135 @@ def test_sort_tiles_masked(gen, nk, nv, T, K, as_bool):
         assert torch.equal(g, w) if i < nk else torch.equal(g[head], w[head])
 
 
+def _edge_keys(gen, T, K):
+    """16 distinct words spread over the range and a block of 0xFFFFFFFF
+    (the pad's key)."""
+    x = torch.randint(0, 16, (T, K), device="cuda", generator=gen) \
+        .to(torch.int32) * 0x10EF0F01
+    x[:, K // 4: K // 4 + max(K // 8, 1)] = -1
+    return x
+
+
+def _off16(x):
+    """The same words in a view 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    v = buf[1:1 + x.numel()].view(x.shape)
+    v.copy_(x)
+    assert v.data_ptr() % 16 == 4
+    return v
+
+
+def _rows_to_fill(K):
+    """Rows enough to give every SM 16 CTAs of 128-slot rows, or 2 of
+    32,768 slots."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * max(2, (1 << 16) // (1 << (K - 1).bit_length()))
+
+
+@pytest.mark.parametrize("rows", ["one", "fill_unaligned"])
+@pytest.mark.parametrize("nv", [0, 1, 8])
+@pytest.mark.parametrize("K", [(1 << lp) - pad for lp in range(7, 16)
+                               for pad in (0, 128) if (1 << lp) > pad])
+def test_sort_tiles_edges(gen, K, nv, rows):
+    """K3 at every P its geometry covers (128 to 32,768 slots: 4-32 slots a
+    thread, 1 or 2 chunks), K = P and P - 128 (the virtual pad), on keys
+    with many ties: the payloads too are bit-equal to the stable plain
+    sort, because equal keys compare by slot index."""
+    T = 1 if rows == "one" else _rows_to_fill(K)
+    ops = [_edge_keys(gen, T, K)] + [_rand(gen, T, K) for _ in range(nv)]
+    if rows != "one":
+        ops = [_off16(o) for o in ops]
+    tm.reset_counters()
+    got = tb.sort_tiles(ops)
+    assert tm.mode_counters() == {("K3", 1, nv): 1}
+    want = tb.sort_tiles_plain(ops)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _valid_edge_cases():
+    out = []
+    for nk in (1, 2, 3):
+        for log_p in range(7, 16):
+            for pad in (0, 128):
+                p = 1 << log_p
+                if p - pad and tp.tile_smem_bytes(p, nk, True) \
+                        <= tp.SMEM_MAX:
+                    out.append((nk, log_p, pad))
+    return out
+
+
+@pytest.mark.parametrize("nk,log_p,pad", _valid_edge_cases())
+def test_sort_tiles_valid_edges(gen, nk, log_p, pad):
+    """K9 at every sorted_run from 128 to K (the runs' valid prefixes
+    sorted, the counts table in chunks of the run) and K10, with 1-3
+    planes of tied keys, 0, 1 or 8 payloads in turn, one row or rows to
+    fill every SM 4 bytes off a 16-byte boundary in turn: the key planes
+    equal plain's over the tile, the payloads over the valid prefix."""
+    P = 1 << log_p
+    K = P - pad
+    runs = [0] + [1 << r for r in range(7, log_p + 1)
+                  if K % (1 << r) == 0 and (P - K) % (1 << r) == 0]
+    for i, run in enumerate(runs):
+        nv = (0, 1, 8)[i % 3]
+        T = _rows_to_fill(K) if i % 2 else 1
+        q = run or 128
+        planes = [_edge_keys(gen, T, K) for _ in range(nk)]
+        vals = [_rand(gen, T, K) for _ in range(nv)]
+        counts = torch.randint(0, q + 1, (T, K // q), dtype=torch.int32,
+                               device="cuda", generator=gen)
+        if run:
+            planes, vals = _lex_chunks(planes, vals, q, counts)
+        ops = planes + vals
+        if i % 2:
+            ops = [_off16(o) for o in ops]
+        mask = torch.rand(T, K, device="cuda", generator=gen) < 0.6
+        valid = (torch.arange(K, device="cuda") % q)[None, :] < \
+            counts.repeat_interleave(q, dim=1)
+        tm.reset_counters()
+        got9 = tb.sort_tiles_counts(ops, counts, q, sorted_run=run,
+                                    num_keys=nk)
+        got10 = tb.sort_tiles_masked(ops, mask, num_keys=nk)
+        assert tm.mode_counters() == {("K9", nk, nv): 1, ("K10", nk, nv): 1}
+        for got, want, v in (
+                (got9, tb.sort_tiles_counts_plain(ops, counts, q, nk), valid),
+                (got10, tb.sort_tiles_masked_plain(ops, mask, nk), mask)):
+            head = torch.arange(K, device="cuda")[None, :] < \
+                v.sum(dim=1)[:, None]
+            for j, (g, w) in enumerate(zip(got, want)):
+                assert torch.equal(g, w) if j < nk else \
+                    torch.equal(g[head], w[head]), (run, j)
+
+
+def test_tile_sort_refuses_a_geometry_it_was_not_built_for(gen):
+    """The C entry points take only threads x slots x chunks = P with a
+    slot count the registers hold, and 16-byte aligned outputs; anything
+    else is cudaErrorInvalidValue and no launch."""
+    from tpusort_torch.kernels import _build
+    x = _rand(gen, 2, 2048)
+    out = torch.empty_like(x)
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for threads, slots, smem in ((128, 8, 4096), (64, 32, 4096),
+                                 (96, 32, 8192), (64, 64, 8192)):
+        err = lib.tpusort_sort_tiles(x.data_ptr(), out.data_ptr(),
+                                     _build.pointers([]), _build.pointers([]),
+                                     0, 2, 2048, 2048, threads, slots, smem,
+                                     stream)
+        assert err != 0, (threads, slots, smem)
+    # an output 4 bytes off a 16-byte boundary (the kernel stores 16 bytes)
+    err = lib.tpusort_sort_tiles(x.data_ptr(), out.data_ptr() + 4,
+                                 _build.pointers([]), _build.pointers([]),
+                                 0, 1, 2048, 2048, 64, 32, 8192, stream)
+    assert err != 0
+    # 32 slots of two words (a key and its index) would spill: not built
+    v, vo = _rand(gen, 2, 2048), torch.empty_like(x)
+    err = lib.tpusort_sort_tiles(x.data_ptr(), out.data_ptr(),
+                                 _build.pointers([v]), _build.pointers([vo]),
+                                 1, 2, 2048, 2048, 64, 32, 12288, stream)
+    assert err != 0
+
+
 @pytest.mark.parametrize("case", ["keys", "pairs", "pairs_pad", "f32_desc",
                                   "stable", "bit_range", "u64"])
 def test_sort_batched_on_card(gen, case):

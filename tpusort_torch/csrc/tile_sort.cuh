@@ -1,5 +1,7 @@
 // Block-wide tile sort in shared memory, shared by the partition pass (K1),
-// the leaf (K2) and the tile sort (K3).
+// the leaf (K2) and partition_tiles (K8).  The row tile sorts (K3, K9, K10)
+// run reg_sort.cuh, the same network with its short steps in registers and
+// warp shuffles.
 //
 // Replaces the bitonic compare-exchange networks of the Pallas kernels
 // (tpusort/kernels/bitonic.py: _sort_network, _merge_sorted_runs, the staged
@@ -8,8 +10,7 @@
 // network as extra operands.  Here a stage is one pass of independent
 // compare-exchanges over shared-memory arrays, one pair per thread per step,
 // separated by __syncthreads().  This is the simple first version: every
-// stage goes through shared memory; keeping the short-stride stages in
-// registers and warp shuffles is later work.
+// stage goes through shared memory.
 //
 // Payloads do not ride.  A tile of 1-3 key planes (4 bytes a slot each)
 // carries, when payloads exist, a 16-bit slot index instead; the caller

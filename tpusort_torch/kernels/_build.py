@@ -48,8 +48,9 @@ _SIGNATURES = {
     # offsets, n_out, T, K, P, sorted_run, stream
     "tpusort_leaf_collapse": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _P, _LL,
                               _I, _I, _I, _I, _P],
-    # keys_in, keys_out, vals_in, vals_out, n_vals, T, K, P, stream
-    "tpusort_sort_tiles": [_P, _P, _PP, _PP, _I, _I, _I, _I, _P],
+    # keys_in, keys_out, vals_in, vals_out, n_vals, T, K, P, threads,
+    # slots, smem, stream
+    "tpusort_sort_tiles": [_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _P],
     # ops_in, ops_out, n_ops, n_planes, digit, counts_in, q_in, n, T, K, R,
     # S, lo_bit, width, t_seg, counts_out, stream
     "tpusort_partition_general": [_PP, _PP, _I, _I, _P, _P, _I, _LL, _I, _I,
@@ -63,9 +64,9 @@ _SIGNATURES = {
     # sends, d, rank, window, out, stream
     "tpusort_ring_pull": [_PP, _I, _I, _LL, _P, _P],
     # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts, q,
-    # mask, T, K, P, sorted_run, stream
+    # mask, T, K, P, sorted_run, threads, slots, smem, stream
     "tpusort_sort_tiles_valid": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _P, _I,
-                                 _I, _I, _I, _P],
+                                 _I, _I, _I, _I, _I, _I, _P],
     # sortkey, vals_in, vals_out, n_vals, starts, T, K, R, S, stream
     "tpusort_partition_tiles": [_P, _PP, _PP, _I, _P, _I, _I, _I, _I, _P],
 }
@@ -140,6 +141,8 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _LOCK:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))

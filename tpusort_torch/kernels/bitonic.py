@@ -8,7 +8,8 @@ PyTorch port of ``tpusort/kernels/bitonic.py:sort_tiles_counts_collapsed``
 (``_counts_sort_kernel``) and ``sort_tiles_masked``
 (``_masked_sort_kernel``).  On a CUDA tensor each wrapper launches its
 hand-written kernel (``csrc/bitonic.cu``, ``csrc/sort_tiles.cu``; one CTA
-per tile, see those files for the design and what bounds it).  On a CPU
+per tile, see those files for the design and what bounds it; K3, K9 and
+K10 lay a row out on the CTA by :func:`tile_sort_geometry`).  On a CPU
 tensor it runs the plain PyTorch version of the same contract
 (``*_plain``).
 """
@@ -16,7 +17,8 @@ tensor it runs the plain PyTorch version of the same contract
 from __future__ import annotations
 
 import collections
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,6 +51,47 @@ def leaf_tile_cap(num_keys: int, has_values: bool) -> int:
     while tile_smem_bytes(cap, num_keys, has_values) > SMEM_MAX:
         cap //= 2
     return cap
+
+
+class TileGeometry(NamedTuple):
+    """How K3, K9 and K10 lay one row out on a CTA (``csrc/reg_sort.cuh``):
+    ``threads`` threads each hold ``slots`` consecutive slots in registers,
+    ``chunks`` times over, and the row's P slots live in ``smem_bytes`` of
+    shared memory between the steps that need it."""
+    threads: int
+    slots: int
+    chunks: int
+    smem_bytes: int
+
+
+# A thread's slots in registers: the 32-bit words of a slot (its key planes,
+# one more for the slot index packed with the last plane) times the slots
+# stay within this many registers, half of the 64 a thread of a 1024-thread
+# CTA may hold, so that no instance spills.
+_REG_WORDS = 32
+_MAX_THREADS = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def tile_sort_geometry(K: int, num_keys: int, n_vals: int) -> TileGeometry:
+    """The geometry of the row tile sorts for rows of K slots (padded to
+    P = the power of two >= K) with ``num_keys`` key planes and ``n_vals``
+    payload words.  Pure: the wrappers pass it to the C entry points, which
+    refuse any geometry with threads * slots * chunks != P.
+
+    A thread takes the most slots (a power of two) whose words fit
+    ``_REG_WORDS`` registers: 32 for a key alone, 16 for a key and its
+    index or two planes, 8 for three or four words; at least one warp a
+    row, at most 1024 threads, and a row longer than 1024 threads'
+    registers is done in ``chunks`` passes.  So a 2,048-key row takes 64
+    threads (128 with payloads), a 16,384-key row 512 (1,024)."""
+    p = _pow2(K)
+    words = num_keys + (1 if n_vals else 0)
+    slots = 1 << ((_REG_WORDS // words).bit_length() - 1)
+    slots = min(slots, p // 32)
+    threads = min(p // slots, _MAX_THREADS)
+    return TileGeometry(threads, slots, p // (threads * slots),
+                        tile_smem_bytes(p, num_keys, n_vals > 0))
 
 
 def _check_ops(ops, what: str) -> Tuple[int, int]:
@@ -181,10 +224,12 @@ def _sort_tiles_cuda(operands: Sequence[torch.Tensor]
     outs = [torch.empty_like(o) for o in operands]
     if T:
         dev = operands[0].device
+        geo = tile_sort_geometry(K, 1, len(vals))
         err = _build.library().tpusort_sort_tiles(
             operands[0].data_ptr(), outs[0].data_ptr(),
             _build.pointers(vals), _build.pointers(outs[1:]), len(vals), T,
-            K, p, torch.cuda.current_stream(dev).cuda_stream,
+            K, p, geo.threads, geo.slots, geo.smem_bytes,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(err, "sort_tiles")
         _build.count_launch(sort_tiles, 1, len(vals))
@@ -193,11 +238,13 @@ def _sort_tiles_cuda(operands: Sequence[torch.Tensor]
 
 def sort_tiles(operands: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """Sort each row-tile of the (T, K) int32 operands ascending by
-    operand 0 as unsigned; the other operands ride along (unstable on
-    ties).  K is a multiple of 128; a K that is not a power of two is
-    padded virtually with 0xFFFFFFFF keys.  With payloads the pad slots
-    lose every tie with a genuine 0xFFFFFFFF key, so each row's payloads
-    come back a permutation of its own.  Returns the sorted operands."""
+    operand 0 as unsigned; the other operands ride along.  The contract
+    allows any order of equal keys; both versions keep their input order
+    (the kernel compares equal keys by slot index).  K is a multiple of
+    128; a K that is not a power of two is padded virtually with
+    0xFFFFFFFF keys.  With payloads the pad slots lose every tie with a
+    genuine 0xFFFFFFFF key, so each row's payloads come back a permutation
+    of its own.  Returns the sorted operands."""
     ops = [o.contiguous() for o in operands]
     T, K = _check_ops(ops, "sort_tiles")
     if K % LANES or K == 0:
@@ -252,12 +299,14 @@ def _sort_tiles_valid_cuda(wrapper, ops: Sequence[torch.Tensor],
     outs = [torch.empty_like(o) for o in ops]
     if T:
         dev = ops[0].device
+        geo = tile_sort_geometry(K, num_keys, n_vals)
         err = _build.library().tpusort_sort_tiles_valid(
             _build.pointers(ops[:num_keys]), _build.pointers(outs[:num_keys]),
             num_keys, _build.pointers(ops[num_keys:]),
             _build.pointers(outs[num_keys:]), n_vals,
             None if counts is None else counts.data_ptr(), q,
             None if mask is None else mask.data_ptr(), T, K, p, sorted_run,
+            geo.threads, geo.slots, geo.smem_bytes,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(err, wrapper.__name__)
@@ -290,7 +339,8 @@ def sort_tiles_counts(
     (T, K // q) counts table (slot i valid iff i % q < counts[t, i // q]).
     The first ``num_keys`` operands are key planes (plane 0 most
     significant, compared as unsigned words), the rest payload words that
-    ride unstably.  Each tile comes back whole: its valid elements sorted
+    ride along (the contract allows any order of equal keys; both versions
+    keep their input order).  Each tile comes back whole: its valid elements sorted
     at the head, every key plane 0xFFFFFFFF behind them (a valid all-ones
     key ties the invalid slots); the payloads behind the valid prefix are
     unspecified.  K is a multiple of 128 and is padded virtually to a
