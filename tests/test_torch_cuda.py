@@ -859,11 +859,23 @@ def test_tile_sort_refuses_a_geometry_it_was_not_built_for(gen):
                                  _build.pointers([]), _build.pointers([]),
                                  0, 1, 2048, 2048, 64, 32, 8192, stream)
     assert err != 0
-    # 32 slots of two words (a key and its index) would spill: not built
-    v, vo = _rand(gen, 2, 2048), torch.empty_like(x)
-    err = lib.tpusort_sort_tiles(x.data_ptr(), out.data_ptr(),
+    # 32 slots of two words (a key and its index) need 128 registers a
+    # thread: that instance takes at most 512 threads
+    y = _rand(gen, 1, 32768)
+    v, yo, vo = _rand(gen, 1, 32768), torch.empty_like(y), torch.empty_like(y)
+    err = lib.tpusort_sort_tiles(y.data_ptr(), yo.data_ptr(),
                                  _build.pointers([v]), _build.pointers([vo]),
-                                 1, 2, 2048, 2048, 64, 32, 12288, stream)
+                                 1, 1, 32768, 32768, 1024, 32, 196608, stream)
+    assert err != 0
+    # 32 slots of four words (3 planes and the index) would spill: not built
+    z = [_rand(gen, 1, 4096) for _ in range(4)]
+    zo = [torch.empty_like(t) for t in z]
+    counts = torch.full((1, 32), 128, dtype=torch.int32, device="cuda")
+    err = lib.tpusort_sort_tiles_valid(
+        _build.pointers(z[:3]), _build.pointers(zo[:3]), 3,
+        _build.pointers(z[3:]), _build.pointers(zo[3:]), 1,
+        counts.data_ptr(), 128, None, 1, 4096, 4096, 0, 128, 32, 4096 * 14,
+        stream)
     assert err != 0
 
 

@@ -20,7 +20,7 @@ from tpusort_torch.kernels.bitonic import TileGeometry, tile_sort_geometry
 from tpusort_torch.kernels.partition import (
     MAX_TILE, SMEM_MAX, check_fits, tile_smem_bytes)
 
-REG_WORDS = 32      # csrc/reg_sort.cuh: kRegWords
+REG_WORDS = 32      # csrc/reg_sort.cuh: kRegWords (1024 threads; 2x at 512)
 
 
 def _fits(p, num_keys, n_vals):
@@ -35,10 +35,10 @@ def _fits(p, num_keys, n_vals):
 @pytest.mark.parametrize("n_vals", range(9))
 def test_geometry_covers_every_accepted_shape(num_keys, n_vals):
     """Every K (a multiple of 128 up to 32,768) that check_fits accepts:
-    threads x slots x chunks = P, a whole number of warps up to 1,024,
-    slots 4-32 within the registers an instance is built for, more
-    than one chunk only at 1,024 threads, and the shared memory within
-    the CTA's."""
+    threads x slots x chunks = P, a whole number of warps up to 1,024 (512
+    where a thread's slots take over 32 registers), slots 4-32 within the
+    64 registers an instance is built for, more than one chunk only at the
+    most threads, and the shared memory within the CTA's."""
     seen = 0
     for k in range(128, MAX_TILE + 1, 128):
         p = 1 << (k - 1).bit_length()
@@ -48,23 +48,26 @@ def test_geometry_covers_every_accepted_shape(num_keys, n_vals):
         g = tile_sort_geometry(k, num_keys, n_vals)
         assert isinstance(g, TileGeometry)
         assert g.threads * g.slots * g.chunks == p, (k, g)
-        assert g.threads % 32 == 0 and 32 <= g.threads <= 1024, (k, g)
+        words = g.slots * (num_keys + (n_vals > 0))
+        cap = 1024 if words <= REG_WORDS else 512
+        assert g.threads % 32 == 0 and 32 <= g.threads <= cap, (k, g)
         assert g.slots in (4, 8, 16, 32), (k, g)
-        assert g.slots * (num_keys + (n_vals > 0)) <= REG_WORDS, (k, g)
+        assert words <= 2 * REG_WORDS, (k, g)
         assert g.chunks & (g.chunks - 1) == 0, (k, g)
-        assert g.chunks == 1 or g.threads == 1024, (k, g)
+        assert g.chunks == 1 or g.threads == cap, (k, g)
         assert g.smem_bytes == tile_smem_bytes(p, num_keys, n_vals > 0)
         assert g.smem_bytes <= SMEM_MAX
     assert seen >= 128          # every K up to 16,384 fits any mode
 
 
 @pytest.mark.parametrize("k,num_keys,n_vals,want", [
-    (16384, 1, 0, (512, 32, 1)), (16384, 1, 1, (1024, 16, 1)),
-    (2048, 1, 1, (128, 16, 1)), (2048, 1, 0, (64, 32, 1)),
-    (12288, 1, 2, (1024, 16, 1)), (6144, 3, 2, (1024, 8, 1)),
-    (16384, 3, 1, (1024, 8, 2)), (32768, 1, 1, (1024, 16, 2)),
+    (16384, 1, 0, (512, 32, 1)), (16384, 1, 1, (512, 32, 1)),
+    (2048, 1, 1, (64, 32, 1)), (2048, 1, 0, (64, 32, 1)),
+    (12288, 1, 2, (512, 32, 1)), (6144, 3, 2, (512, 16, 1)),
+    (16384, 3, 1, (512, 16, 2)), (32768, 1, 1, (512, 32, 2)),
     (32768, 1, 0, (1024, 32, 1)), (128, 1, 0, (32, 4, 1)),
-    (256, 2, 1, (32, 8, 1)), (4096, 2, 0, (256, 16, 1)),
+    (256, 2, 1, (32, 8, 1)), (4096, 2, 0, (128, 32, 1)),
+    (2048, 2, 1, (128, 16, 1)),
 ])
 def test_geometry_of_the_path_shapes(k, num_keys, n_vals, want):
     """The single tile, sort_batched's rows, the packed and wide leaves
@@ -221,15 +224,19 @@ class Model:
 
 
 def _geometries(max_p):
-    """Every distinct (P, threads, slots, chunks) the wrappers use up to
-    max_p, and the 2-chunk geometries of the longest rows."""
+    """Every (P, threads, slots, 1) the kernels take up to max_p with one
+    chunk, for each slot count the C side builds (the wrappers pick among
+    them), and every geometry the wrappers pick."""
     out = set()
     for lp in range(7, max_p.bit_length()):
+        p = 1 << lp
+        for e in (4, 8, 16, 32):
+            if p // e >= 32:
+                out.add((p, p // e, e, 1))
         for nk in (1, 2, 3):
             for nv in (0, 1):
-                if _fits(1 << lp, nk, nv):
-                    out.add((1 << lp, *tile_sort_geometry(1 << lp, nk,
-                                                          nv)[:3]))
+                if _fits(p, nk, nv):
+                    out.add((p, *tile_sort_geometry(p, nk, nv)[:3]))
     return sorted(out)
 
 

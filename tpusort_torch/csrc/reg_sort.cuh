@@ -18,9 +18,10 @@
 //     __syncthreads() per step, as block_sort does.
 // At P = 16384 with 1024 threads x 16 slots, 15 of the 105 steps touch
 // shared memory, with 512 x 32 10; at 2048 with 128 x 16, 3 of 66, with
-// 64 x 32 none.  A thread holds as many slots as 32 registers take
-// (fits_registers), so that no instance spills.  Where a row holds more
-// than C slots (chunks > 1: rows too long for a thread's registers), each
+// 64 x 32 none.  A thread's slots take at most 64 registers
+// (fits_registers; above 32 the CTA has at most 512 threads, so a thread
+// may have 128), so that no instance spills.  Where a row holds more than
+// C slots (chunks > 1: rows too long for the CTA's registers), each
 // warp-local run of steps is done chunk by chunk: the steps of such a run
 // never cross a warp's span, so the chunks are independent.
 //
@@ -499,13 +500,23 @@ inline bool reg_geometry_ok(int P, int threads, int E, size_t smem,
 }
 
 // A thread's E slots take E * (NK + IDX) registers (the planes, and the
-// index packed with the last plane); instances above kRegWords would spill
-// under the 64 registers a thread of a 1024-thread CTA has, so none is
-// built (kernels/bitonic.py:tile_sort_geometry never asks for one).
+// index packed with the last plane).  Up to kRegWords of them an instance
+// runs 1024 threads (64 registers a thread); up to twice that, 512 (128
+// registers); none is built above that, where it would spill
+// (kernels/bitonic.py:tile_sort_geometry never asks for one).
 constexpr int kRegWords = 32;
 
+__host__ __device__ constexpr int slot_words(int nk, bool idx, int e) {
+  return e * (nk + (idx ? 1 : 0));
+}
+
 constexpr bool fits_registers(int nk, bool idx, int e) {
-  return e * (nk + (idx ? 1 : 0)) <= kRegWords;
+  return slot_words(nk, idx, e) <= 2 * kRegWords;
+}
+
+// The most threads an instance may launch with (its __launch_bounds__).
+__host__ __device__ constexpr int max_threads(int nk, bool idx, int e) {
+  return slot_words(nk, idx, e) <= kRegWords ? kThreads : kThreads / 2;
 }
 
 constexpr int kMaxSmem = 232448;   // dynamic shared memory of a CTA, sm_90

@@ -26,9 +26,9 @@
 // not by memory; the single-tile path (one row of up to 16,384 keys) runs
 // on one SM, bound by its instructions too and by the chain of 105
 // dependent steps.  The design answers both: most steps need no barrier
-// and no shared memory (10 of 105 at P = 16384 keys only, 15 with
-// payloads), and the geometry (threads, slots a thread E, chunks; the
-// wrapper's tile_sort_geometry) gives a 2,048-slot row 64-256 threads, so
+// and no shared memory (10 of 105 at P = 16384 with one or two words a
+// slot), and the geometry (threads, slots a thread E, chunks; the
+// wrapper's tile_sort_geometry) gives a 2,048-slot row 64-128 threads, so
 // many rows share an SM.  Shared memory: P * (4 + 2 if payloads) bytes, at most
 // 192 KB at P = 32768.
 //
@@ -55,7 +55,7 @@
 namespace tpusort {
 
 template <bool IDX, int E>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(max_threads(1, IDX, E))
 sort_tiles_kernel(Planes keys, Values vals, int K, int log_p, int chunks) {
   extern __shared__ uint32_t smem[];
   const int P = 1 << log_p;
@@ -84,7 +84,7 @@ int launch_sort_tiles(const Planes& keys, const Values& vals, int T, int K,
 }
 
 template <int NK, bool IDX, int E>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(max_threads(NK, IDX, E))
 sort_tiles_valid_kernel(Planes planes, Values vals,
                         const int32_t* __restrict__ counts, int q,
                         const uint8_t* __restrict__ mask, int K, int log_p,
@@ -154,6 +154,9 @@ extern "C" int tpusort_sort_tiles(const void* keys_in, void* keys_out,
       if constexpr (!fits_registers(1, kIdx, kE)) {
         return (int)cudaErrorInvalidValue;
       } else {
+        if (threads > max_threads(1, kIdx, kE)) {
+          return (int)cudaErrorInvalidValue;
+        }
         return launch_sort_tiles<kIdx, kE>(keys, vals, T, K, P, threads,
                                            chunks, (size_t)smem,
                                            (cudaStream_t)stream);
@@ -195,6 +198,9 @@ extern "C" int tpusort_sort_tiles_valid(
       if constexpr (!fits_registers(kNk, kIdx, kE)) {
         return (int)cudaErrorInvalidValue;
       } else {
+        if (threads > max_threads(kNk, kIdx, kE)) {
+          return (int)cudaErrorInvalidValue;
+        }
         return launch_sort_tiles_valid<kNk, kIdx, kE>(
             planes, vals, (const int32_t*)counts, q, (const uint8_t*)mask,
             T, K, P, log_run, threads, chunks, (size_t)smem,

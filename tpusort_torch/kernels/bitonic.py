@@ -65,11 +65,13 @@ class TileGeometry(NamedTuple):
 
 
 # A thread's slots in registers: the 32-bit words of a slot (its key planes,
-# one more for the slot index packed with the last plane) times the slots
-# stay within this many registers, half of the 64 a thread of a 1024-thread
-# CTA may hold, so that no instance spills.
+# one more for the slot index packed with the last plane) times the slots.
+# Up to _REG_WORDS of them a CTA may have 1024 threads (64 registers each),
+# up to twice that 512 (128 registers); csrc/reg_sort.cuh builds no
+# instance beyond, where it would spill.
 _REG_WORDS = 32
 _MAX_THREADS = 1024
+_MAX_SLOTS = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,17 +81,19 @@ def tile_sort_geometry(K: int, num_keys: int, n_vals: int) -> TileGeometry:
     payload words.  Pure: the wrappers pass it to the C entry points, which
     refuse any geometry with threads * slots * chunks != P.
 
-    A thread takes the most slots (a power of two) whose words fit
-    ``_REG_WORDS`` registers: 32 for a key alone, 16 for a key and its
-    index or two planes, 8 for three or four words; at least one warp a
-    row, at most 1024 threads, and a row longer than 1024 threads'
-    registers is done in ``chunks`` passes.  So a 2,048-key row takes 64
-    threads (128 with payloads), a 16,384-key row 512 (1,024)."""
+    A thread takes the most slots (a power of two, at most 32) whose words
+    fit ``2 * _REG_WORDS`` registers: 32 for a key alone or a key and its
+    index, 16 for three or four words; with more than ``_REG_WORDS`` words
+    a thread the CTA has at most 512 threads, else 1024; at least one warp
+    a row, and a row longer than the threads' registers is done in
+    ``chunks`` passes.  So a 2,048-key row takes 64 threads and a
+    16,384-key row 512, with or without a payload."""
     p = _pow2(K)
     words = num_keys + (1 if n_vals else 0)
-    slots = 1 << ((_REG_WORDS // words).bit_length() - 1)
-    slots = min(slots, p // 32)
-    threads = min(p // slots, _MAX_THREADS)
+    slots = 1 << ((2 * _REG_WORDS // words).bit_length() - 1)
+    slots = min(slots, _MAX_SLOTS, p // 32)
+    cap = _MAX_THREADS if slots * words <= _REG_WORDS else _MAX_THREADS // 2
+    threads = min(p // slots, cap)
     return TileGeometry(threads, slots, p // (threads * slots),
                         tile_smem_bytes(p, num_keys, n_vals > 0))
 
