@@ -91,7 +91,8 @@ non-zero:
     exact;
 22. ``ops.scan.inclusive_sum`` / ``exclusive_sum`` and
     ``ops.histogram.digit_histogram`` through their public routes: one K5
-    or K6 launch each;
+    or K6 launch each (K5 is one single-pass kernel after one fill of its
+    descriptors);
 23. K9 (``sort_tiles_counts``) and K10 (``sort_tiles_masked``) vs plain at
     (8192, 2048) keys, (2048, 12288) key + value (the virtual pad) and 2
     planes + a value at (4096, 4096), with ragged counts and a random
@@ -179,7 +180,16 @@ non-zero:
     row and enough rows to fill every SM, operands 4 bytes off a 16-byte
     boundary; K9 and K10 with 1-3 planes at every P the shared memory
     takes, every ``sorted_run`` from 128 to K, the key planes over the
-    tile and the payloads over the valid prefix.
+    tile and the payloads over the valid prefix;
+31. K1 and K1b (``csrc/partition.cu`` on ``csrc/reg_sort.cuh``) and K5
+    (``csrc/scanhist.cu``) at their edges: the ``-Xptxas -v`` lines of the
+    42 instances of ``partition_raw_kernel`` and the 5 kernels of
+    ``scanhist.cu`` (none may spill); K1 vs plain bit for bit on the
+    counts and every valid slot, payloads included (ties keep their slot
+    order, as in plain), at K = 2^11 .. 2^14 with 1-3 planes, 0, 1, 2 and
+    8 payloads and every ``sorted_run`` from none through 128 .. K, on
+    keys with ties and a block of 0xFFFFFFFF; K1b vs plain on Zipf 1.1
+    keys cut at their own quantiles, with and without a ``sorted_run``.
 
 The line before the last is a JSON summary of the kernels: each template
 mode compared, with its launches in the run of the path that drives it at
@@ -1436,9 +1446,8 @@ def main() -> None:
         check(want_fn is None or same_bits(got, want_fn()),
               f"{mode}: the public route differs from plain")
         launches[mode] = modes.get(("K5", 0, 1), 0)
-        notes[mode] = ("one call of the wrapper is three device launches "
-                       "behind one C entry: block totals, their offsets, "
-                       "the scan")
+        notes[mode] = ("one launch of the single-pass kernel, after one "
+                       "fill that zeroes its descriptors")
     for name, keys in (("uniform", x), ("constant", const)):
         got, c, modes = drive(lambda: histogram.digit_histogram(keys, 24, 8))
         check(c == dict(quiet, k6_launches=1) and got.shape == (1, 256)
@@ -2433,6 +2442,142 @@ def main() -> None:
         f"payloads over the valid prefix) with 1-3 planes at every P from "
         f"128 to the shared-memory limit, K = P and P - 128, every "
         f"sorted_run from 128 to K: {n_edge} calls")
+
+    # ---- phase 31: partition.cu and scanhist.cu at their edges ----------
+    torch.cuda.empty_cache()
+    spills, fn_name = {}, None
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn_name = line.split("'")[1]
+        elif fn_name and any(k in fn_name for k in (
+                "partition_raw_kernel", "scan_lookback_kernel",
+                "digit_histogram_kernel")) \
+                and ("spill" in line or "registers" in line):
+            src = "partition.cu" if "partition_raw" in fn_name \
+                else "scanhist.cu"
+            print(f"  ptxas {src} {fn_name}: {line.strip()}", flush=True)
+            if "spill" in line:
+                spills[fn_name] = [int(w) for w in re.findall(
+                    r"(\d+) bytes spill", line)]
+    # partition.cu: (planes, payloads, slots a thread) whose slots fit 64
+    # registers, K1 and K1b each; scanhist.cu: K5 x (uint32, float32) x
+    # (aligned, not), and K6
+    n_k1 = 2 * sum(e * (nk + idx) <= 64 for e in (4, 8, 16, 32)
+                   for idx in (0, 1) for nk in (1, 2, 3))
+    n_k1_seen = sum("partition_raw_kernel" in k for k in spills)
+    check(n_k1_seen == n_k1 and len(spills) == n_k1 + 5,
+          f"partition.cu / scanhist.cu: {n_k1_seen} K1 instances and "
+          f"{len(spills) - n_k1_seen} others in the build log, expected "
+          f"{n_k1} and 5")
+    check(not any(sum(v) for v in spills.values()),
+          "partition.cu / scanhist.cu: an instance spills: "
+          f"{[k for k, v in spills.items() if sum(v)]}")
+
+    def lex_chunks(planes_, vals_, q_, cnts):
+        """Each q_-chunk's valid prefix sorted, payloads carried."""
+        t_, k_ = planes_[0].shape
+        valid = (torch.arange(k_, device=dev) % q_)[None, :] \
+            < cnts.repeat_interleave(q_, dim=1)
+        sp, sv = sort_rows_lex(
+            [torch.where(valid, pl, -1).reshape(-1, q_) for pl in planes_],
+            [v.reshape(-1, q_) for v in vals_])
+        return ([torch.where(valid, a.reshape(t_, k_), pl)
+                 for a, pl in zip(sp, planes_)],
+                [torch.where(valid, a.reshape(t_, k_), v)
+                 for a, v in zip(sv, vals_)])
+
+    def edge_vs_plain(what, planes_, vals_, cin, run, kw, spl=None):
+        if spl is None:
+            got, cnt = partition_pass_fused(planes_, vals_, cin,
+                                            sorted_run=run, unstable=True,
+                                            **kw)
+            want, pcnt = partition_pass_fused_plain(planes_, vals_, cin, **kw)
+        else:
+            words_, f_ = spl
+            got, cnt = partition_pass_fused(
+                planes_, vals_, cin, sorted_run=run, unstable=True,
+                splitters=words_, splitter_fracs=f_, lo_bit=0, width=1, **kw)
+            want, pcnt = partition_pass_splitter_plain(
+                planes_, vals_, cin, splitters=words_, splitter_fracs=f_,
+                **kw)
+        spec = type("Spec", (), dict(s=kw["s"], r=kw["r"],
+                                     t_seg=kw["t_seg"],
+                                     n_seg=cnt.shape[0] // kw["t_seg"]))
+        check(torch.equal(cnt, pcnt), f"phase 31: {what}: counts differ")
+        m = valid_slots(cnt, spec)
+        check(all(same_bits(g[m], w[m]) for g, w in zip(got, want)),
+              f"phase 31: {what}: valid slots differ")
+
+    n_edge, e_t, e_r = 0, 4, 16
+    for lk in range(11, 15):
+        k = 1 << lk
+        e_s = max(128, (3 * k // (2 * e_r)) // 128 * 128)
+        for nk in (1, 2, 3):
+            for nv in (0, 1, 2, 8):
+                for run in [None] + [1 << lr for lr in range(7, lk + 1)]:
+                    planes_ = [(torch.randint(0, 16, (e_t, k), device=dev,
+                                              generator=gen)
+                                .to(torch.int32) * 0x10EF0F01)
+                               for _ in range(nk)]
+                    planes_[0][:, k // 4: k // 4 + k // 8] = -1
+                    vals_ = [random_i32(e_t * k).reshape(e_t, k)
+                             for _ in range(nv)]
+                    kw = dict(r=e_r, s=e_s, lo_bit=32 * nk - 4, width=4,
+                              t_seg=2, q_in=None, n=e_t * k - 999)
+                    cin = None
+                    if run:
+                        cin = torch.randint(0, run + 1, (e_t, k // run),
+                                            dtype=torch.int32, device=dev,
+                                            generator=gen)
+                        planes_, vals_ = lex_chunks(planes_, vals_, run, cin)
+                        kw.update(q_in=run, n=None)
+                    edge_vs_plain(f"K1 ({e_t}, {k}) {nk} planes + {nv} "
+                                  f"values, sorted_run {run}", planes_,
+                                  vals_, cin, run, kw)
+                    n_edge += 1
+    log(f"phase 31 ok: no spill in the {n_k1} instances of partition.cu "
+        f"nor the 5 of scanhist.cu; K1 == plain bit for bit (payloads "
+        f"too: ties keep their slot order) at K = 2^11 .. 2^14, 1-3 planes, "
+        f"0, 1, 2 and 8 payloads, every sorted_run, tied keys with a block "
+        f"of 0xFFFFFFFF: {n_edge} calls")
+    n_edge = 0
+    for lk in range(11, 15):
+        k = 1 << lk
+        e_s = max(128, (3 * k // (2 * e_r)) // 128 * 128)
+        for nk in (1, 2):
+            for nv in (0, 1):
+                zk = zipf_keys_torch(gen, e_t * k).reshape(e_t, k)
+                planes_ = [zk] + [random_i32(e_t * k).reshape(e_t, k)
+                                  for _ in range(nk - 1)]
+                vals_ = [random_i32(e_t * k).reshape(e_t, k)
+                         for _ in range(nv)]
+                qs = torch.sort(zk.reshape(-1) ^ dtypes.INT32_MIN).values
+                at = (torch.arange(1, e_r, device=dev) * (e_t * k)) // e_r
+                words_ = [(qs[at] ^ dtypes.INT32_MIN).expand(
+                    e_t, e_r - 1).contiguous()]
+                words_ += [torch.zeros(e_t, e_r - 1, dtype=torch.int32,
+                                       device=dev) for _ in range(nk - 1)]
+                f_ = torch.randint(0, 65537, (e_t, e_r - 1),
+                                   dtype=torch.int32, device=dev,
+                                   generator=gen)
+                for run in (None, 256):
+                    kp, kv, cin = planes_, vals_, None
+                    kw = dict(r=e_r, s=e_s, t_seg=2, q_in=None,
+                              n=e_t * k - 5)
+                    if run:
+                        cin = torch.randint(run // 2, run + 1,
+                                            (e_t, k // run),
+                                            dtype=torch.int32, device=dev,
+                                            generator=gen)
+                        kp, kv = lex_chunks(planes_, vals_, run, cin)
+                        kw.update(q_in=run, n=None)
+                    edge_vs_plain(f"K1b Zipf ({e_t}, {k}) {nk} planes + "
+                                  f"{nv} values, sorted_run {run}", kp, kv,
+                                  cin, run, kw, spl=(words_, f_))
+                    n_edge += 1
+    log(f"phase 31 ok: K1b == plain on Zipf 1.1 keys cut at their "
+        f"quantiles, K = 2^11 .. 2^14, 1-2 planes, 0 and 1 payloads, with "
+        f"and without a sorted_run: {n_edge} calls")
 
     for name, (err, tk, tp, words, ops, *lib) in results.items():
         extra = f" vs library {fmt(lib[0])}" if lib else ""

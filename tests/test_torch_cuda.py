@@ -8,9 +8,10 @@ CUDA toolkit are installed:
 
 Keys compare bit for bit: K1 and K1c on their counts and the slots they
 mark valid, K2, K3, K4 and the sorts on their whole output.  K1c is stable,
-so its payloads compare bit for bit too.  K1, K2 and K3 payloads ride
-unstably, so their multi-operand cases make plane 0 unique (a scrambled
-permutation), where any correct sort gives one payload order.
+so its payloads compare bit for bit too.  K2's payloads ride unstably,
+so its multi-operand cases make plane 0 unique (a scrambled permutation),
+where any correct sort gives one payload order; K1 and K3 break ties by
+slot index, as their plain versions do, which the edge cases rely on.
 """
 
 import numpy as np
@@ -649,6 +650,142 @@ def test_prefix_sum_unaligned_and_f32(gen):
     assert torch.equal(a, b)
     exact = torch.cumsum(f.double(), 0)
     assert float(((a.double() - exact).abs() / exact).max()) < 1e-6
+
+
+_K5_TILE = tsh.SCAN_TILE
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.float32])
+@pytest.mark.parametrize("n", [1, _K5_TILE - 1, _K5_TILE, _K5_TILE + 1,
+                               (1 << 20) + 3, (1 << 28) - 12345])
+def test_prefix_sum_lengths_and_views(gen, dtype, n):
+    """The one-pass K5 at the tile's edges, past a group of tiles and at the
+    largest ragged length, on views 0, 4 and 12 bytes past a 16-byte
+    boundary, inclusive and exclusive: integers bit for bit against plain;
+    float32 uniforms within 1e-5 of the float64 running sum, and, past 2^20,
+    zeros and ones (one in 32, so every partial sum stays below 2^24)
+    exactly."""
+    base = torch.randint(0, 1 << 20, (n + 3,), dtype=torch.int32,
+                         device="cuda", generator=gen)
+    if dtype == torch.float32:
+        base = (base % 32 == 0).float() if n > (1 << 20) else \
+            torch.rand(n + 3, device="cuda", generator=gen)
+    for off in (0, 1, 3):
+        x = base[off:off + n]
+        x = x if dtype == torch.float32 else x.view(dtype)
+        assert (x.data_ptr() % 16 == 0) == (off == 0)
+        for exclusive in (False, True):
+            got = tsh.prefix_sum_tiles(x, exclusive=exclusive)
+            if dtype != torch.float32:
+                want = tsh.prefix_sum_tiles_plain(x, exclusive=exclusive)
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+                continue
+            exact = torch.cumsum(x.double(), 0)
+            if exclusive:
+                exact = exact - x.double()
+            if n > (1 << 20):
+                assert torch.equal(got.double(), exact)
+            elif n > 1:
+                err = (got.double() - exact).abs()[1:] / exact[1:]
+                assert float(err.max()) < 1e-5
+            del got
+
+
+def test_prefix_sum_f32_reproducible_and_modelled(gen):
+    """Ten runs of one float32 input give the same bits, equal to the numpy
+    model of the kernel (tests/test_torch_scan_lookback.py) at 2^20 + 3."""
+    from test_torch_scan_lookback import k5_model
+    x = torch.rand((1 << 20) + 3, device="cuda", generator=gen)
+    runs = [tsh.prefix_sum_tiles(x) for _ in range(10)]
+    assert all(torch.equal(r.view(torch.int32), runs[0].view(torch.int32))
+               for r in runs)
+    want = k5_model(x.cpu().numpy())
+    assert runs[0].cpu().numpy().tobytes() == want.tobytes()
+    ex = tsh.prefix_sum_tiles(x, exclusive=True).cpu().numpy()
+    assert ex.tobytes() == k5_model(x.cpu().numpy(), exclusive=True).tobytes()
+
+
+def _k1_edge_inputs(gen, T, K, nk, nv, run):
+    """Key planes of 16 distinct words with a block of all-ones, payloads,
+    and, with ``run``, a counts table of q = run whose chunks' valid
+    prefixes are sorted (what an earlier pass leaves)."""
+    planes = [(torch.randint(0, 16, (T, K), device="cuda", generator=gen)
+               .to(torch.int32) * 0x10EF0F01) for _ in range(nk)]
+    planes[0][:, K // 4: K // 4 + K // 8] = -1
+    vals = [_rand(gen, T, K) for _ in range(nv)]
+    if not run:
+        return planes, vals, None
+    cin = torch.randint(0, run + 1, (T, K // run), dtype=torch.int32,
+                        device="cuda", generator=gen)
+    planes, vals = _lex_chunks(planes, vals, run, cin)
+    return planes, vals, cin
+
+
+@pytest.mark.parametrize("nv", [0, 1, 2, 8])
+@pytest.mark.parametrize("nk", [1, 2, 3])
+@pytest.mark.parametrize("K", [1 << lk for lk in range(11, 15)])
+def test_partition_k1_edges(gen, K, nk, nv):
+    """K1 on the register network against its plain version, bit for bit on
+    the counts and every valid slot, payloads included (ties keep their
+    slot order in both): every sorted_run from none through 128 .. K (the
+    emit-only mode), keys with ties and a block of 0xFFFFFFFF."""
+    T, R = 4, 16
+    S = max(128, (3 * K // (2 * R)) // 128 * 128)
+    for run in [None] + [1 << lr for lr in range(7, K.bit_length())]:
+        planes, vals, cin = _k1_edge_inputs(gen, T, K, nk, nv, run)
+        kw = dict(r=R, s=S, lo_bit=32 * nk - 4, width=4, t_seg=2)
+        kw.update(q_in=run, n=None) if run else \
+            kw.update(q_in=None, n=T * K - 999)
+        got, counts = tp.partition_pass_fused(planes, vals, cin,
+                                              sorted_run=run, unstable=True,
+                                              **kw)
+        want, pcounts = tp.partition_pass_fused_plain(planes, vals, cin, **kw)
+        assert torch.equal(counts, pcounts), run
+        m = _valid_slots(counts, R, S, 2)
+        for g, w in zip(got, want):
+            assert torch.equal(g[m], w[m]), run
+
+
+@pytest.mark.parametrize("nv", [0, 1])
+@pytest.mark.parametrize("nk", [1, 2])
+@pytest.mark.parametrize("K", [1 << lk for lk in range(11, 15)])
+def test_partition_k1b_zipf_edges(gen, K, nk, nv):
+    """K1b against its plain version on Zipf 1.1 keys cut at the keys' own
+    quantiles (the same splitters in every tile, random tie fractions),
+    with and without a sorted_run: counts bit for bit, every valid slot."""
+    T, R = 4, 16
+    S = max(128, (3 * K // (2 * R)) // 128 * 128)
+    rng = np.random.default_rng(K + nk)
+    keys = torch.from_numpy(zipf_keys(rng, T * K, dtype=np.uint32)
+                            .view(np.int32)).cuda().reshape(T, K)
+    planes = [keys] + [_rand(gen, T, K) for _ in range(nk - 1)]
+    vals = [_rand(gen, T, K) for _ in range(nv)]
+    qs = torch.sort(keys.reshape(-1) ^ dtypes.INT32_MIN).values
+    at = (torch.arange(1, R, device="cuda") * (T * K)) // R
+    words = [(qs[at] ^ dtypes.INT32_MIN).expand(T, R - 1).contiguous()]
+    words += [torch.zeros(T, R - 1, dtype=torch.int32, device="cuda")
+              for _ in range(nk - 1)]
+    f = torch.randint(0, 65537, (T, R - 1), dtype=torch.int32, device="cuda",
+                      generator=gen)
+    for run in (None, 256):
+        kp, kv, cin = planes, vals, None
+        kw = dict(r=R, s=S, t_seg=2, q_in=None, n=T * K - 5)
+        if run:
+            cin = torch.randint(run // 2, run + 1, (T, K // run),
+                                dtype=torch.int32, device="cuda",
+                                generator=gen)
+            kp, kv = _lex_chunks(planes, vals, run, cin)
+            kw.update(q_in=run, n=None)
+        got, counts = tp.partition_pass_fused(
+            kp, kv, cin, sorted_run=run, unstable=True, splitters=words,
+            splitter_fracs=f, lo_bit=0, width=1, **kw)
+        want, pcounts = tp.partition_pass_splitter_plain(
+            kp, kv, cin, splitters=words, splitter_fracs=f, **kw)
+        assert torch.equal(counts, pcounts), run
+        m = _valid_slots(counts, R, S, 2)
+        for g, w in zip(got, want):
+            assert torch.equal(g[m], w[m]), run
 
 
 @pytest.mark.parametrize("n", [0, 1, 5, 1000, (1 << 20) + 4321])

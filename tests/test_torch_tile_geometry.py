@@ -15,10 +15,12 @@ order, and sort rows with ties, with and without ``sorted_run``.
 
 import numpy as np
 import pytest
+import torch
 
 from tpusort_torch.kernels.bitonic import TileGeometry, tile_sort_geometry
 from tpusort_torch.kernels.partition import (
-    MAX_TILE, SMEM_MAX, check_fits, tile_smem_bytes)
+    MAX_TILE, SMEM_MAX, check_fits, partition_pass_fused_plain,
+    partition_pass_splitter_plain, tile_smem_bytes)
 
 REG_WORDS = 32      # csrc/reg_sort.cuh: kRegWords (1024 threads; 2x at 512)
 
@@ -313,3 +315,251 @@ def test_swizzle_keeps_a_warps_accesses_off_shared_bank_conflicts(slots):
                 == 32
         assert len(set(swz(32 * w + lanes) % 32)) == 32
         assert sorted(swz(32 * w + lanes)) == list(32 * w + lanes)
+
+
+# ---- K1 and K1b (csrc/partition.cu) on the same network --------------------
+
+K1_MODES = [(nk, nv) for nk in (1, 2, 3) for nv in (0, 1)]
+
+
+@pytest.mark.parametrize("num_keys,n_vals", K1_MODES)
+def test_k1_geometry_keeps_payload_tiles_at_512_threads(num_keys, n_vals):
+    """The partition pass takes K3's geometry; its instances with payloads
+    are built for at most 512 threads (csrc/partition.cu:
+    partition_threads), which every K it accepts respects."""
+    for k in (1 << lk for lk in range(7, 16)):
+        if not _fits(k, num_keys, n_vals):
+            continue
+        g = tile_sort_geometry(k, num_keys, n_vals)
+        assert g.threads * g.slots * g.chunks == k
+        if n_vals:
+            assert g.threads <= 512, (k, g)
+
+
+def _k1_cases():
+    for lk in range(11, 15):
+        for nk, nv in K1_MODES:
+            for log_run in range(lk + 1):
+                yield lk, nk, nv, log_run
+
+
+@pytest.mark.parametrize("log_k,num_keys,n_vals,log_run", _k1_cases())
+def test_model_sorts_k1_tiles(log_k, num_keys, n_vals, log_run):
+    """A K1 tile at the geometry it is launched with (K = 2^11 .. 2^14,
+    1-3 key planes, with and without the slot index, every sorted_run):
+    keys of 16 distinct words per plane and a block of all-ones, given as
+    ascending runs of 2^log_run.  The model sorts the slots' lexicographic
+    ranks; with the index the result is the stable order."""
+    k = 1 << log_k
+    g = tile_sort_geometry(k, num_keys, n_vals)
+    rng = np.random.default_rng(log_k * 131 + num_keys * 7 + n_vals)
+    planes = rng.integers(0, 16, (num_keys, k)).astype(np.int64) * 0x10EF0F01
+    planes[:, k // 4: k // 4 + k // 8] = 0xFFFFFFFF
+    run = 1 << log_run
+    if run > 1:                 # each run sorted, ties in slot order
+        for r0 in range(0, k, run):
+            o = np.lexsort(planes[::-1, r0:r0 + run])
+            planes[:, r0:r0 + run] = planes[:, r0:r0 + run][:, o]
+    index = np.arange(k)
+    keys = [*planes, index] if n_vals else list(planes)
+    order = np.lexsort(keys[::-1])
+    rank = np.empty(k, dtype=np.int64)
+    rank[order] = np.arange(k)
+    if not n_vals:              # equal keys share a rank
+        tup = planes[:, order]
+        new = np.concatenate([[True], (tup[:, 1:] != tup[:, :-1]).any(0)])
+        rank[order] = np.cumsum(new) - 1
+    m = Model(rank, log_k, g.threads, g.slots, g.chunks)
+    out = m.sort(log_run)
+    if n_vals:
+        assert np.array_equal(out, np.arange(k))
+        assert np.array_equal(index[order], np.argsort(rank))
+    else:
+        assert np.array_equal(out, np.sort(rank))
+
+
+# ---- K1's epilogue over the swizzled tile (csrc/partition.cu) ------------
+
+def _k1_epilogue_model(planes, values, counts_in, q_in, n, r, s, t_seg,
+                       lo_bit=0, width=1, splitters=None, fracs=None):
+    """K1 (or K1b with ``splitters``) as partition.cu computes it on numpy
+    uint32 (T, K) tiles: the sorted tile stored at the swizzled words
+    swz(slot), with the slot index riding under the last plane; the digit
+    histogram, K1b's binary searches and the run emission all read slot s
+    at word swz(s).  Returns (flat runs per operand, counts (T, R))."""
+    nk = len(planes)
+    T, K = planes[0].shape
+    sw = swz(np.arange(K))
+    outs = [np.zeros(T * r * s, dtype=np.uint32) for _ in (*planes, *values)]
+    counts = np.zeros((T, r), dtype=np.int64)
+    for t in range(T):
+        slot = np.arange(K)
+        if counts_in is None:
+            valid = t * K + slot < n
+        else:
+            valid = slot % q_in < np.repeat(counts_in[t], q_in)
+        keys = [np.where(valid, p[t], np.uint32(0xFFFFFFFF)) for p in planes]
+        order = np.lexsort([slot, *keys[::-1]])       # stable, plane 0 first
+        word = [np.empty(K, dtype=np.uint32) for _ in range(nk)]
+        idx = np.empty(K, dtype=np.int64)
+        for p in range(nk):
+            word[p][sw] = keys[p][order]
+        idx[sw] = order
+        n_valid = int(valid.sum())
+
+        def key_at(pos):
+            return [w[swz(pos)] for w in word]
+
+        if splitters is None:
+            sorted_keys = key_at(np.arange(K))
+            digit = np.zeros(K, dtype=np.int64)
+            for p in range(nk):
+                base = 32 * (nk - 1 - p)
+                ov_lo, ov_hi = max(lo_bit, base), min(lo_bit + width, base + 32)
+                if ov_hi > ov_lo:
+                    m = (1 << (ov_hi - ov_lo)) - 1
+                    digit |= ((sorted_keys[p].astype(np.int64) >> (ov_lo - base))
+                              & m) << (ov_lo - lo_bit)
+            hist = np.bincount(digit, minlength=r)[:r]
+            start = np.concatenate([[0], np.cumsum(hist)[:-1]])
+            cnt = hist.copy()
+            cnt[r - 1] = n_valid - start[r - 1]
+        else:
+            def rank_of(sv, or_equal):
+                lo, hi = 0, K
+                while lo < hi:
+                    mid = (lo + hi) >> 1
+                    c = 0
+                    for x, y in zip(key_at(mid), sv):
+                        if c == 0:
+                            c = (int(x) > int(y)) - (int(x) < int(y))
+                    if c < 0 or (or_equal and c == 0):
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                return lo
+
+            a_ = [0] * r
+            b_ = [0] * r
+            for d in range(1, r):
+                sv = [int(w[t, d - 1]) & 0xFFFFFFFF for w in splitters]
+                a_[d], b_[d] = rank_of(sv, False), rank_of(sv, True)
+            flag, prev = False, 0
+            cut = [0] * r
+            for d in range(1, r):
+                a, b = a_[d], b_[d]
+                lo, hi = max(a, prev), prev + s
+                flag |= lo > hi
+                u = (((t * 0x9E3779B9) + ((d * 0x85EBCA6B) & 0x7FFFFFFF))
+                     & 0xFFFFFFFF) >> 15 & 0xFFFF
+                fd = int(fracs[t, d - 1]) & 0xFFFFFFFF
+                prod = ((min(fd, 0xFFFF) * (b - a) + u) & 0xFFFFFFFF) >> 16
+                tgt = b if fd >= 0x10000 else a + prod
+                prev = min(min(max(tgt, lo), hi), n_valid)
+                cut[d] = prev
+            nxt = n_valid
+            for d in range(r - 1, 0, -1):
+                nxt = max(cut[d], min(nxt - s, b_[d]))
+                cut[d] = nxt
+            flag |= n_valid - cut[r - 1] > s
+            start = np.array(cut)
+            cnt = np.array(cut[1:] + [n_valid]) - start
+            if flag:
+                cnt[0] = K + 1
+        counts[t] = cnt
+        seg, j = divmod(t, t_seg)
+        for d in range(r):
+            i = np.arange(min(max(cnt[d], 0), s))
+            o = ((seg * r + d) * t_seg + j) * s + i
+            pos = start[d] + i
+            for p in range(nk):
+                outs[p][o] = word[p][swz(pos)]
+            for v, vals in enumerate(values):
+                buf = vals[t]                 # the staged payload tile
+                outs[nk + v][o] = buf[idx[swz(pos)]]
+    return outs, counts
+
+
+def _k1_valid(counts, r, s, t_seg):
+    T = counts.shape[0]
+    c = np.clip(counts, 0, s).reshape(T // t_seg, t_seg, r).transpose(0, 2, 1)
+    return (np.arange(s) < c[..., None]).reshape(-1)
+
+
+def _as_i32(a):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+@pytest.mark.parametrize("nk,nv,K,r,q,ties", [
+    (1, 0, 256, 4, None, False), (1, 1, 512, 8, 128, True),
+    (2, 1, 512, 4, None, True), (3, 2, 256, 4, 128, True),
+    (2, 0, 1024, 16, 256, False), (1, 8, 256, 4, None, True),
+])
+def test_k1_epilogue_model_matches_plain(nk, nv, K, r, q, ties):
+    """The swizzled epilogue against partition_pass_fused_plain: counts
+    exactly and every valid slot, payloads included (both orders of equal
+    keys are the stable one)."""
+    rng = np.random.default_rng(K + nk * 10 + nv)
+    T, t_seg, s = 4, 2, 3 * K // (2 * r) // 128 * 128 or 128
+    planes = [rng.integers(0, 1 << 32, (T, K), dtype=np.uint64)
+              .astype(np.uint32) for _ in range(nk)]
+    if ties:
+        planes[0] &= np.uint32(0xF000000F)
+        planes[0][:, K // 4: K // 2] = 0xFFFFFFFF
+    values = [rng.integers(0, 1 << 32, (T, K), dtype=np.uint64)
+              .astype(np.uint32) for _ in range(nv)]
+    width = r.bit_length() - 1
+    lo_bit = 32 * nk - width
+    cin = None if q is None else rng.integers(0, q + 1, (T, K // q)) \
+        .astype(np.int32)
+    n = T * K - 77
+    got, counts = _k1_epilogue_model(planes, values, cin, q, n, r, s, t_seg,
+                                     lo_bit=lo_bit, width=width)
+    want, pcounts = partition_pass_fused_plain(
+        [_as_i32(p) for p in planes], [_as_i32(v) for v in values],
+        None if cin is None else torch.from_numpy(cin), q_in=q,
+        n=None if q else n, r=r, s=s, lo_bit=lo_bit, width=width,
+        t_seg=t_seg)
+    np.testing.assert_array_equal(counts, pcounts.numpy())
+    m = _k1_valid(counts, r, s, t_seg)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[m], w.numpy().view(np.uint32)[m])
+
+
+@pytest.mark.parametrize("nk,nv,K,r,fracs,q", [
+    (1, 0, 512, 8, None, None), (1, 1, 256, 4, 0, 128),
+    (2, 1, 512, 4, 65536, None), (3, 0, 256, 8, None, 128),
+])
+def test_k1b_epilogue_model_matches_plain(nk, nv, K, r, fracs, q):
+    """K1b's binary searches on the swizzled words and thread 0's cut walk
+    against partition_pass_splitter_plain: counts bit for bit, poisoned
+    tiles included, and every valid slot."""
+    rng = np.random.default_rng(K * 3 + nk + nv)
+    T, t_seg, s = 4, 2, 256
+    planes = [rng.integers(0, 1 << 32, (T, K), dtype=np.uint64)
+              .astype(np.uint32) for _ in range(nk)]
+    planes[0] &= np.uint32(0x7000000F)              # ties across tiles
+    values = [rng.integers(0, 1 << 32, (T, K), dtype=np.uint64)
+              .astype(np.uint32) for _ in range(nv)]
+    srt = np.sort(planes[0], axis=1)
+    at = (np.arange(1, r) * K) // r
+    splitters = [srt[:, at]] + [np.full((T, r - 1), 0x80000000, np.uint32)
+                                for _ in range(nk - 1)]
+    splitters[0][0] = 0x0000000F          # tile 0: every key above, poisoned
+    f = rng.integers(0, 65537, (T, r - 1)).astype(np.int64) \
+        if fracs is None else np.full((T, r - 1), fracs, np.int64)
+    cin = None if q is None else rng.integers(q // 2, q + 1, (T, K // q)) \
+        .astype(np.int32)
+    n = T * K - 33
+    got, counts = _k1_epilogue_model(planes, values, cin, q, n, r, s, t_seg,
+                                     splitters=splitters, fracs=f)
+    want, pcounts = partition_pass_splitter_plain(
+        [_as_i32(p) for p in planes], [_as_i32(v) for v in values],
+        None if cin is None else torch.from_numpy(cin),
+        splitters=[_as_i32(w) for w in splitters],
+        splitter_fracs=torch.from_numpy(f.astype(np.int32)), q_in=q,
+        n=None if q else n, r=r, s=s, t_seg=t_seg)
+    np.testing.assert_array_equal(counts, pcounts.numpy())
+    m = _k1_valid(counts, r, s, t_seg)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[m], w.numpy().view(np.uint32)[m])

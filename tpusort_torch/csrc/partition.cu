@@ -1,20 +1,29 @@
 // K1 and K1b: one fused MSD partition pass, raw-key mode: 1-3 key planes,
-// payloads unstable; K1b cuts the runs at splitters instead of digits.
+// payloads riding with their keys; K1b cuts the runs at splitters instead
+// of digits.
 //
 // Replaces the raw-key branch of the Pallas kernel _fused_kernel behind
 // tpusort/kernels/partition.py:partition_pass_fused, with and without its
 // splitter mode.  One CTA owns one K-element tile (K = 16384 on the main
-// path):
+// path), laid out as the row tile sorts lay a row out
+// (kernels/bitonic.py:tile_sort_geometry: threads x E slots a thread x
+// chunks = K; 512 x 32 for one plane at 16,384):
 //
-//   1. load the tile's key planes into shared memory; a slot is valid iff
-//      its global index < n (pass 0) or slot % q_in < counts_in[t, slot /
-//      q_in] (later passes); invalid slots become 0xFFFFFFFF in every plane,
-//      which sorts last and ties only equal keys, so the keys-only multiset
-//      stays exact (with payloads the engine checks that no valid key is
-//      all-ones);
-//   2. sort the tile ascending, lexicographically over the planes (merge
-//      levels above sorted_run only); with payloads a 16-bit slot index
-//      rides the network in place of the payload words;
+//   1. load the tile's key planes (reg_sort.cuh:load_row, 16-byte loads)
+//      into shared memory; a slot is valid iff its global index < n
+//      (pass 0) or slot % q_in < counts_in[t, slot / q_in] (later passes);
+//      invalid slots become 0xFFFFFFFF in every plane, which sorts last and
+//      ties only equal keys, so the keys-only multiset stays exact (with
+//      payloads the engine checks that no valid key is all-ones);
+//   2. sort the tile ascending, lexicographically over the planes
+//      (reg_sort.cuh:reg_block_sort: the steps inside a thread's E slots in
+//      registers, inside a warp's 32 E on shuffles, only the longer ones in
+//      shared memory; merge levels above sorted_run only, none in the
+//      emit-only mode, sorted_run = K); with payloads a 16-bit slot index
+//      is packed under the last plane, so equal keys keep their slot order:
+//      the tile's order is the stable one (the contract allows any order
+//      of ties; the plain version is stable too, so payloads equal it even
+//      on tied keys);
 //   3. K1: histogram the digit bits [lo_bit, lo_bit + width) of the sorted
 //      tile, counted across the planes (plane 0 the most significant 32
 //      bits), with warp-aggregated shared atomics (sorted input gives ~one
@@ -26,34 +35,44 @@
 //      the engine compares counts exactly);
 //   4. write run d of tile t = seg * t_seg + j to
 //      out[((seg * R + d) * t_seg + j) * S + [0, min(count, S))], the
-//      digit-major layout of the next pass (the fused exchange), for every
-//      key plane from shared memory and every payload word gathered from the
-//      tile's input by the slot index; write the unclamped counts to
+//      digit-major layout of the next pass (the fused exchange): every key
+//      plane from the sorted tile, then each payload word, its tile staged
+//      in shared memory over plane 0 (reg_sort.cuh:stage_row) and gathered
+//      from there by the slot index; write the unclamped counts to
 //      counts_out[t, :].  Slots past a run's count are left unwritten.
 //
-// Bound: a pass reads the operands once and writes 1.5x (S1 = 1.5 K / R) or
-// 1x of them, so at HBM speed it is memory-bound; this first version is
-// bound instead by the shared-memory sort network (105 stages for a full
-// 16384 sort, 69 for a merge from 256-runs), whose cost grows with the key
-// planes.  K1b's cut points add two binary searches per boundary and one
+// Everything that reads the sorted tile (the histogram, K1b's binary
+// searches, the emission) reads slot s at its swizzled word swz(s).
+//
+// Bound: a pass reads the operands once and writes 1.5x (S = 1.5 K / R) or
+// 1x of them, so at HBM speed it is memory-bound; the sort network (105
+// steps for a full 16384 sort, 69 for a merge from 256-runs, 10 and 1 of
+// them in shared memory) and the scattered emission are what it runs into
+// first.  K1b's cut points add two binary searches per boundary and one
 // thread's O(R) walk, next to nothing.  Shared memory: 64 KB a key plane
 // plus 32 KB of slot index at K = 16384, so 3 planes with payloads (224 KB)
 // is the largest mode; K1b reads its splitters from global memory and
 // keeps its cut points in the histogram's arrays, so it needs no more.
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
+#include "reg_sort.cuh"
 #include "tile_sort.cuh"
 
 namespace tpusort {
 
 constexpr int kMaxRadix = 256;
+// the kernel's static shared memory (hist, start, n_valid) as ptxas lays
+// it out
+constexpr int kStaticSmem = 2064;
 
-// Bits [lo, lo + width) of slot i's NK-plane key, width <= 8.
+// Bits [lo, lo + width) of the sorted slot s's NK-plane key, width <= 8.
 template <int NK, bool IDX>
-__device__ inline int digit_of(const SmemTile<NK, IDX>& t, int i, int lo,
+__device__ inline int digit_of(const RegTile<NK, IDX>& t, int s, int lo,
                                int width) {
+  const int w = swz(s);
   uint32_t d = 0;
 #pragma unroll
   for (int p = 0; p < NK; ++p) {
@@ -62,7 +81,7 @@ __device__ inline int digit_of(const SmemTile<NK, IDX>& t, int i, int lo,
     const int ov_hi = min(lo + width, base + 32);
     if (ov_hi > ov_lo) {
       const uint32_t m = (1u << (ov_hi - ov_lo)) - 1u;
-      d |= ((t.key[p][i] >> (ov_lo - base)) & m) << (ov_lo - lo);
+      d |= ((t.key[p][w] >> (ov_lo - base)) & m) << (ov_lo - lo);
     }
   }
   return (int)d;
@@ -79,17 +98,18 @@ struct Splitters {
 // lexicographically over the planes, counted over all K slots, invalid
 // sentinels included (as the Pallas kernel counts them).
 template <int NK, bool IDX>
-__device__ inline int rank_of(const SmemTile<NK, IDX>& t, int K,
+__device__ inline int rank_of(const RegTile<NK, IDX>& t, int K,
                               const uint32_t* s, bool or_equal) {
   int lo = 0, hi = K;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
+    const int w = swz(mid);
     int c = 0;
 #pragma unroll
     for (int p = 0; p < NK; ++p) {
       if (c == 0) {
-        const uint32_t w = t.key[p][mid];
-        c = (w > s[p]) - (w < s[p]);
+        const uint32_t x = t.key[p][w];
+        c = (x > s[p]) - (x < s[p]);
       }
     }
     if (c < 0 || (or_equal && c == 0)) {
@@ -113,7 +133,7 @@ __device__ inline int rank_of(const SmemTile<NK, IDX>& t, int K,
 // (unclamped).  The binary searches take one thread per boundary; the walk
 // is sequential, on thread 0.  Ends with __syncthreads().
 template <int NK, bool IDX>
-__device__ void splitter_cuts(const SmemTile<NK, IDX>& tile,
+__device__ void splitter_cuts(const RegTile<NK, IDX>& tile,
                               const Splitters& spl, int t, int K, int R,
                               int S, int n_valid, int* count, int* start) {
   const size_t row = (size_t)t * (R - 1);
@@ -161,18 +181,43 @@ __device__ void splitter_cuts(const SmemTile<NK, IDX>& tile,
   __syncthreads();
 }
 
-template <int NK, bool IDX, bool SPL>
-__global__ void __launch_bounds__(kThreads)
+// Each run d of the sorted tile, slots [start[d], start[d] + min(count[d],
+// S)), to its place in out (the fused exchange); word(s) gives sorted slot
+// s's word.
+template <class Word>
+__device__ __forceinline__ void emit_runs(uint32_t* __restrict__ out,
+                                          const int* count, const int* start,
+                                          int R, int S, int seg, int t_seg,
+                                          int j, Word word) {
+  for (int e = threadIdx.x; e < R * S; e += blockDim.x) {
+    const int d = e / S;
+    const int i = e - d * S;
+    if (i < count[d]) {
+      out[((size_t)(seg * R + d) * t_seg + j) * S + i] = word(start[d] + i);
+    }
+  }
+}
+
+// The most threads an instance takes: the row sorts' limit, and with
+// payloads at most 512 (the emission holds more state than a row sort; the
+// geometry never gives a tile with payloads more threads).
+__host__ __device__ constexpr int partition_threads(int nk, bool idx, int e) {
+  return idx && max_threads(nk, idx, e) > kThreads / 2 ? kThreads / 2
+                                                        : max_threads(nk, idx, e);
+}
+
+template <int NK, bool IDX, bool SPL, int E>
+__global__ void __launch_bounds__(partition_threads(NK, IDX, E))
 partition_raw_kernel(Planes planes, Values vals, Splitters spl,
                      const int32_t* __restrict__ counts_in, int q_in,
                      long long n, int K, int log_k, int R, int S, int lo_bit,
-                     int width, int t_seg, int log_run,
+                     int width, int t_seg, int log_run, int chunks,
                      int32_t* __restrict__ counts_out) {
   extern __shared__ uint32_t smem[];
   __shared__ int hist[kMaxRadix];
   __shared__ int start[kMaxRadix];
   __shared__ int n_valid;
-  const SmemTile<NK, IDX> tile(smem, K);
+  const RegTile<NK, IDX> tile(smem, K);
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -181,18 +226,26 @@ partition_raw_kernel(Planes planes, Values vals, Splitters spl,
   __syncthreads();
 
   const size_t first = (size_t)t * K;
-  const int32_t* cin = counts_in ? counts_in + (size_t)t * (K / q_in) : nullptr;
   int mine = 0;
-  for (int i = tid; i < K; i += blockDim.x) {
-    const bool v = cin ? (i % q_in) < cin[i / q_in] : (long long)(first + i) < n;
-    tile.load(i, planes.in, first, v);
-    mine += v;
+  if (counts_in != nullptr) {
+    const int32_t* cin = counts_in + (size_t)t * (K / q_in);
+    load_row<E>(tile, planes.in, first, K, chunks, [&](int i) {
+      const bool v = (i % q_in) < cin[i / q_in];
+      mine += v;
+      return v;
+    });
+  } else {
+    load_row<E>(tile, planes.in, first, K, chunks, [&](int i) {
+      const bool v = (long long)(first + i) < n;
+      mine += v;
+      return v;
+    });
   }
   mine = __reduce_add_sync(0xFFFFFFFFu, mine);
   if ((tid & 31) == 0) atomicAdd(&n_valid, mine);
   __syncthreads();
 
-  block_sort(tile, log_k, log_run);
+  reg_block_sort<E>(tile, log_k, log_run, chunks);
 
   if constexpr (SPL) {
     splitter_cuts(tile, spl, t, K, R, S, n_valid, hist, start);
@@ -224,50 +277,105 @@ partition_raw_kernel(Planes planes, Values vals, Splitters spl,
 
   const int seg = t / t_seg;
   const int j = t - seg * t_seg;
-  for (int e = tid; e < R * S; e += blockDim.x) {
-    const int d = e / S;
-    const int i = e - d * S;
-    if (i < hist[d]) {
-      const size_t o = ((size_t)(seg * R + d) * t_seg + j) * S + i;
-      const int pos = start[d] + i;
 #pragma unroll
-      for (int p = 0; p < NK; ++p) planes.out[p][o] = tile.key[p][pos];
-      if (IDX) {
-        const size_t src = first + tile.idx[pos];
-        for (int v = 0; v < vals.count; ++v) vals.out[v][o] = vals.in[v][src];
-      }
+  for (int p = 0; p < NK; ++p) {
+    const uint32_t* key = tile.key[p];
+    emit_runs(planes.out[p], hist, start, R, S, seg, t_seg, j,
+              [=](int s) { return key[swz(s)]; });
+  }
+  if constexpr (IDX) {
+    uint32_t* buf = tile.key[0];
+    const uint16_t* idx = tile.idx;
+    for (int v = 0; v < vals.count; ++v) {
+      __syncthreads();           // plane 0's reads (or the last word's)
+      stage_row<E>(buf, vals.in[v] + first, K, chunks);
+      __syncthreads();
+      emit_runs(vals.out[v], hist, start, R, S, seg, t_seg, j,
+                [=](int s) { return buf[idx[swz(s)]]; });
     }
   }
 }
 
-template <int NK, bool IDX, bool SPL>
+// The dynamic shared memory an instance is allowed, once per device: its
+// tile at the largest K (a power of two up to 32768) that fits a CTA beside
+// the static arrays, which is every tile the wrapper's check_fits takes.
+template <int NK, bool IDX>
+constexpr int partition_smem_cap() {
+  int k = 32768;
+  while (RegTile<NK, IDX>::bytes(k) + kStaticSmem > (size_t)kMaxSmem) k /= 2;
+  return (int)RegTile<NK, IDX>::bytes(k);
+}
+
+template <int NK, bool IDX, bool SPL, int E>
 int launch_partition(const Planes& planes, const Values& vals,
                      const Splitters& spl, const int32_t* counts_in, int q_in,
                      long long n, int T, int K, int R, int S, int lo_bit,
-                     int width, int t_seg, int log_run, int32_t* counts_out,
+                     int width, int t_seg, int log_run, int threads,
+                     int chunks, size_t smem, int32_t* counts_out,
                      cudaStream_t stream) {
   const int log_k = 31 - __builtin_clz(K);
-  const size_t smem = SmemTile<NK, IDX>::bytes(K);
-  cudaError_t err = cudaFuncSetAttribute(
-      partition_raw_kernel<NK, IDX, SPL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<bool> smem_set[kMaxDevices];
+  cudaError_t err =
+      allow_smem_once((const void*)partition_raw_kernel<NK, IDX, SPL, E>,
+                      partition_smem_cap<NK, IDX>(), smem_set);
   if (err != cudaSuccess) return (int)err;
-  partition_raw_kernel<NK, IDX, SPL><<<T, kThreads, smem, stream>>>(
+  partition_raw_kernel<NK, IDX, SPL, E><<<T, threads, smem, stream>>>(
       planes, vals, spl, counts_in, q_in, n, K, log_k, R, S, lo_bit, width,
-      t_seg, log_run, counts_out);
+      t_seg, log_run, chunks, counts_out);
   return (int)cudaGetLastError();
+}
+
+// Host side: the instance for (n_planes, has values, slots a thread) with
+// SPL, launched at (threads, chunks, smem); cudaErrorInvalidValue for a
+// geometry no instance was built for.
+template <bool SPL>
+int dispatch_partition(const Planes& planes, const Values& vals,
+                       const Splitters& spl, int n_planes,
+                       const int32_t* counts_in, int q_in, long long n,
+                       int T, int K, int R, int S, int lo_bit, int width,
+                       int t_seg, int sorted_run, int threads, int slots,
+                       size_t smem, int32_t* counts_out,
+                       cudaStream_t stream) {
+  int chunks = 0;
+  if (R < 1 || R > kMaxRadix || (K & (K - 1)) != 0 ||
+      !reg_geometry_ok(K, threads, slots, smem,
+                       (size_t)K * (4 * n_planes + (vals.count > 0 ? 2 : 0)),
+                       &chunks)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int log_run = sorted_run > 0 ? 31 - __builtin_clz(sorted_run) : 0;
+  return dispatch_slots(slots, [&](auto e) {
+    return dispatch_mode(n_planes, vals.count > 0, [&](auto nk, auto idx) {
+      constexpr int kNk = decltype(nk)::value;
+      constexpr bool kIdx = decltype(idx)::value;
+      constexpr int kE = decltype(e)::value;
+      if constexpr (!fits_registers(kNk, kIdx, kE)) {
+        return (int)cudaErrorInvalidValue;
+      } else {
+        if (threads > partition_threads(kNk, kIdx, kE)) {
+          return (int)cudaErrorInvalidValue;
+        }
+        return launch_partition<kNk, kIdx, SPL, kE>(
+            planes, vals, spl, counts_in, q_in, n, T, K, R, S, lo_bit, width,
+            t_seg, log_run, threads, chunks, smem, counts_out, stream);
+      }
+    });
+  });
 }
 
 }  // namespace tpusort
 
 // keys_in/keys_out: n_planes (1-3) device pointers each; vals_in/vals_out:
-// n_vals (0-8) device pointers each.  Returns a cudaError_t.
+// n_vals (0-8) device pointers each.  K a power of two; threads, slots (E)
+// and smem the geometry of kernels/bitonic.py:tile_sort_geometry(K,
+// n_planes, n_vals).  Returns a cudaError_t (cudaErrorInvalidValue for a
+// geometry no instance was built for).
 extern "C" int tpusort_partition_raw(
     const void* const* keys_in, void* const* keys_out, int n_planes,
     const void* const* vals_in, void* const* vals_out, int n_vals,
     const void* counts_in, int q_in, long long n, int T, int K, int R, int S,
-    int lo_bit, int width, int t_seg, int sorted_run, void* counts_out,
-    void* stream) {
+    int lo_bit, int width, int t_seg, int sorted_run, int threads, int slots,
+    int smem, void* counts_out, void* stream) {
   using namespace tpusort;
   Planes planes;
   Values vals;
@@ -275,13 +383,10 @@ extern "C" int tpusort_partition_raw(
                      &planes, &vals)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int log_run = sorted_run > 0 ? 31 - __builtin_clz(sorted_run) : 0;
-  return dispatch_mode(n_planes, n_vals > 0, [&](auto nk, auto idx) {
-    return launch_partition<decltype(nk)::value, decltype(idx)::value, false>(
-        planes, vals, Splitters{}, (const int32_t*)counts_in, q_in, n, T, K, R,
-        S, lo_bit, width, t_seg, log_run, (int32_t*)counts_out,
-        (cudaStream_t)stream);
-  });
+  return dispatch_partition<false>(
+      planes, vals, Splitters{}, n_planes, (const int32_t*)counts_in, q_in, n,
+      T, K, R, S, lo_bit, width, t_seg, sorted_run, threads, slots,
+      (size_t)smem, (int32_t*)counts_out, (cudaStream_t)stream);
 }
 
 // K1b: as tpusort_partition_raw, with the runs cut at splitters (n_planes
@@ -292,11 +397,12 @@ extern "C" int tpusort_partition_splitter(
     const void* const* vals_in, void* const* vals_out, int n_vals,
     const void* counts_in, int q_in, long long n, int T, int K, int R, int S,
     int t_seg, int sorted_run, const void* const* splitters,
-    const void* fracs, void* counts_out, void* stream) {
+    const void* fracs, int threads, int slots, int smem, void* counts_out,
+    void* stream) {
   using namespace tpusort;
   Planes planes;
   Values vals;
-  if (R < 2 || R > kMaxRadix ||
+  if (R < 2 ||
       !make_operands(keys_in, keys_out, n_planes, vals_in, vals_out, n_vals,
                      &planes, &vals)) {
     return (int)cudaErrorInvalidValue;
@@ -306,12 +412,10 @@ extern "C" int tpusort_partition_splitter(
     spl.word[p] = static_cast<const uint32_t*>(splitters[p]);
   }
   spl.frac = static_cast<const uint32_t*>(fracs);
-  const int log_run = sorted_run > 0 ? 31 - __builtin_clz(sorted_run) : 0;
-  return dispatch_mode(n_planes, n_vals > 0, [&](auto nk, auto idx) {
-    return launch_partition<decltype(nk)::value, decltype(idx)::value, true>(
-        planes, vals, spl, (const int32_t*)counts_in, q_in, n, T, K, R, S, 0,
-        1, t_seg, log_run, (int32_t*)counts_out, (cudaStream_t)stream);
-  });
+  return dispatch_partition<true>(
+      planes, vals, spl, n_planes, (const int32_t*)counts_in, q_in, n, T, K,
+      R, S, 0, 1, t_seg, sorted_run, threads, slots, (size_t)smem,
+      (int32_t*)counts_out, (cudaStream_t)stream);
 }
 
 extern "C" const char* tpusort_error_string(int err) {

@@ -1,5 +1,6 @@
 // Block-wide row sort with the short steps in registers and warp shuffles,
-// used by the row tile sorts (K3, K9, K10; csrc/sort_tiles.cu).
+// used by the row tile sorts (K3, K9, K10; csrc/sort_tiles.cu) and the
+// raw-key partition pass (K1, K1b; csrc/partition.cu).
 //
 // The network is block_sort's (tile_sort.cuh): for each merge level lk
 // (runs of 2^(lk-1) merged into runs of 2^lk) a mirror step, slot i against
@@ -416,53 +417,61 @@ __device__ void store_row(const RegTile<NK, IDX>& t, uint32_t* const* dst,
   }
 }
 
-// Each payload word of slots [0, K): staged whole in shared memory (over
-// key plane 0, which store_row has read; P >= K words; loads batched as
-// in load_row), then gathered from there by
-// the slot index, clamped to K - 1, and stored in 16-byte stores.  Expects
-// the planes already stored; synchronises before each staging.
-template <int E, int NK>
-__device__ void gather_payloads(const RegTile<NK, true>& t,
-                                const Values& vals, size_t first, int K,
-                                int chunks) {
+// Words in[0..K) to buf[0..K) in shared memory (P >= K words, P =
+// blockDim.x * E * chunks): 16-byte loads where `in` is aligned, else
+// 4-byte ones, a batch of loads in flight before any of them is stored
+// (as in load_row).  Does not synchronise.
+template <int E>
+__device__ void stage_row(uint32_t* buf, const uint32_t* in, int K,
+                          int chunks) {
   constexpr int kV = E / 4;
   constexpr int kVB = kV < 4 ? kV : 4;
   constexpr int kSB = E < 16 ? E : 16;
   const int nt = blockDim.x;
-  uint32_t* buf = t.key[0];
-  for (int v = 0; v < vals.count; ++v) {
-    const uint32_t* in = vals.in[v] + first;
-    uint32_t* out = vals.out[v] + first;
-    __syncthreads();
-    if ((reinterpret_cast<uintptr_t>(in) & 15) == 0) {
-      for (int g = 0; g < chunks * kV; g += kVB) {
-        uint4 q[kVB];
+  if ((reinterpret_cast<uintptr_t>(in) & 15) == 0) {
+    for (int g = 0; g < chunks * kV; g += kVB) {
+      uint4 q[kVB];
 #pragma unroll
-        for (int k = 0; k < kVB; ++k) {
-          const int i = ((g + k) * nt + (int)threadIdx.x) * 4;
-          if (i < K) q[k] = *reinterpret_cast<const uint4*>(in + i);
-        }
-#pragma unroll
-        for (int k = 0; k < kVB; ++k) {
-          const int i = ((g + k) * nt + (int)threadIdx.x) * 4;
-          if (i < K) *reinterpret_cast<uint4*>(buf + i) = q[k];
-        }
+      for (int k = 0; k < kVB; ++k) {
+        const int i = ((g + k) * nt + (int)threadIdx.x) * 4;
+        if (i < K) q[k] = *reinterpret_cast<const uint4*>(in + i);
       }
-    } else {
-      for (int g = 0; g < chunks * E; g += kSB) {
-        uint32_t w[kSB];
 #pragma unroll
-        for (int k = 0; k < kSB; ++k) {
-          const int i = (g + k) * nt + (int)threadIdx.x;
-          if (i < K) w[k] = in[i];
-        }
-#pragma unroll
-        for (int k = 0; k < kSB; ++k) {
-          const int i = (g + k) * nt + (int)threadIdx.x;
-          if (i < K) buf[i] = w[k];
-        }
+      for (int k = 0; k < kVB; ++k) {
+        const int i = ((g + k) * nt + (int)threadIdx.x) * 4;
+        if (i < K) *reinterpret_cast<uint4*>(buf + i) = q[k];
       }
     }
+  } else {
+    for (int g = 0; g < chunks * E; g += kSB) {
+      uint32_t w[kSB];
+#pragma unroll
+      for (int k = 0; k < kSB; ++k) {
+        const int i = (g + k) * nt + (int)threadIdx.x;
+        if (i < K) w[k] = in[i];
+      }
+#pragma unroll
+      for (int k = 0; k < kSB; ++k) {
+        const int i = (g + k) * nt + (int)threadIdx.x;
+        if (i < K) buf[i] = w[k];
+      }
+    }
+  }
+}
+
+// Each payload word of slots [0, K): staged whole in shared memory (over
+// key plane 0, which store_row has read; stage_row), then gathered from
+// there by the slot index, clamped to K - 1, and stored in 16-byte stores.
+// Expects the planes already stored; synchronises before each staging.
+template <int E, int NK>
+__device__ void gather_payloads(const RegTile<NK, true>& t,
+                                const Values& vals, size_t first, int K,
+                                int chunks) {
+  uint32_t* buf = t.key[0];
+  for (int v = 0; v < vals.count; ++v) {
+    uint32_t* out = vals.out[v] + first;
+    __syncthreads();
+    stage_row<E>(buf, vals.in[v] + first, K, chunks);
     __syncthreads();
     auto src = [&](int i) {
       const int s = t.idx[swz(i)];

@@ -2,26 +2,66 @@
 //
 // K5 replaces the Pallas kernel _scan_kernel behind
 // tpusort/kernels/scanhist.py:prefix_sum_tiles.  That kernel threads one
-// carry through a grid that runs in order; CTAs run concurrently here, so
-// the scan is reduce-then-scan, three launches behind one C entry:
+// carry through a grid that runs in order, "the TPU-native replacement for
+// CUB's decoupled lookback"; CTAs run in no order here, so the port goes
+// back to a look-back (after Merrill and Garland's single-pass scan with
+// decoupled look-back).  One launch, scan_lookback_kernel, reads each
+// element once and writes it once:
 //
-//   1. scan_totals_kernel: CTA b sums its fixed chunk of 8,192 elements
-//      (1,024 threads x 8 consecutive elements) into totals[b];
-//   2. scan_offsets_kernel: one CTA turns totals into their exclusive
-//      prefix sums in place (at most 2^18 of them for n < 2^31);
-//   3. scan_apply_kernel: CTA b scans its chunk again (each thread its 8
-//      elements, a warp-shuffle scan of the thread sums, a scan of the warp
-//      sums) and adds offsets[b].
+//   1. a CTA takes its tile id from an atomic counter, in the order the
+//      CTAs start (not blockIdx): every tile it waits on has started, and
+//      none waits on a later one, so the look-back always progresses;
+//   2. it copies its tile of 8,192 elements into shared memory with
+//      cp.async (16 bytes a copy, striped over 512 threads, where the tile
+//      is whole and the views aligned; else 4-byte copies and zeros past
+//      n), reduces it (each thread its 16 consecutive elements in order,
+//      then a warp-shuffle scan of the thread sums and a scan of the warp
+//      sums) and publishes the aggregate in the tile's descriptor;
+//   3. warp 0 looks back (look_back): tiles come in groups of 128, and
+//      tile b's exclusive prefix is its group's anchor, the sum of every
+//      tile before the group, plus the group's aggregates below b, which
+//      the warp reads (4 a lane, all in flight) and sums in a fixed tree;
+//      the group's last tile publishes the next anchor;
+//   4. the CTA scans its tile in place from that prefix and stores it,
+//      16 bytes a thread, striped.
 //
-// A single chunk skips 1 and 2.  Every chunk, thread and shuffle step is
-// fixed by the index alone, so the float32 result does not depend on how
-// the CTAs are scheduled: the same input gives the same bits on every run.
-// uint32 sums wrap.  The exclusive scan is the inclusive one minus the
-// element, as in the Pallas kernel.  Offsets are 64-bit.
+// Descriptors are 64-bit words, zeroed by the wrapper (one fill; the
+// kernel allocates nothing): an aggregate is 1 << 32 | its bits; an
+// anchor is its carry with status 1 in the two low bits.  Both are stored
+// with release semantics and read with relaxed loads followed by one
+// acquire fence, at device scope.
 //
-// Bound: bytes.  The input is read twice and the output written once, 1.5x
-// the words the function must move (a decoupled-lookback single pass would
-// read it once; later work).
+// float32 stays bit-reproducible and accurate.  A textbook look-back adds
+// its predecessors' aggregates in whatever order their publication races
+// leave, so the bits would depend on timing.  Here every sum has a fixed
+// association: an anchor is the previous anchor plus a fixed tree of its
+// group's aggregates, so the anchors are one left fold over the groups,
+// and a tile's prefix adds a fixed tree of the group's aggregates below
+// it; within a tile the order is fixed by the index alone.  So the same
+// input gives the same bits on every run, whatever the schedule.  The
+// look-back sums in float64 for float32 input (anchors keep 50 mantissa
+// bits): a float32 left fold over the tiles, the Pallas kernel's carry
+// order, drifts with their number, past 1e-6 of the running sum at 2^22.
+// Integer sums wrap (uint32; int32 as its bits) and are exact in any
+// order, so the same code serves all three types.  The exclusive scan is
+// the inclusive one minus the element, as in the Pallas kernel.
+//
+// What paces it.  Any look-back waits, after its own copy, until every
+// earlier tile it reads has published (tiles finish their copies out of
+// order), plus a round trip to L2; here a tile also waits for its group's
+// anchor, one hop of the anchor chain per 128 tiles.  Other designs this
+// kernel went through ran slower at 2^28: a window folded forward from the
+// nearest inclusive prefix one tile at a time (the fold is serial), a
+// Fenwick tree of node sums (chains of dependent publications), a Fenwick
+// tree over the groups (spills at 32 registers) and tiles held in
+// registers (two CTAs an SM); a decoupled look-back over the groups in
+// place of the anchor chain ran no faster.  The tile lives in shared
+// memory, so a thread holds 32 registers and four 512-thread CTAs share
+// an SM: while some wait in the look-back, the others' copies keep the
+// memory busy.
+//
+// Bound: bytes.  Each element is read once and written once: 2 words an
+// element at 3.35 TB/s (0.641 ms at 2^28); descriptors add 8 bytes a tile.
 //
 // K6 replaces _hist_kernel behind scanhist.py:digit_histogram_tiles, which
 // accumulates into one VMEM vector across the ordered grid.  Here each CTA
@@ -35,18 +75,70 @@
 // one by one.  Bound: bytes (each key read once).
 #include <cuda_runtime.h>
 
+#include <cuda/atomic>
+
 #include <cstdint>
 
 namespace tpusort {
 
-constexpr int kScanThreads = 1024;
-constexpr int kScanItems = 8;
-constexpr int kScanChunk = kScanThreads * kScanItems;
+constexpr int kScanThreads = 512;
+constexpr int kScanItems = 16;
+constexpr int kScanTile = kScanThreads * kScanItems;
+constexpr int kGroupTiles = 128;                  // tiles a group anchors
+constexpr int kLookSlots = kGroupTiles / 32;      // descriptors a lane reads
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
+constexpr unsigned long long kPublished = 1ull << 32;  // an aggregate's flag
 
 template <class T> struct Vec4;
 template <> struct Vec4<float> { using type = float4; };
 template <> struct Vec4<uint32_t> { using type = uint4; };
+
+// The sums the look-back forms from tile aggregates, and the anchors'
+// descriptor words (status in the low two bits, 0 = not yet published).
+// uint32: the sum itself, wrapping.  float32: float64, the anchor's two
+// lowest mantissa bits cleared for the status when it is published.
+template <class T> struct Carry;
+
+template <> struct Carry<uint32_t> {
+  using type = uint32_t;
+  static __device__ __forceinline__ uint32_t of(uint32_t bits) { return bits; }
+  static __device__ __forceinline__ unsigned long long pack(uint32_t c) {
+    return (unsigned long long)c << 2 | 1u;
+  }
+  static __device__ __forceinline__ uint32_t unpack(unsigned long long w) {
+    return (uint32_t)(w >> 2);
+  }
+};
+
+template <> struct Carry<float> {
+  using type = double;
+  static __device__ __forceinline__ double of(uint32_t bits) {
+    return (double)__uint_as_float(bits);
+  }
+  static __device__ __forceinline__ unsigned long long pack(double c) {
+    return ((unsigned long long)__double_as_longlong(c) & ~3ull) | 1u;
+  }
+  static __device__ __forceinline__ double unpack(unsigned long long w) {
+    return __longlong_as_double((long long)(w & ~3ull));
+  }
+};
+
+__device__ __forceinline__ uint32_t bits_of(uint32_t v) { return v; }
+__device__ __forceinline__ uint32_t bits_of(float v) {
+  return __float_as_uint(v);
+}
+
+using Descriptor = cuda::atomic_ref<unsigned long long,
+                                    cuda::thread_scope_device>;
+
+__device__ __forceinline__ void publish(unsigned long long* d,
+                                        unsigned long long w) {
+  Descriptor(*d).store(w, cuda::std::memory_order_release);
+}
+
+__device__ __forceinline__ unsigned long long peek(unsigned long long* d) {
+  return Descriptor(*d).load(cuda::std::memory_order_relaxed);
+}
 
 // Inclusive scan of v over the warp's lanes, in lane order.
 template <class T>
@@ -83,123 +175,196 @@ __device__ inline T block_exclusive(T v, T* total) {
   __syncthreads();
   const T base = warp_sum[warp] + excl;
   *total = block_total;
-  __syncthreads();               // the arrays are free for the next call
   return base;
 }
 
-// The thread's kScanItems consecutive elements from `first`; zero past n.
+// Asynchronous copies from global to shared memory (cp.async): the data
+// in flight holds no registers.
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::
+               "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::
+               "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+               "memory");
+}
+
+// Tile b's exclusive prefix, on one warp (every lane returns it).  b lies
+// in group g = b / 128 at position r = b % 128.  Lane l waits, with relaxed
+// loads all in flight together, for the aggregates of the group's tiles
+// 4 l .. 4 l + 3 that lie below b (look[] keeps them), and lane 31 also
+// for the group's anchor A(g), the sum of every tile before the group
+// (A(0) = 0); then an acquire fence.  The group's aggregates below b are
+// summed in a fixed tree: each lane its 4 in order, then the lanes' sums
+// by butterfly (every lane ends with the same bits: addition commutes).
+// The prefix is A(g) + that sum.  The group's last tile also publishes the
+// next anchor, A(g + 1) = A(g) + (that sum + its own aggregate).
+template <class T>
+__device__ typename Carry<T>::type look_back(unsigned long long* agg,
+                                             unsigned long long* anchor,
+                                             long long b, long long nb,
+                                             int lane, T total,
+                                             uint32_t* look) {
+  using C = Carry<T>;
+  using V = typename C::type;
+  const long long g = b / kGroupTiles;
+  const int r = (int)(b - g * kGroupTiles);
+  const long long first = g * kGroupTiles;
+  unsigned pending = 0;                      // slots still to be read
+#pragma unroll
+  for (int k = 0; k < kLookSlots; ++k) {
+    if (lane * kLookSlots + k < r) pending |= 1u << k;
+  }
+  unsigned long long a = lane == 31 && g > 0 ? 0 : C::pack(0);
+  while (__any_sync(kFullWarp, pending != 0 || a == 0)) {
+#pragma unroll
+    for (int k = 0; k < kLookSlots; ++k) {
+      if (pending & (1u << k)) {
+        const int i = lane * kLookSlots + k;
+        const unsigned long long w = peek(agg + first + i);
+        if (w) {
+          look[i] = (uint32_t)w;
+          pending &= ~(1u << k);
+        }
+      }
+    }
+    if (a == 0) a = peek(anchor + g);
+    if (pending != 0 || a == 0) __nanosleep(32);
+  }
+  cuda::atomic_thread_fence(cuda::std::memory_order_acquire,
+                            cuda::thread_scope_device);
+  V s = 0;
+#pragma unroll
+  for (int k = 0; k < kLookSlots; ++k) {
+    const int i = lane * kLookSlots + k;
+    if (i < r) s += C::of(look[i]);
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) s += __shfl_xor_sync(kFullWarp, s, d);
+  const V base = C::unpack(__shfl_sync(kFullWarp, a, 31));
+  if (lane == 0 && r == kGroupTiles - 1 && b + 1 < nb) {
+    publish(anchor + g + 1, C::pack(base + (s + C::of(bits_of(total)))));
+  }
+  return base + s;
+}
+
+// One launch: a CTA takes tile b from the counter, copies it into shared
+// memory (16-byte cp.async, striped over the threads, where the whole tile
+// is aligned and inside n; else 4-byte ones and zeros past n), reduces it
+// (thread t its 16 consecutive elements in order, then block_exclusive),
+// publishes its aggregate, looks back for its exclusive prefix, scans the
+// tile in place (element j of a thread is (the prefix + the sum below the
+// thread) + the thread's own running sum, in that order) and stores it
+// striped, 16 bytes a thread where aligned.  The tile lives in shared
+// memory, so a thread holds few registers and four CTAs share an SM: while
+// some wait in the look-back, the others' copies keep the memory busy.
 template <class T, bool VEC>
-__device__ inline void load_items(const T* __restrict__ in, long long first,
-                                  long long n, T (&v)[kScanItems]) {
-  if (VEC && first + kScanItems <= n) {
-    using V = typename Vec4<T>::type;
-    const V a = *reinterpret_cast<const V*>(in + first);
-    const V b = *reinterpret_cast<const V*>(in + first + 4);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+__global__ void __launch_bounds__(kScanThreads, 4)
+scan_lookback_kernel(const T* __restrict__ in, T* __restrict__ out,
+                     unsigned long long* agg, unsigned long long* anchor,
+                     unsigned long long* counter, long long n, long long nb,
+                     int exclusive) {
+  using C = Carry<T>;
+  using V = typename Vec4<T>::type;
+  __shared__ __align__(16) T tile[kScanTile];
+  __shared__ uint32_t look[kGroupTiles];
+  __shared__ unsigned long long tile_id;
+  __shared__ typename C::type tile_prefix;
+  const int tid = threadIdx.x;
+  if (tid == 0) tile_id = atomicAdd(counter, 1ull);
+  __syncthreads();
+  const long long b = (long long)tile_id;
+  const long long base = b * kScanTile;
+  const int valid = n - base < kScanTile ? (int)(n - base) : kScanTile;
+  const bool whole = VEC && valid == kScanTile;
+  if (whole) {
+#pragma unroll
+    for (int k = 0; k < kScanItems / 4; ++k) {
+      const int q = 4 * (tid + k * kScanThreads);
+      copy16_async(tile + q, in + base + q);
+    }
   } else {
 #pragma unroll
-    for (int j = 0; j < kScanItems; ++j) {
-      v[j] = first + j < n ? in[first + j] : T(0);
+    for (int k = 0; k < kScanItems; ++k) {
+      const int e = tid + k * kScanThreads;
+      if (e < valid) {
+        copy4_async(tile + e, in + base + e);
+      } else {
+        tile[e] = T(0);
+      }
     }
   }
-}
-
-template <class T>
-__device__ inline T sum_items(const T (&v)[kScanItems]) {
-  T s = v[0];
+  wait_copies();
+  __syncthreads();
+  T* mine = tile + tid * kScanItems;
+  T s = mine[0];
 #pragma unroll
-  for (int j = 1; j < kScanItems; ++j) s += v[j];
-  return s;
-}
-
-template <class T, bool VEC>
-__global__ void __launch_bounds__(kScanThreads)
-scan_totals_kernel(const T* __restrict__ in, T* __restrict__ totals,
-                   long long n) {
-  const long long first =
-      (long long)blockIdx.x * kScanChunk + (long long)threadIdx.x * kScanItems;
-  T v[kScanItems];
-  load_items<T, VEC>(in, first, n, v);
+  for (int j = 1; j < kScanItems; ++j) s += mine[j];
   T total;
-  block_exclusive(sum_items(v), &total);
-  if (threadIdx.x == 0) totals[blockIdx.x] = total;
-}
-
-// One CTA: totals[0..nb) become their exclusive prefix sums, in place.
-template <class T>
-__global__ void __launch_bounds__(kScanThreads)
-scan_offsets_kernel(T* totals, int nb) {
-  T carry = T(0);
-  for (int base = 0; base < nb; base += kScanChunk) {
-    const int first = base + threadIdx.x * kScanItems;
-    T v[kScanItems];
-    load_items<T, false>(totals, first, nb, v);
-    T total;
-    T run = carry + block_exclusive(sum_items(v), &total);
-#pragma unroll
-    for (int j = 0; j < kScanItems; ++j) {
-      if (first + j < nb) totals[first + j] = run;
-      run += v[j];
-    }
-    carry += total;
+  const T below = block_exclusive(s, &total);
+  if (tid < 32) {
+    if (tid == 0) publish(agg + b, kPublished | bits_of(total));
+    const typename C::type prefix =
+        look_back<T>(agg, anchor, b, nb, tid, total, look);
+    if (tid == 0) tile_prefix = prefix;
   }
-}
-
-template <class T, bool VEC>
-__global__ void __launch_bounds__(kScanThreads)
-scan_apply_kernel(const T* __restrict__ in, T* __restrict__ out,
-                  const T* __restrict__ offsets, long long n, int exclusive) {
-  const long long first =
-      (long long)blockIdx.x * kScanChunk + (long long)threadIdx.x * kScanItems;
-  T v[kScanItems];
-  load_items<T, VEC>(in, first, n, v);
-  T total;
-  T run = block_exclusive(sum_items(v), &total);
-  if (offsets != nullptr) run = offsets[blockIdx.x] + run;
-  T o[kScanItems];
+  __syncthreads();
+  const T head = (T)tile_prefix + below;
+  T run = T(0);
 #pragma unroll
   for (int j = 0; j < kScanItems; ++j) {
-    run += v[j];
-    o[j] = exclusive ? run - v[j] : run;
+    const T x = mine[j];
+    run += x;
+    const T inc = head + run;
+    mine[j] = exclusive ? inc - x : inc;
   }
-  if (VEC && first + kScanItems <= n) {
-    using V = typename Vec4<T>::type;
-    V a, b;
-    a.x = o[0]; a.y = o[1]; a.z = o[2]; a.w = o[3];
-    b.x = o[4]; b.y = o[5]; b.z = o[6]; b.w = o[7];
-    *reinterpret_cast<V*>(out + first) = a;
-    *reinterpret_cast<V*>(out + first + 4) = b;
+  __syncthreads();
+  if (whole) {
+#pragma unroll
+    for (int k = 0; k < kScanItems / 4; ++k) {
+      const int q = 4 * (tid + k * kScanThreads);
+      *reinterpret_cast<V*>(out + base + q) =
+          *reinterpret_cast<const V*>(tile + q);
+    }
   } else {
 #pragma unroll
-    for (int j = 0; j < kScanItems; ++j) {
-      if (first + j < n) out[first + j] = o[j];
+    for (int k = 0; k < kScanItems; ++k) {
+      const int e = tid + k * kScanThreads;
+      if (e < valid) out[base + e] = tile[e];
     }
   }
 }
 
-template <class T, bool VEC>
-int launch_prefix_sum(const T* in, T* out, T* totals, long long n,
-                      int exclusive, cudaStream_t stream) {
-  const long long nb = (n + kScanChunk - 1) / kScanChunk;
-  if (nb > 1) {
-    scan_totals_kernel<T, VEC><<<(unsigned)nb, kScanThreads, 0, stream>>>(
-        in, totals, n);
-    scan_offsets_kernel<T><<<1, kScanThreads, 0, stream>>>(totals, (int)nb);
-  }
-  scan_apply_kernel<T, VEC><<<(unsigned)nb, kScanThreads, 0, stream>>>(
-      in, out, nb > 1 ? totals : nullptr, n, exclusive);
-  return (int)cudaGetLastError();
+// The scratch words a launch needs: an aggregate a tile, an anchor a
+// group, the counter.
+__host__ __device__ constexpr long long scan_scratch_words(long long nb) {
+  return nb + (nb + kGroupTiles - 1) / kGroupTiles + 1;
 }
 
 template <class T>
-int dispatch_prefix_sum(const void* in, void* out, void* totals, long long n,
-                        int exclusive, cudaStream_t stream) {
+int launch_prefix_sum(const void* in, void* out, void* scratch, long long n,
+                      int exclusive, cudaStream_t stream) {
+  const long long nb = (n + kScanTile - 1) / kScanTile;
+  auto* agg = static_cast<unsigned long long*>(scratch);
+  auto* anchor = agg + nb;
+  auto* counter = agg + scan_scratch_words(nb) - 1;
   const bool vec = (((uintptr_t)in | (uintptr_t)out) & 15) == 0;
-  return vec ? launch_prefix_sum<T, true>((const T*)in, (T*)out, (T*)totals,
-                                          n, exclusive, stream)
-             : launch_prefix_sum<T, false>((const T*)in, (T*)out, (T*)totals,
-                                           n, exclusive, stream);
+  if (vec) {
+    scan_lookback_kernel<T, true><<<(unsigned)nb, kScanThreads, 0, stream>>>(
+        (const T*)in, (T*)out, agg, anchor, counter, n, nb, exclusive);
+  } else {
+    scan_lookback_kernel<T, false><<<(unsigned)nb, kScanThreads, 0, stream>>>(
+        (const T*)in, (T*)out, agg, anchor, counter, n, nb, exclusive);
+  }
+  return (int)cudaGetLastError();
 }
 
 constexpr int kHistThreads = 512;
@@ -266,20 +431,22 @@ digit_histogram_kernel(const uint32_t* __restrict__ in, long long n,
 }  // namespace tpusort
 
 // Prefix sum of in[0..n) into out (both (n,) of 4-byte elements: uint32,
-// which wraps, or float32 with is_float), inclusive or exclusive.  totals:
-// scratch of ceil(n / 8192) elements.  n >= 1.  Returns a cudaError_t.
-extern "C" int tpusort_prefix_sum(const void* in, void* out, void* totals,
+// which wraps, or float32 with is_float), inclusive or exclusive, in one
+// launch.  scratch: nb = ceil(n / 8192) tile aggregates, ceil(nb / 128)
+// group anchors and the tile counter, 64-bit words, zeroed by the caller.
+// n >= 1.  Returns a cudaError_t.
+extern "C" int tpusort_prefix_sum(const void* in, void* out, void* scratch,
                                   long long n, int is_float, int exclusive,
                                   void* stream) {
   using namespace tpusort;
-  if (n < 1 || (n + kScanChunk - 1) / kScanChunk > 0x7FFFFFFFLL) {
+  if (n < 1 || (n + kScanTile - 1) / kScanTile > 0x7FFFFFFFLL) {
     return (int)cudaErrorInvalidValue;
   }
-  return is_float ? dispatch_prefix_sum<float>(in, out, totals, n, exclusive,
-                                               (cudaStream_t)stream)
-                  : dispatch_prefix_sum<uint32_t>(in, out, totals, n,
-                                                  exclusive,
-                                                  (cudaStream_t)stream);
+  return is_float ? launch_prefix_sum<float>(in, out, scratch, n, exclusive,
+                                             (cudaStream_t)stream)
+                  : launch_prefix_sum<uint32_t>(in, out, scratch, n,
+                                                exclusive,
+                                                (cudaStream_t)stream);
 }
 
 // out[d] += the number of keys in[0..n) whose digit (key >> shift) & (2^bits

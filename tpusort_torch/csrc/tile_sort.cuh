@@ -1,7 +1,7 @@
-// Block-wide tile sort in shared memory, shared by the partition pass (K1),
-// the leaf (K2) and partition_tiles (K8).  The row tile sorts (K3, K9, K10)
-// run reg_sort.cuh, the same network with its short steps in registers and
-// warp shuffles.
+// Block-wide tile sort in shared memory, shared by the leaf (K2) and
+// partition_tiles (K8).  The row tile sorts (K3, K9, K10) and the raw-key
+// partition pass (K1, K1b) run reg_sort.cuh, the same network with its
+// short steps in registers and warp shuffles.
 //
 // Replaces the bitonic compare-exchange networks of the Pallas kernels
 // (tpusort/kernels/bitonic.py: _sort_network, _merge_sorted_runs, the staged

@@ -35,15 +35,17 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 # C entry points and their argument types; each returns a cudaError_t
 _SIGNATURES = {
     # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts_in,
-    # q_in, n, T, K, R, S, lo_bit, width, t_seg, sorted_run, counts_out,
-    # stream
+    # q_in, n, T, K, R, S, lo_bit, width, t_seg, sorted_run, threads,
+    # slots, smem, counts_out, stream
     "tpusort_partition_raw": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _LL, _I,
-                              _I, _I, _I, _I, _I, _I, _I, _P, _P],
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                              _P],
     # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts_in,
-    # q_in, n, T, K, R, S, t_seg, sorted_run, splitters, fracs, counts_out,
-    # stream
+    # q_in, n, T, K, R, S, t_seg, sorted_run, splitters, fracs, threads,
+    # slots, smem, counts_out, stream
     "tpusort_partition_splitter": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _LL,
-                                   _I, _I, _I, _I, _I, _I, _PP, _P, _P, _P],
+                                   _I, _I, _I, _I, _I, _I, _PP, _P, _I, _I,
+                                   _I, _P, _P],
     # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts, q,
     # offsets, n_out, T, K, P, sorted_run, stream
     "tpusort_leaf_collapse": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _P, _LL,
@@ -57,7 +59,8 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _I, _P, _P],
     # ops_in, ops_out, n_ops, counts, offsets, n_out, nseg, seg, stream
     "tpusort_collapse": [_PP, _PP, _I, _P, _P, _LL, _I, _I, _P],
-    # in, out, totals, n, is_float, exclusive, stream
+    # in, out, scratch (tile aggregates, group anchors, the tile counter),
+    # n, is_float, exclusive, stream
     "tpusort_prefix_sum": [_P, _P, _P, _LL, _I, _I, _P],
     # in, n, shift, bits, out, stream
     "tpusort_digit_histogram": [_P, _LL, _I, _I, _P, _P],

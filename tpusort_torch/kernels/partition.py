@@ -5,7 +5,9 @@ PyTorch port of ``tpusort/kernels/partition.py:partition_pass_fused``:
 
 * the raw-key branch (K1) sorts each tile by 1-3 key planes, with payload
   words that ride unstably; on a CUDA tensor it launches
-  ``csrc/partition.cu`` (a shared-memory sort network per tile);
+  ``csrc/partition.cu`` (the register network of ``csrc/reg_sort.cuh``
+  per tile, laid out by ``kernels/bitonic.py:tile_sort_geometry``; ties
+  keep their slot order there, the contract allows any);
 * its splitter mode (K1b, the equi-depth skew tier) sorts each tile the
   same way and cuts the runs at per-tile splitters instead of digit
   boundaries; on a CUDA tensor it launches the same kernel's splitter
@@ -270,6 +272,14 @@ def partition_pass_general_plain(
     return _emit_runs(ops, start, s, t_seg), counts
 
 
+def _raw_geometry(K: int, num_keys: int, n_vals: int):
+    """K1's and K1b's layout of a K-slot tile on its CTA: the row tile
+    sorts' (``kernels/bitonic.py:tile_sort_geometry``), which imports this
+    module, hence the import here."""
+    from tpusort_torch.kernels.bitonic import tile_sort_geometry
+    return tile_sort_geometry(K, num_keys, n_vals)
+
+
 def _partition_pass_cuda(
     planes: Sequence[torch.Tensor],
     values: Sequence[torch.Tensor],
@@ -296,13 +306,14 @@ def _partition_pass_cuda(
             for _ in range(len(planes) + len(values))]
     counts = torch.empty(T, r, dtype=torch.int32, device=dev)
     np_ = len(planes)
+    geo = _raw_geometry(K, np_, len(values))
     err = _build.library().tpusort_partition_raw(
         _build.pointers(planes), _build.pointers(outs[:np_]), np_,
         _build.pointers(values), _build.pointers(outs[np_:]), len(values),
         None if counts_in is None else counts_in.data_ptr(),
         q_in or 0, -1 if n is None else n, T, K, r, s, lo_bit, width,
-        t_seg, sorted_run or 0, counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        t_seg, sorted_run or 0, geo.threads, geo.slots, geo.smem_bytes,
+        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "partition_pass_fused")
     # a tile that is one sorted run skips the network: K1 only emits
@@ -337,14 +348,15 @@ def _partition_pass_splitter_cuda(
             for _ in range(len(planes) + len(values))]
     counts = torch.empty(T, r, dtype=torch.int32, device=dev)
     np_ = len(planes)
+    geo = _raw_geometry(K, np_, len(values))
     err = _build.library().tpusort_partition_splitter(
         _build.pointers(planes), _build.pointers(outs[:np_]), np_,
         _build.pointers(values), _build.pointers(outs[np_:]), len(values),
         None if counts_in is None else counts_in.data_ptr(),
         q_in or 0, -1 if n is None else n, T, K, r, s, t_seg,
         sorted_run or 0, _build.pointers(splitters),
-        splitter_fracs.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        splitter_fracs.data_ptr(), geo.threads, geo.slots, geo.smem_bytes,
+        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "partition_pass_fused (splitters)")
     _build.count_launch(_partition_pass_splitter_cuda, np_, len(values))

@@ -3,9 +3,9 @@
 PyTorch port of ``tpusort/kernels/scanhist.py``: ``prefix_sum_tiles``
 (``_scan_kernel``) and ``digit_histogram_tiles`` (``_hist_kernel``).  On a
 CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/scanhist.cu``: a reduce-then-scan over fixed chunks, and per-CTA
-shared-memory histograms merged by atomics; see that file for the designs
-and what bounds them).  On a CPU tensor it runs the plain PyTorch version of
+(``csrc/scanhist.cu``: a single-pass scan with decoupled look-back, and
+per-CTA shared-memory histograms merged by atomics; see that file for the
+designs and what bounds them).  On a CPU tensor it runs the plain PyTorch version of
 the same contract (``*_plain``: ``torch.cumsum`` and ``torch.bincount``).
 
 uint32 tensors are worked on through their int32 views (PyTorch's CPU
@@ -26,7 +26,8 @@ __all__ = ["prefix_sum_tiles", "prefix_sum_tiles_plain",
            "digit_histogram_tiles", "digit_histogram_tiles_plain"]
 
 SCAN_DTYPES = (torch.int32, torch.uint32, torch.float32)
-SCAN_CHUNK = 8192          # elements a CTA of K5 scans (csrc/scanhist.cu)
+SCAN_TILE = 8192           # elements a CTA of K5 scans (csrc/scanhist.cu)
+SCAN_GROUP = 128           # tiles under one anchor of K5's look-back
 MAX_DIGIT_BITS = 8         # K6's shared-memory histogram has 256 bins
 
 
@@ -48,9 +49,13 @@ def prefix_sum_tiles_plain(x: torch.Tensor, *,
 def _prefix_sum_cuda(x: torch.Tensor, exclusive: bool) -> torch.Tensor:
     n = x.shape[0]
     out = torch.empty_like(x)
-    totals = torch.empty(-(-n // SCAN_CHUNK), dtype=x.dtype, device=x.device)
+    # an aggregate a tile, an anchor a group of tiles, the tile counter:
+    # the kernel's one launch needs them zeroed
+    tiles = -(-n // SCAN_TILE)
+    scratch = torch.zeros(tiles + -(-tiles // SCAN_GROUP) + 1,
+                          dtype=torch.int64, device=x.device)
     err = _build.library().tpusort_prefix_sum(
-        x.data_ptr(), out.data_ptr(), totals.data_ptr(), n,
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n,
         int(x.dtype == torch.float32), int(exclusive),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "prefix_sum_tiles")
@@ -62,10 +67,11 @@ def prefix_sum_tiles(x: torch.Tensor, *,
                      exclusive: bool = False) -> torch.Tensor:
     """Inclusive (or ``exclusive``) prefix sum of a 1-D int32, uint32 or
     float32 tensor, of any length.  Integer sums wrap in 32 bits; float32
-    sums accumulate in float32, in an order fixed by the index alone, so
-    the same input gives the same bits on every run (the order differs from
-    ``torch.cumsum``'s, so the two agree within rounding only).  An empty
-    tensor comes back empty, with no launch."""
+    sums add in an order fixed by the index alone (in float32 within a
+    tile of the kernel, in float64 across tiles), so the same input gives
+    the same bits on every run (the order differs from ``torch.cumsum``'s,
+    so the two agree within rounding only).  An empty tensor comes back
+    empty, with no launch."""
     if x.dim() != 1:
         raise ValueError("prefix_sum_tiles expects a 1-D tensor")
     if x.dtype not in SCAN_DTYPES:
