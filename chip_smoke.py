@@ -25,8 +25,9 @@ non-zero:
 7. K1 with payloads vs plain at the pairs 2^28 plan's pass 0 and pass 1
    shapes, for the composite (key, position) planes + a value and for one
    unique key plane + a value;
-8. K2 with payloads vs plain at the stable pairs leaf (2 planes + a value)
-   and the unstable pairs leaf (a unique key plane + a value); then K1 and
+8. K2 with payloads vs plain, bit for bit, at the stable pairs leaf (2
+   planes + a value) and the unstable pairs leaf (a unique key plane + a
+   value); then K1 and
    K2 with 2 key planes vs plain at the 2^27 uint64 plan's shapes, and
    with 2 planes + 2 value words at the 2^24 int64 pairs plan's shapes;
 9. K3 (``sort_tiles``) vs plain at (1, 16384), (1, 16384 - 128 k) (the
@@ -153,11 +154,17 @@ non-zero:
     the gathers (a gated batch also with the gate off: the engine, its
     overflow, then the exact sort), each global sort case of phase 28
     against ``torch.sort`` of the whole tensor, and each kernel
-    mode against its plain version (and K3, K5, K6, K9, K10, K7 and K4
-    against one PyTorch call, or one and its gathers, computing the same
-    function: for K9 and K10 with two planes and K9's wide leaf a stable
-    ``torch.sort(dim=1)`` of the planes' int64 composite, for K4 boolean
-    mask indexing).
+    mode against its plain version (and K1, K1b, K1c, K2, K3, K5, K6, K9,
+    K10, K7 and K4 against one PyTorch call, or one and its gathers,
+    computing the same function: for K9 and K10 with two planes and K9's
+    wide leaf a stable ``torch.sort(dim=1)`` of the planes' int64
+    composite, for K4 boolean mask indexing; for K1, K1b and K1c with 1-2
+    planes a stable ``torch.sort(dim=1)`` of the tile's key (K1c: its
+    digit), the gathers and the scatter into the run layout, K1b's runs
+    cut by ``torch.searchsorted`` at the splitters; for K2 with 1-2 planes
+    a stable ``torch.sort(dim=1)`` of the tiles with invalid slots
+    all-ones, the gathers and boolean mask indexing of the valid
+    prefixes; none for three planes, which no single call orders).
 29. the per-phase engine (``utils/profiling.py``): K8
     (``partition_tiles``) vs its plain version, fed as ``_partition_pass``
     feeds it, at the 2^28 uint32 plan's pass 0 ((16384, 16384) tiles,
@@ -189,7 +196,22 @@ non-zero:
     order, as in plain), at K = 2^11 .. 2^14 with 1-3 planes, 0, 1, 2 and
     8 payloads and every ``sorted_run`` from none through 128 .. K, on
     keys with ties and a block of 0xFFFFFFFF; K1b vs plain on Zipf 1.1
-    keys cut at their own quantiles, with and without a ``sorted_run``.
+    keys cut at their own quantiles, with and without a ``sorted_run``;
+32. K2 (``csrc/bitonic.cu`` on ``csrc/reg_sort.cuh``) and K1c
+    (``csrc/partition_general.cu``) at their edges: the ``-Xptxas -v``
+    lines of the 21 instances of ``leaf_collapse_kernel`` and of
+    ``partition_general_kernel`` (none may spill); K2 vs plain bit for
+    bit, key planes and payloads (ties keep their slot order), at K = P
+    and P - 128 for every P from 128 to the shared-memory limit, 1-3
+    planes, 0, 1 and 8 payloads, every ``sorted_run`` from none through
+    128 .. K, a tile with no valid slot, ``n_out`` cutting the last
+    tiles, dense offsets off 16 bytes, tied keys with 0xFFFFFFFF (its path
+    shapes are phases 3, 8, 8b, 15 and 25); K1c vs plain bit for bit on
+    the counts and every valid slot at K = 128 .. 32768, R = 1, 2, 16, 32
+    and 256, S below and above the counts, a digit straddling two planes,
+    the digit plane, 16 operands, pass 0 and later passes, ``t_seg`` > 1;
+    then K2 keys on 2^28 valid keys in tiles of K = P = 32768, timed
+    against the path's padded 24,576-slot tiles (the sentinel half).
 
 The line before the last is a JSON summary of the kernels: each template
 mode compared, with its launches in the run of the path that drives it at
@@ -197,13 +219,15 @@ that shape (counters set to 0 just before), or 0 where no path does, its
 time, its plain version's time, its bound (the least time for the words
 it must move at 3.35 TB/s, or its operations at 67 T/s, the larger), the
 time of a PyTorch call computing the same function where there is one
-(K3, K5, K6, K9 and K10, K7, K8, K4 and K4c) and a remark or null; the last
+(K1, K1b, K1c and K2 with 1-2 planes, K3, K5, K6, K9 and K10, K7, K8, K4
+and K4c) and a remark or null (why a three-plane mode has none); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import statistics
@@ -259,7 +283,8 @@ def main() -> None:
         collapse_segments, collapse_segments_plain)
     from tpusort_torch import api as tapi
     from tpusort_torch.kernels.partition import (
-        partition_pass_fused, partition_pass_fused_plain,
+        _partition_pass_general_cuda,
+        extract_bits, partition_pass_fused, partition_pass_fused_plain,
         partition_pass_general_plain, partition_pass_splitter_plain,
         partition_tiles, partition_tiles_plain)
     from tpusort_torch.kernels.scanhist import (
@@ -378,6 +403,88 @@ def main() -> None:
         s_idx = torch.arange(spec.s, device=counts.device)
         return (s_idx < c[..., None]).reshape(-1)
 
+    def tile_valid(t: int, k: int, counts_in, q_in, n) -> torch.Tensor:
+        """(t, k) validity from the global index vs n, or from a counts
+        table of q_in-slot chunks."""
+        if counts_in is None:
+            return (torch.arange(t * k, device=dev) < n).reshape(t, k)
+        return (torch.arange(k, device=dev) % q_in)[None, :] \
+            < counts_in.repeat_interleave(q_in, dim=1)
+
+    def sort_word(planes_, valid) -> torch.Tensor:
+        """1-2 key planes, invalid slots all-ones, as one word whose signed
+        order is their unsigned lexicographic order (the sign bit flipped,
+        or the int64 composite of two)."""
+        ks = [torch.where(valid, pl, -1) for pl in planes_]
+        return ks[0] ^ dtypes.INT32_MIN if len(ks) == 1 else composite64(*ks)
+
+    def runs_library(sorted_ops, run, r, s, t_seg):
+        """The scatter of sorted (T, K) tiles into the (seg, d, tile, S) run
+        layout of the next pass, as PyTorch calls: ``run`` is each sorted
+        slot's run, r where it drops.  Returns (flat runs, (T, r) counts)."""
+        t_, k_ = run.shape
+        cnt = torch.zeros(t_, r + 1, dtype=torch.int64, device=dev) \
+            .scatter_add_(1, run, torch.ones_like(run))
+        j = torch.arange(k_, device=dev)[None, :] \
+            - (cnt.cumsum(1) - cnt).gather(1, run)
+        ok = (run < r) & (j < s)
+        tile = torch.arange(t_, device=dev)[:, None]
+        dst = (((tile // t_seg * r + run) * t_seg + tile % t_seg) * s + j)[ok]
+        outs = []
+        for o in sorted_ops:
+            out = torch.empty(t_ * r * s, dtype=torch.int32, device=dev)
+            out[dst] = o[ok]
+            outs.append(out)
+        return outs, cnt[:, :r]
+
+    def partition_library(planes_, values_, counts_in, kw, splitters=None):
+        """K1 (K1b with ``splitters``) as PyTorch calls on 1-2 key planes: a
+        stable ``torch.sort(dim=1)`` of the tiles' key (``sort_word``), the
+        gathers of every operand, each sorted slot's run (its digit; K1b: a
+        batched ``torch.searchsorted`` at the splitters, without the tie
+        fractions), and the scatter into the run layout."""
+        t_, k_ = planes_[0].shape
+        valid = tile_valid(t_, k_, counts_in, kw["q_in"], kw["n"])
+        word = sort_word(planes_, valid)
+        srt = torch.sort(word, dim=1, stable=True)
+        ops_ = [torch.gather(o, 1, srt.indices) for o in (*planes_, *values_)]
+        if splitters is None:
+            run = extract_bits(ops_[:len(planes_)], kw["lo_bit"], kw["width"])
+        else:
+            edges = sort_word(splitters, torch.ones_like(splitters[0],
+                                                         dtype=torch.bool))
+            run = torch.searchsorted(edges, srt.values, right=True)
+        pos = torch.arange(k_, device=dev)[None, :]
+        run = torch.where(pos < valid.sum(1, keepdim=True), run, kw["r"])
+        return runs_library(ops_, run, kw["r"], kw["s"], kw["t_seg"])
+
+    def general_library(planes_, values_, counts_in, kw, digit=None):
+        """K1c as PyTorch calls: each slot's digit (R where it drops), a
+        stable ``torch.sort(dim=1)`` of the digits, the gathers of every
+        operand and the scatter into the run layout."""
+        t_, k_ = planes_[0].shape
+        valid = tile_valid(t_, k_, counts_in, kw["q_in"], kw["n"])
+        d = extract_bits(planes_, kw["lo_bit"], kw["width"]) if digit is None \
+            else digit.long() & 0xFFFFFFFF
+        d = torch.where(valid & (d < kw["r"]), d, kw["r"])
+        srt = torch.sort(d, dim=1, stable=True)
+        ops_ = [torch.gather(o, 1, srt.indices) for o in (*planes_, *values_)]
+        return runs_library(ops_, srt.values, kw["r"], kw["s"], kw["t_seg"])
+
+    def leaf_library(ops_, ct, q_, nk, n_out):
+        """K2 as PyTorch calls on 1-2 key planes: a stable
+        ``torch.sort(dim=1)`` of the tiles' key (invalid slots all-ones;
+        ``sort_word``), the gathers of the payloads, and boolean mask
+        indexing of each tile's valid prefix."""
+        t_, k_ = ops_[0].shape
+        valid = tile_valid(t_, k_, ct, q_, None)
+        srt = torch.sort(sort_word(ops_[:nk], valid), dim=1, stable=True)
+        keep = torch.arange(k_, device=dev)[None, :] < ct.sum(1)[:, None]
+        return [torch.gather(o, 1, srt.indices)[keep][:n_out] for o in ops_]
+
+    NO_LIBRARY_96 = ("library_ms null: no single PyTorch call orders 96-bit "
+                     "keys (three planes)")
+
     def plan_for(n: int, end_bit: int, cfg, begin_bit=0, profile="raw"):
         kw = cfg.plan_kwargs()
         kw.pop("min_n")
@@ -390,9 +497,11 @@ def main() -> None:
         err, kernel times, plain times, words, operations) with the times
         of pass 0 and its least work: n words of each operand read and
         written plus the counts, and a sort of each tile (K1) or one digit
-        per key (K1c).  K1c is a stable partition, so any keys compare bit
-        for bit; K1's payloads ride unstably, so its callers give it unique
-        keys."""
+        per key (K1c), and with 1-2 planes the times of its PyTorch calls
+        (``partition_library``, ``general_library``).  K1c is a stable
+        partition, so any keys compare bit for bit; K1's callers give it
+        unique keys (its ties keep slot order as plain's do, which phase
+        31 checks)."""
         kid = "K1c" if general else "K1"
         plain_fn = (partition_pass_general_plain if general
                     else partition_pass_fused_plain)
@@ -413,10 +522,13 @@ def main() -> None:
         for k, p in zip(k_out, p_out):
             check(same_bits(k[m], p[m]), f"{kid} {name} pass 0: slots differ")
             err = max(err, max_abs_err(k[m], p[m]))
-        times = time_pair(
+        library = general_library if general else partition_library
+        times = time_alt(
             lambda: partition_pass_fused(ops[:np_], ops[np_:], None,
                                          **branch, **arg0),
-            lambda: plain_fn(ops[:np_], ops[np_:], None, **arg0))
+            lambda: plain_fn(ops[:np_], ops[np_:], None, **arg0),
+            *([lambda: library(ops[:np_], ops[np_:], None, arg0)]
+              if np_ <= 2 else []))
         del p_out, m, ops
         ctable, q = msd.next_counts_table(k_cnt, sp0)
         t1 = sp1.n_seg * sp1.t_seg
@@ -438,14 +550,15 @@ def main() -> None:
             f"lo_bit={sp0.lo_bit}, n={n}) and pass 1 ({t1} x {sp1.k}, "
             f"S={sp1.s}, lo_bit={sp1.lo_bit}, q_in={q}); max_abs_err {err}")
         n_ops = len(planes) + len(values)
-        return (err, *times, 2 * n * n_ops + t0 * sp0.r,
-                n if general else n * log2(sp0.k))
+        return (err, *times[:2], 2 * n * n_ops + t0 * sp0.r,
+                n if general else n * log2(sp0.k), *times[2:])
 
     def k2_vs_plain(name, planes, values, plan, n):
         """K2 kernel vs plain at the leaf ``plan`` reaches after its K1
-        passes over the operands (each plan.m1 long); returns ((max abs
-        err, kernel times, plain times, words, operations), the kernel's
-        dense outputs)."""
+        passes over the operands (each plan.m1 long), bit for bit (ties
+        keep their slot order in both); returns ((max abs err, kernel
+        times, plain times, words, operations, and with 1-2 planes the
+        times of ``leaf_library``), the kernel's dense outputs)."""
         np_ = len(planes)
         data, (ctable, q_fin), overflow = msd.run_passes(
             [*planes, *values], np_, n, plan, unstable=bool(values))
@@ -468,11 +581,14 @@ def main() -> None:
             check(same_bits(k, p), f"K2 {name}: dense outputs differ")
             err = max(err, max_abs_err(k, p))
         del p_dense
-        times = time_pair(kernel, plain)
+        times = time_alt(
+            kernel, plain,
+            *([lambda: leaf_library(leaf, ct, q_fin, np_, n)]
+              if np_ <= 2 else []))
         log(f"K2 {name} == plain at ({nt}, {tile}) q={q_fin} "
             f"sorted_run={run}; max_abs_err {err}")
-        return (err, *times, 2 * n * len(leaf) + ct.numel() + nt,
-                n * (log2(tile) - log2(run))), k_dense
+        return (err, *times[:2], 2 * n * len(leaf) + ct.numel() + nt,
+                n * (log2(tile) - log2(run)), *times[2:]), k_dense
 
     def general_leaf_inputs(name, planes, values, plan, n):
         """The last K1c pass's runs of the operands and their counts
@@ -635,10 +751,12 @@ def main() -> None:
     check(same_bits(k_out0[m0], p_out0[m0]), "K1 pass 0: valid slots differ")
     k1_err = max_abs_err(k_out0[m0], p_out0[m0])
     check(int(k_cnt0.sum()) == RAGGED_N, "K1 pass 0: counts do not sum to n")
-    k1_times, k1_plain_times = time_pair(
+    k1_times, k1_plain_times, k1_lib_times = time_alt(
         lambda: partition_pass_fused([tiles0], [], None, **arg0),
         lambda: partition_pass_fused_plain([tiles0], [], None, q_in=None,
-                                           **arg0))
+                                           **arg0),
+        lambda: partition_library([tiles0], [], None,
+                                  dict(arg0, q_in=None)))
     del p_out0, m0
 
     ctable, q = msd.next_counts_table(k_cnt0, sp0)
@@ -656,7 +774,7 @@ def main() -> None:
     k1_err = max(k1_err, max_abs_err(k_out1[m1], p_out1[m1]))
     results["K1 keys"] = (k1_err, k1_times, k1_plain_times,
                           2 * RAGGED_N + t0_tiles * sp0.r,
-                          RAGGED_N * log2(sp0.k))
+                          RAGGED_N * log2(sp0.k), k1_lib_times)
     log(f"phase 2 ok: K1 == plain on pass 0 ({t0_tiles} x {sp0.k}, "
         f"n={RAGGED_N}) and pass 1 ({t1_tiles} x {sp1.k}, q_in={q}, "
         f"sorted_run={sp0.s & -sp0.s}); max_abs_err {k1_err}")
@@ -1235,7 +1353,11 @@ def main() -> None:
                 err = max(err, max_abs_err(k[m], p[m]))
             del p_out, m
             if j == 0:
-                times = time_pair(kernel, plain)
+                times = time_alt(
+                    kernel, plain,
+                    *([lambda: partition_library(
+                        tiled[:nk], tiled[nk:], cin, kw, splitters=spl)]
+                      if nk <= 2 else []))
                 out = (2 * n * len(ops) + cin.numel() + t * spec.r
                        + t * (spec.r - 1) * (nk + 1), n * log2(spec.k))
             log(f"K1b {name} == plain on pass {j} ({t} x {spec.k}, "
@@ -1244,7 +1366,7 @@ def main() -> None:
             ctable, qg = msd.next_counts_table(k_cnt, spec)
             prev_s = spec.s
             ops = k_out
-        return (err, *times, *out)
+        return (err, *times[:2], *out, *times[2:])
 
     zk = zipf_keys_torch(gen, MAIN_N)       # Zipf 1.1 over 2^20 values
     results["K1b keys"] = k1b_vs_plain("Zipf 1.1 keys (2^28)", [zk], [],
@@ -1846,10 +1968,14 @@ def main() -> None:
             check(same_bits(k[m], p[m]), f"{name}: valid slots differ")
             err = max(err, max_abs_err(k[m], p[m]))
         del k_out, p_out, m
-        tk, tp = time_pair(kernel, plain)
+        tk, tp, tl = time_alt(
+            kernel, plain,
+            lambda: partition_library(tiles, vals_, c0,
+                                      dict(kw0, n=None)))
         n_ops = 1 + len(vals_)
         results[name] = (err, tk, tp,
-                         2 * n_valid * n_ops + w_t + w_t * wspec.r, n_valid)
+                         2 * n_valid * n_ops + w_t + w_t * wspec.r, n_valid,
+                         tl)
         log(f"phase 27 ok: {name} == plain at ({w_t}, 16384), S={wspec.s}, "
             f"q_in=16384, sorted_run=16384; max_abs_err {err}")
     del w_keys, w_val, w_pos, c0
@@ -2579,6 +2705,141 @@ def main() -> None:
         f"quantiles, K = 2^11 .. 2^14, 1-2 planes, 0 and 1 payloads, with "
         f"and without a sorted_run: {n_edge} calls")
 
+    # ---- phase 32: bitonic.cu and partition_general.cu at their edges ----
+    torch.cuda.empty_cache()
+    spills, fn_name = {}, None
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn_name = line.split("'")[1]
+        elif fn_name and ("leaf_collapse_kernel" in fn_name
+                          or "partition_general_kernel" in fn_name) \
+                and ("spill" in line or "registers" in line):
+            src = "bitonic.cu" if "leaf_collapse" in fn_name \
+                else "partition_general.cu"
+            print(f"  ptxas {src} {fn_name}: {line.strip()}", flush=True)
+            if "spill" in line:
+                spills[fn_name] = [int(w) for w in re.findall(
+                    r"(\d+) bytes spill", line)]
+    # bitonic.cu: (planes, payloads, slots a thread) whose slots fit 64
+    # registers, as sort_tiles.cu's validity template; one K1c kernel
+    n_k2 = sum(e * (nk + idx) <= 64 for e in (4, 8, 16, 32)
+               for idx in (0, 1) for nk in (1, 2, 3))
+    n_k2_seen = sum("leaf_collapse_kernel" in k for k in spills)
+    check(n_k2_seen == n_k2 and len(spills) == n_k2 + 1,
+          f"bitonic.cu / partition_general.cu: {n_k2_seen} K2 instances and "
+          f"{len(spills) - n_k2_seen} others in the build log, expected "
+          f"{n_k2} and 1")
+    check(not any(sum(v) for v in spills.values()),
+          "bitonic.cu / partition_general.cu: an instance spills: "
+          f"{[k for k, v in spills.items() if sum(v)]}")
+
+    n_edge = 0
+    for nk in (1, 2, 3):
+        for lp in range(7, 16):
+            p_ = 1 << lp
+            for k in (p_, p_ - 128):
+                if k == 0 or tile_smem_bytes(p_, nk, True) > SMEM_MAX:
+                    continue
+                runs = [0] + [1 << r for r in range(7, lp + 1)
+                              if k % (1 << r) == 0 and (p_ - k) % (1 << r) == 0]
+                for i, run in enumerate(runs):
+                    nv, t, q_ = (0, 1, 8)[i % 3], 5, run or 128
+                    planes = [edge_keys(t, k) for _ in range(nk)]
+                    vals_ = [random_i32(t * k).reshape(t, k)
+                             for _ in range(nv)]
+                    cnts = torch.randint(0, q_ + 1, (t, k // q_),
+                                         dtype=torch.int32, device=dev,
+                                         generator=gen)
+                    cnts[1] = 0                     # no valid slot
+                    cnts[2, 0] = q_ - 3             # offsets off 16 bytes
+                    if run:
+                        planes, vals_ = lex_chunks(planes, vals_, q_, cnts)
+                    total = int(cnts.sum())
+                    for n_out in (total, max(0, total - 1
+                                             - int(cnts[4].sum()) // 2)):
+                        got = sort_tiles_counts_collapsed(
+                            planes + vals_, cnts, q_, n_out, sorted_run=run,
+                            num_keys=nk)
+                        want = sort_tiles_counts_collapsed_plain(
+                            planes + vals_, cnts, q_, n_out, nk)
+                        check(all(same_bits(g, w) for g, w in zip(got, want)),
+                              f"phase 32: K2 ({t}, {k}) {nk} planes + {nv} "
+                              f"values, sorted_run {run}, n_out {n_out} "
+                              f"differs from plain")
+                        n_edge += 1
+                    del planes, vals_, cnts, got, want
+    log(f"phase 32 ok: no spill in the {n_k2} instances of bitonic.cu nor "
+        f"in partition_general.cu; K2 == plain bit for bit, key planes and "
+        f"payloads (ties keep their slot order), at K = P and P - 128 for "
+        f"every P from 128 to the shared-memory limit, 1-3 planes, 0, 1 and "
+        f"8 payloads, every sorted_run from none through 128 .. K, a tile "
+        f"with no valid slot, n_out cutting the last tiles, dense offsets "
+        f"off 16 bytes, tied keys with 0xFFFFFFFF: {n_edge} calls (at the "
+        f"path shapes: phases 3, 8, 8b, 15 and 25)")
+
+    n_edge = 0
+    for k in (128, 2048, 16384, 32768):
+        for r_, s_, nk, nv, lo, q_, use_digit, t_seg in (
+                (1, 128, 1, 0, 31, None, False, 1),
+                (2, 512, 1, 2, 31, 256, False, 2),
+                (32, 128, 2, 1, 30, None, False, 4),
+                (32, 1024, 2, 2, 59, 512, False, 2),
+                (256, 128, 1, 1, 24, None, True, 2),
+                (256, 256, 3, 0, 88, 128, False, 1),
+                (16, 512, 4, 12, 120, 1024, False, 2)):
+            t = 2 * t_seg
+            ops = [random_i32(t * k).reshape(t, k) for _ in range(nk + nv)]
+            kw = dict(r=r_, s=s_, lo_bit=lo, width=max(r_.bit_length() - 1, 1),
+                      t_seg=t_seg)
+            cin = None
+            if q_ and q_ <= k:
+                cin = torch.randint(0, q_ + 1, (t, k // q_), dtype=torch.int32,
+                                    device=dev, generator=gen)
+                kw.update(q_in=q_, n=None)
+            else:
+                kw.update(q_in=None, n=t * k - min(999, k // 2))
+            dig = None if not use_digit else torch.randint(
+                0, r_ + 3, (t, k), dtype=torch.int32, device=dev,
+                generator=gen)
+            # R = 1 takes the kernel's wrapper: partition_pass_fused asks
+            # for 2^width <= R
+            call = _partition_pass_general_cuda if r_ == 1 else \
+                functools.partial(partition_pass_fused, general=True)
+            got, cnt = call(ops[:nk], ops[nk:], cin, digit=dig, **kw)
+            want, pcnt = partition_pass_general_plain(ops[:nk], ops[nk:],
+                                                      cin, digit=dig, **kw)
+            what = (f"K1c ({t}, {k}) R {r_} S {s_} {nk} planes + {nv} "
+                    f"values, lo_bit {lo}, q_in {kw['q_in']}, digit plane "
+                    f"{use_digit}, t_seg {t_seg}")
+            check(torch.equal(cnt, pcnt), f"phase 32: {what}: counts differ")
+            spec = type("Spec", (), dict(s=s_, r=r_, t_seg=t_seg,
+                                         n_seg=t // t_seg))
+            m = valid_slots(cnt, spec)
+            check(all(same_bits(g[m], w[m]) for g, w in zip(got, want)),
+                  f"phase 32: {what}: valid slots differ")
+            n_edge += 1
+            del ops, got, want, m
+    log(f"phase 32 ok: K1c == plain bit for bit on the counts and every "
+        f"valid slot at K = 128 .. 32768, R = 1, 2, 16, 32 and 256, S below "
+        f"and above the counts, a digit straddling two planes, the digit "
+        f"plane, 16 operands, pass 0 and later passes, t_seg 1-4: {n_edge} "
+        f"calls")
+
+    # the sentinel half of K2's keys-only tiles: 2^28 valid keys in tiles
+    # of K = P = 32768 (no pad, every slot valid) against the path's
+    # 24,576-slot tiles padded to 32768 (phase 3: "K2 keys")
+    full = random_i32(MAIN_N).reshape(-1, 32768)
+    fcnt = torch.full((full.shape[0], 32768 // 512), 512, dtype=torch.int32,
+                      device=dev)
+    full = lex_chunks([full], [], 512, fcnt)[0][0]
+    (t_full,) = time_alt(lambda: sort_tiles_counts_collapsed(
+        full, fcnt, 512, MAIN_N, sorted_run=512))
+    print(f"time: K2 keys, 2^28 valid keys in {full.shape[0]} tiles of K = "
+          f"P = 32768 (no pad) {fmt(t_full)} vs the path's tiles of 24,576 "
+          f"padded to 32768 {fmt(results['K2 keys'][1])} on {card}",
+          flush=True)
+    del full, fcnt
+
     for name, (err, tk, tp, words, ops, *lib) in results.items():
         extra = f" vs library {fmt(lib[0])}" if lib else ""
         print(f"time: {name} kernel {fmt(tk)} vs plain {fmt(tp)}{extra}, "
@@ -2626,7 +2887,9 @@ def main() -> None:
             plain_ms=statistics.median(tp), bound_ms=bound_ms,
             bound_by=bound_by,
             library_ms=statistics.median(lib[0]) if lib else None,
-            note=notes.get(mode)))
+            note=notes.get(mode) or (
+                NO_LIBRARY_96 if not lib and "3 planes" in mode
+                and kid in ("K1", "K1b", "K1c", "K2") else None)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,10 @@ CUDA toolkit are installed:
 
 Keys compare bit for bit: K1 and K1c on their counts and the slots they
 mark valid, K2, K3, K4 and the sorts on their whole output.  K1c is stable,
-so its payloads compare bit for bit too.  K2's payloads ride unstably,
-so its multi-operand cases make plane 0 unique (a scrambled permutation),
-where any correct sort gives one payload order; K1 and K3 break ties by
-slot index, as their plain versions do, which the edge cases rely on.
+so its payloads compare bit for bit too.  K1, K2 and K3 break ties by slot
+index, as their plain versions do, so their payloads compare bit for bit
+against plain as well, tied keys included (no longer as a permutation),
+which the edge cases rely on.
 """
 
 import numpy as np
@@ -973,6 +973,110 @@ def test_sort_tiles_valid_edges(gen, nk, log_p, pad):
             for j, (g, w) in enumerate(zip(got, want)):
                 assert torch.equal(g, w) if j < nk else \
                     torch.equal(g[head], w[head]), (run, j)
+
+
+def _leaf_edge_cases():
+    out = []
+    for nk in (1, 2, 3):
+        for log_p in range(7, 16):
+            for pad in (0, 128):
+                p = 1 << log_p
+                if p - pad and tp.tile_smem_bytes(p, nk, True) \
+                        <= tp.SMEM_MAX:
+                    out.append((nk, log_p, pad))
+    return out
+
+
+@pytest.mark.parametrize("nk,log_p,pad", _leaf_edge_cases())
+def test_leaf_collapse_edges(gen, nk, log_p, pad):
+    """K2 on the register network against its plain version, bit for bit,
+    key planes and payloads (ties keep their slot order in both): K = P
+    and P - 128 at every P the shared memory takes, every sorted_run from
+    none through 128 .. K, 0, 1 and 8 payloads in turn, keys with ties and
+    a block of 0xFFFFFFFF, a tile with no valid slot, n_out cutting the
+    last tiles, and dense outputs at offsets that are not 16-byte aligned
+    (the offsets are the cumsum of ragged counts)."""
+    P = 1 << log_p
+    K = P - pad
+    T = 5
+    runs = [0] + [1 << r for r in range(7, log_p + 1)
+                  if K % (1 << r) == 0 and (P - K) % (1 << r) == 0]
+    for i, run in enumerate(runs):
+        nv = (0, 1, 8)[i % 3]
+        q = run or 128
+        planes = [_edge_keys(gen, T, K) for _ in range(nk)]
+        vals = [_rand(gen, T, K) for _ in range(nv)]
+        counts = torch.randint(0, q + 1, (T, K // q), dtype=torch.int32,
+                               device="cuda", generator=gen)
+        counts[1] = 0                          # a tile with no valid slot
+        counts[2, 0] = q - 3                   # offsets off 16 bytes
+        if run:
+            planes, vals = _lex_chunks(planes, vals, q, counts)
+        total = int(counts.sum())
+        for n_out in (total, max(0, total - 1 - int(counts[4].sum()) // 2)):
+            tm.reset_counters()
+            got = tb.sort_tiles_counts_collapsed(planes + vals, counts, q,
+                                                 n_out, sorted_run=run,
+                                                 num_keys=nk)
+            assert tm.mode_counters() == {("K2", nk, nv): 1}
+            want = tb.sort_tiles_counts_collapsed_plain(planes + vals,
+                                                        counts, q, n_out, nk)
+            for j, (g, w) in enumerate(zip(got, want)):
+                assert torch.equal(g, w), (run, n_out, j)
+
+
+@pytest.mark.parametrize("R,S,nk,nv,lo_bit,q,digit,t_seg", [
+    (1, 128, 1, 0, 31, None, False, 1),       # one digit: counts over S
+    (2, 512, 1, 2, 31, 256, False, 2),
+    (32, 128, 2, 1, 30, None, False, 4),      # straddles; counts over S
+    (32, 1024, 2, 2, 59, 512, False, 2),      # S over every count
+    (256, 128, 1, 1, 24, None, True, 2),      # the digit plane
+    (256, 256, 3, 0, 88, 128, False, 1),
+    (16, 512, 4, 12, 120, 1024, False, 2),    # 16 operands
+])
+@pytest.mark.parametrize("K", [128, 2048, 16384, 32768])
+def test_partition_general_edges(gen, K, R, S, nk, nv, lo_bit, q, digit,
+                                 t_seg):
+    """K1c's blocked rank and staged stores against its plain version, bit
+    for bit on the counts and every valid slot of every operand: R = 1, 2,
+    32 and 256, S below and above the counts, a digit straddling two
+    planes, the digit plane (values up to R + 2: those past R drop), 16
+    operands, pass 0 (n cutting the last tile) and later passes
+    (counts_in), t_seg > 1, and tiles from one warp's span a walker (K =
+    128) to the largest (K = 32768).  R = 1 (the top bit's 0s kept, its 1s
+    dropped as digits past R) goes to the wrapper of the kernel itself:
+    ``partition_pass_fused`` asks for 2^width <= R."""
+    T = 2 * t_seg
+    ops = [_rand(gen, T, K) for _ in range(nk + nv)]
+    kw = dict(r=R, s=S, lo_bit=lo_bit, width=max(R.bit_length() - 1, 1),
+              t_seg=t_seg)
+    cin = None
+    if q and q <= K:
+        cin = torch.randint(0, q + 1, (T, K // q), dtype=torch.int32,
+                            device="cuda", generator=gen)
+        kw.update(q_in=q, n=None)
+    else:
+        kw.update(q_in=None, n=T * K - min(999, K // 2))
+    dig = None
+    if digit:
+        dig = torch.randint(0, R + 3, (T, K), dtype=torch.int32,
+                            device="cuda", generator=gen)
+    tm.reset_counters()
+    if R == 1:
+        got, counts = tp._partition_pass_general_cuda(ops[:nk], ops[nk:], cin,
+                                                      digit=dig, **kw)
+    else:
+        got, counts = tp.partition_pass_fused(ops[:nk], ops[nk:], cin,
+                                              digit=dig, general=True, **kw)
+    assert tm.mode_counters() == {("K1c", nk, nv): 1}
+    want, pcounts = tp.partition_pass_general_plain(ops[:nk], ops[nk:], cin,
+                                                    digit=dig, **kw)
+    assert torch.equal(counts, pcounts)
+    if R == 1 and K > 2 * S:
+        assert int(counts.max()) > S
+    m = _valid_slots(counts, R, S, t_seg)
+    for g, w in zip(got, want):
+        assert torch.equal(g[m], w[m])
 
 
 def test_tile_sort_refuses_a_geometry_it_was_not_built_for(gen):

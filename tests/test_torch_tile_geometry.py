@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from tpusort_torch.kernels.bitonic import TileGeometry, tile_sort_geometry
+from tpusort_torch.kernels.bitonic import (
+    TileGeometry, sort_tiles_counts_collapsed_plain, tile_sort_geometry)
 from tpusort_torch.kernels.partition import (
     MAX_TILE, SMEM_MAX, check_fits, partition_pass_fused_plain,
     partition_pass_splitter_plain, tile_smem_bytes)
@@ -70,10 +71,16 @@ def test_geometry_covers_every_accepted_shape(num_keys, n_vals):
     (32768, 1, 0, (1024, 32, 1)), (128, 1, 0, (32, 4, 1)),
     (256, 2, 1, (32, 8, 1)), (4096, 2, 0, (128, 32, 1)),
     (2048, 2, 1, (128, 16, 1)),
+    # K2's leaves: 2^28 keys, stable (composite + value) and unstable
+    # pairs, u64 keys and int64 pairs, the wide leaf, segmented pairs
+    (24576, 1, 0, (1024, 32, 1)), (12288, 2, 1, (512, 16, 2)),
+    (12288, 1, 1, (512, 32, 1)), (12288, 2, 0, (512, 32, 1)),
+    (12288, 2, 2, (512, 16, 2)), (6144, 3, 4, (512, 16, 1)),
+    (768, 3, 3, (64, 16, 1)), (12288, 3, 1, (512, 16, 2)),
 ])
 def test_geometry_of_the_path_shapes(k, num_keys, n_vals, want):
-    """The single tile, sort_batched's rows, the packed and wide leaves
-    and the edges."""
+    """The single tile, sort_batched's rows, the packed and wide leaves,
+    K2's leaves and the edges."""
     assert tuple(tile_sort_geometry(k, num_keys, n_vals))[:3] == want
 
 
@@ -563,3 +570,134 @@ def test_k1b_epilogue_model_matches_plain(nk, nv, K, r, fracs, q):
     m = _k1_valid(counts, r, s, t_seg)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g[m], w.numpy().view(np.uint32)[m])
+
+
+# ---- K2's dense epilogue over the swizzled tile (csrc/bitonic.cu) --------
+
+def _store_words_model(addr_word, n, threads):
+    """reg_sort.cuh:store_words at an output whose word 0 lies at the
+    absolute word address ``addr_word``: the (word, width) stores of every
+    thread, width 4 only at a 16-byte boundary."""
+    if n <= 0:
+        return []
+    head = min((4 - addr_word % 4) % 4, n)
+    body = head + ((n - head) & ~3)
+    stores = [(i, 1) for i in range(head)]
+    for t in range(threads):
+        stores += [(i, 4) for i in range(head + 4 * t, body, 4 * threads)]
+    stores += [(i, 1) for i in range(body, n)]
+    for i, w in stores:
+        assert w == 1 or (addr_word + i) % 4 == 0
+    return stores
+
+
+def _k2_model(planes, values, counts, q, n_out, log_run, base_word=0):
+    """K2 as bitonic.cu computes it on numpy uint32 (T, K) tiles: the tile
+    loaded with its validity (invalid and pad slots all-ones), the slot
+    index under the last plane where payloads ride, sorted by the modelled
+    network at the wrapper's geometry (from runs of 2^log_run), and the
+    epilogue: slots [0, c_t) of the swizzled words to out[off_t + i], the
+    payloads gathered by the index (clamped to K - 1) from the staged
+    tile.  Returns the (n_out,) outputs; slots nothing writes stay 0."""
+    nk, nv = len(planes), len(values)
+    T, K = planes[0].shape
+    P = 1 << (K - 1).bit_length()
+    log_p = P.bit_length() - 1
+    g = tile_sort_geometry(K, nk, nv)
+    offsets = np.concatenate([[0], np.cumsum(counts.sum(axis=1))])
+    outs = [np.zeros(n_out, dtype=np.uint32) for _ in range(nk + nv)]
+    written = np.zeros(n_out, dtype=np.int64)
+    for t in range(T):
+        off = int(offsets[t])
+        c = min(int(offsets[t + 1]) - off, K, n_out - off)
+        if c <= 0:
+            continue                         # the CTA returns at once
+        slot = np.arange(P)
+        valid = (slot < K) & (slot % q < np.repeat(
+            np.concatenate([counts[t], np.zeros((P - K) // q + 1, int)]),
+            q)[:P])
+        keys = [np.where(valid, np.concatenate(
+            [p_[t], np.zeros(P - K, np.uint32)]), np.uint32(0xFFFFFFFF))
+            .astype(np.int64) for p_ in planes]
+        order = np.lexsort([slot, *keys[::-1]] if nv else keys[::-1])
+        rank = np.empty(P, dtype=np.int64)
+        rank[order] = np.arange(P)
+        if not nv:                  # keys alone: equal keys share a rank
+            tup = np.stack([k_[order] for k_ in keys])
+            new = np.concatenate([[True], (tup[:, 1:] != tup[:, :-1])
+                                  .any(0)])
+            rank[order] = np.cumsum(new) - 1
+        m = Model(rank, log_p, g.threads, g.slots, g.chunks)
+        m.sort(log_run)
+        word = m.smem                          # slot s at word swz(s)
+        by_rank = np.empty(P, dtype=np.int64)  # a slot of each rank
+        by_rank[rank[order]] = order
+        for i, width in _store_words_model(base_word + off, c, g.threads):
+            for j in range(i, i + width):
+                src = by_rank[word[swz(j)]]
+                for p_ in range(nk):
+                    outs[p_][off + j] = keys[p_][src]
+                for v in range(nv):            # the staged payload tile
+                    outs[nk + v][off + j] = values[v][t][min(src, K - 1)]
+                written[off + j] += 1
+    assert (written <= 1).all()
+    return outs
+
+
+def _sorted_runs(planes, values, counts, q):
+    """Each q-chunk's valid prefix sorted by the planes, ties in slot
+    order, the payloads carried (what the last pass leaves)."""
+    T, K = planes[0].shape
+    planes = [p_.copy() for p_ in planes]
+    values = [v.copy() for v in values]
+    for t in range(T):
+        for c0 in range(0, K, q):
+            n_ = counts[t, c0 // q]
+            o = np.lexsort([np.arange(n_)] + [p_[t, c0:c0 + n_]
+                                              for p_ in planes[::-1]])
+            for a in (*planes, *values):
+                a[t, c0:c0 + n_] = a[t, c0:c0 + n_][o]
+    return planes, values
+
+
+def _k2_cases():
+    for nk, nv in ((1, 0), (1, 1), (2, 1), (3, 2), (2, 0), (1, 8)):
+        for K in (384, 1024, 1536):
+            P = 1 << (K - 1).bit_length()
+            runs = [0] + [1 << r for r in range(7, P.bit_length())
+                          if K % (1 << r) == 0 and (P - K) % (1 << r) == 0]
+            for run in runs:
+                yield nk, nv, K, run
+
+
+@pytest.mark.parametrize("nk,nv,K,run", _k2_cases())
+def test_k2_epilogue_model_matches_plain(nk, nv, K, run):
+    """The modelled K2 tile and its dense epilogue against
+    sort_tiles_counts_collapsed_plain, bit for bit, payloads included (ties
+    keep slot order in both): keys of 16 distinct words with a block of
+    0xFFFFFFFF, a tile with no valid slot, ragged counts that put the
+    dense offsets off 16 bytes, n_out cutting the last tiles, every
+    sorted_run, and outputs whose base is itself off 16 bytes."""
+    rng = np.random.default_rng(K * 7 + nk * 3 + nv + run)
+    T, q = 5, run or 128
+    planes = [(rng.integers(0, 16, (T, K)).astype(np.uint64) * 0x10EF0F01)
+              .astype(np.uint32) for _ in range(nk)]
+    for p_ in planes:
+        p_[:, K // 4: K // 4 + K // 8] = 0xFFFFFFFF
+    values = [rng.integers(0, 1 << 32, (T, K), dtype=np.uint64)
+              .astype(np.uint32) for _ in range(nv)]
+    counts = rng.integers(0, q + 1, (T, K // q))
+    counts[1] = 0
+    counts[2, 0] = q - 3
+    if run:
+        planes, values = _sorted_runs(planes, values, counts, q)
+    total = int(counts.sum())
+    log_run = run.bit_length() - 1 if run else 0
+    for n_out, base in ((total, 0), (total - 1 - int(counts[4].sum()) // 2,
+                                     1)):
+        got = _k2_model(planes, values, counts, q, n_out, log_run, base)
+        want = sort_tiles_counts_collapsed_plain(
+            [_as_i32(a) for a in (*planes, *values)],
+            torch.from_numpy(counts.astype(np.int32)), q, n_out, nk)
+        for g_, w in zip(got, want):
+            np.testing.assert_array_equal(g_, w.numpy().view(np.uint32))

@@ -6,40 +6,66 @@
 // the packed key (digit, or R if the slot is invalid) << log2(K) | slot with
 // a bitonic network, every plane and value riding it, because the TPU has no
 // scatter and no atomics.  A stable partition by digit needs no sort: here it
-// is a block-wide radix rank.  One CTA owns one K-slot tile:
+// is a blocked radix rank, then staged stores.  One CTA of 512 threads owns
+// one K-slot tile (K a power of two, 128 .. 32768):
 //
-//   1. each slot is valid iff its global index < n (pass 0) or slot % q_in <
-//      counts_in[t, slot / q_in] (later passes).  Its digit is bits
+//   1. the rank.  Each walking warp (min(16, K / 32) of them) owns a
+//      contiguous span of K / warps slots; lane l's step r takes slot
+//      span_start + 32 r + l, so the loads coalesce and (r, lane) is slot
+//      order.  A slot is valid iff its global index < n (pass 0) or slot %
+//      q_in < counts_in[t, slot / q_in] (later passes); its digit is bits
 //      [lo_bit, lo_bit + width) of the key across the planes (plane 0 the
-//      most significant 32 bits; the bits may straddle two planes), or the
-//      caller's digit plane.  An invalid slot, or a digit not below R, gets
-//      digit R and is dropped.  The digits go to shared memory (2 bytes a
-//      slot) and into a shared histogram of R + 1 bins (one atomic per digit
-//      per warp step, by __match_any_sync); counts_out[t, d] = hist[d] for
-//      d < R, which may exceed S;
-//   2. a second walk over the tile in input order, blockDim slots at a time:
-//      each warp ranks its lanes among equal digits (__match_any_sync and a
-//      popc of the lower lanes' mask); the per-warp digit counts go to shared
-//      memory and are scanned across the warps in warp order, from a running
-//      base per digit that carries from chunk to chunk.  A slot's rank j then
-//      counts the slots of its digit before it in input order: the partition
-//      is stable by construction;
-//   3. where j < S, every operand word of the slot goes to
-//      out[((seg * R + d) * t_seg + tile_in_seg) * S + j], the digit-major
-//      layout of the next pass (the fused exchange).  Slots past a run's
-//      count are left unwritten.
+//      most significant 32 bits; the bits may straddle two planes) or the
+//      caller's digit plane; an invalid slot, or a digit not below R, gets
+//      digit R and is dropped.  Ballots on the digit's bits group the
+//      lanes of a step by digit: a lane's warp-local rank is its group
+//      leader's count of the digit so far plus the group's lanes below it,
+//      and the leader adds the group's size.  No atomics, so the ranks are
+//      deterministic and the partition stable.  The digit and the
+//      warp-local rank of each slot go to shared memory;
+//   2. the scan.  For each digit, an exclusive scan of its per-warp counts
+//      in warp order (digit-major: thread d walks the 16 warps) gives each
+//      warp's first rank within the digit, and the digit's total hist[d]:
+//      counts_out[t, d] = hist[d], which may exceed S.  Warp 0 then scans
+//      the run lengths m_d = min(hist[d], S) over the digits into the
+//      staging offsets (each rounded up to 4 words, so every staged run is
+//      16-byte aligned) and the runs' pieces of 128 words;
+//   3. a slot's destination: where d < R and its rank j within the digit
+//      is below S, the staging word local[d] + j, else none;
+//   4. for each operand word: the tile re-read from device memory (16-byte
+//      loads where the row is aligned; the planes that hold the digit come
+//      mostly from L2), scattered into the staging buffer by destination;
+//      then each warp stores whole pieces, lane l the 16 bytes at 4 l of
+//      the piece, to out[((seg * R + d) * t_seg + tile_in_seg) * S + j]
+//      (the digit-major layout of the next pass, the fused exchange), so
+//      consecutive lanes store consecutive words and a run's tail past
+//      m_d is left unwritten.
 //
-// Bound: the stores.  Each operand word is read once and written at most
-// once (the planes that hold the digit are read twice, the second time mostly
-// from L2), with no sort network, but the writes of one warp step land in
-// runs of consecutive words, one run per digit present, so they coalesce only
-// as far as the digits repeat within the warp.  Shared memory holds 2 bytes a
-// slot (32 KB at K = 16384) and 18.5 KB of counts, whatever the number of
-// operands.
+// Bound: the bytes.  Each operand word is read once and written at most
+// once (the digit planes twice, the second time mostly from L2), and the
+// stores are whole 16-byte runs.  The walk issues a batch of 8 steps'
+// loads before it ranks any of them (a load used at once costs a trip to
+// device memory a step), one ballot a bit of the digit (6 at R = 32) a
+// step, and a constant number of barriers a tile.  The first version took
+// three barriers and a serial scan of 16 warp counts per digit for every
+// 512 slots, and stored each word with a 4-byte store at its own rank,
+// which coalesced only as far as the digits repeated within a warp.
+//
+// Shared memory (dynamic, sized by K and R): the staging buffer, K + 4 R
+// words, which holds the warp-local ranks during the walk; each slot's
+// digit, then its destination, 2 bytes a slot (one buffer for both: the
+// destination replaces the digit slot by slot); the per-warp digit counts,
+// then the scanned offsets, 16 x (R + 1) uint16; hist, the staging offsets
+// and the piece offsets, R + 1 ints each.  That is 100 KB at K = 16384
+// and R = 32 (113.7 KB at R = 256), so two CTAs share an SM (with
+// __launch_bounds__(512, 2): 64 registers a thread), which is what the
+// 2-byte destination reusing the digit's buffer buys; 212 KB at K = 32768.
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
+#include "reg_sort.cuh"
 #include "tile_sort.cuh"
 
 namespace tpusort {
@@ -47,112 +73,261 @@ namespace tpusort {
 constexpr int kGenThreads = 512;
 constexpr int kGenWarps = kGenThreads / 32;
 constexpr int kGenMaxRadix = 256;
+constexpr int kGenPiece = 128;     // words a warp stores at once: 16 B a lane
+constexpr int kGenBatch = 8;       // digits a lane loads before it ranks them
+constexpr int kGenLoads = 4;       // 16-byte loads a thread has in flight
+constexpr uint16_t kNoSlot = 0xFFFF;
 
-// Bits [lo, lo + width) of word i of the n_planes-plane key, width <= 8.
-__device__ inline uint32_t key_digit(const Operands& ops, int n_planes,
-                                     size_t i, int lo, int width) {
-  uint32_t d = 0;
-  for (int p = 0; p < n_planes; ++p) {
-    const int base = 32 * (n_planes - 1 - p);
-    const int ov_lo = max(lo, base);
-    const int ov_hi = min(lo + width, base + 32);
-    if (ov_hi > ov_lo) {
-      const uint32_t m = (1u << (ov_hi - ov_lo)) - 1u;
-      d |= ((ops.in[p][i] >> (ov_lo - base)) & m) << (ov_lo - lo);
-    }
+// The kernel's dynamic shared memory, carved the same way on both sides.
+struct GenSmem {
+  uint32_t* stage;   // K + 4R words
+  int* hist;         // R + 1
+  int* local;        // R + 1: staging offset of each digit's run
+  int* piece;        // R + 1: first piece of each digit's run
+  uint16_t* wcount;  // kGenWarps x (R + 1)
+  uint16_t* slot;    // K: digit, then destination
+
+  __host__ __device__ static size_t ints(int R) {
+    return ((size_t)3 * (R + 1) + 3) & ~(size_t)3;  // keeps 16-byte alignment
   }
-  return d;
+  __host__ __device__ static size_t bytes(int K, int R) {
+    return 4 * ((size_t)K + 4 * R) + 4 * ints(R) +
+           2 * (size_t)kGenWarps * (R + 1) + 2 * (size_t)K;
+  }
+  __device__ GenSmem(uint32_t* base, int K, int R) {
+    stage = base;
+    hist = reinterpret_cast<int*>(base + K + 4 * R);
+    local = hist + (R + 1);
+    piece = local + (R + 1);
+    wcount = reinterpret_cast<uint16_t*>(hist + ints(R));
+    slot = wcount + kGenWarps * (R + 1);
+  }
+};
+
+// Where the digit's bits [lo, lo + width) (width <= 8) lie in the
+// n_planes-plane key, plane 0 the most significant 32 bits: the low part in
+// one plane from bit `shift`, and where the bits straddle two planes, the
+// rest from bit 0 of the plane above it (`hi`, else null).
+struct DigitBits {
+  const uint32_t* lo;
+  const uint32_t* hi;
+  int shift, lo_bits;
+  uint32_t lo_mask, hi_mask;
+
+  __device__ DigitBits(const Operands& ops, int n_planes, int bit, int width)
+      : shift(bit % 32), lo_bits(min(width, 32 - bit % 32)) {
+    const int p = n_planes - 1 - bit / 32;
+    lo = ops.in[p];
+    hi = width > lo_bits ? ops.in[p - 1] : nullptr;
+    lo_mask = (1u << lo_bits) - 1u;
+    hi_mask = (1u << (width - lo_bits)) - 1u;
+  }
+  __device__ uint32_t operator()(uint32_t w_lo, uint32_t w_hi) const {
+    return ((w_lo >> shift) & lo_mask) | ((w_hi & hi_mask) << lo_bits);
+  }
+};
+
+// The lanes of the warp whose digit equals this lane's: one ballot per bit
+// of the digits 0 .. R (as CUB's MatchAny does), not __match_any_sync.
+__device__ __forceinline__ unsigned match_digit(uint32_t d, int bits) {
+  unsigned peers = 0xFFFFFFFFu;
+  for (int b = 0; b < bits; ++b) {
+    const bool set = (d >> b) & 1u;
+    const unsigned on = __ballot_sync(0xFFFFFFFFu, set);
+    peers &= set ? on : ~on;
+  }
+  return peers;
 }
 
-__global__ void __launch_bounds__(kGenThreads)
+__global__ void __launch_bounds__(kGenThreads, 2)
 partition_general_kernel(Operands ops, int n_planes,
                          const int32_t* __restrict__ digit_in,
                          const int32_t* __restrict__ counts_in, int q_in,
                          long long n, int K, int R, int S, int lo_bit,
                          int width, int t_seg,
                          int32_t* __restrict__ counts_out) {
-  extern __shared__ uint16_t dig[];
-  __shared__ int hist[kGenMaxRadix + 1];
-  __shared__ int base[kGenMaxRadix + 1];
-  __shared__ int wcount[kGenWarps * (kGenMaxRadix + 1)];
-
+  extern __shared__ uint32_t smem[];
+  const GenSmem sm(smem, K, R);
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int bins = R + 1;
-  for (int d = tid; d < bins; d += blockDim.x) {
-    hist[d] = 0;
-    base[d] = 0;
-  }
+  for (int e = tid; e < kGenWarps * bins; e += blockDim.x) sm.wcount[e] = 0;
   __syncthreads();
 
-  // K is a multiple of 128 and each chunk below starts at a multiple of
-  // blockDim, so a warp's 32 lanes are all inside the tile or all outside
-  // it: the warp intrinsics always see full warps.
+  // 1. the rank, warp by warp over contiguous spans, in slot order
   const size_t first = (size_t)t * K;
   const int32_t* cin = counts_in ? counts_in + (size_t)t * (K / q_in) : nullptr;
-  for (int i = tid; i < K; i += blockDim.x) {
-    const bool v = cin ? (i % q_in) < cin[i / q_in] : (long long)(first + i) < n;
-    uint32_t d = R;
-    if (v) {
-      d = digit_in ? (uint32_t)digit_in[first + i]
-                   : key_digit(ops, n_planes, first + i, lo_bit, width);
-      if (d > (uint32_t)R) d = R;
+  const int walkers = K / 32 < kGenWarps ? K / 32 : kGenWarps;
+  const int span = K / walkers;             // a multiple of 32
+  const int bits = 32 - __clz(R);            // digits 0 .. R take this many
+  const DigitBits digits(ops, n_planes, lo_bit, width);
+  const uint32_t* src0 =
+      digit_in ? reinterpret_cast<const uint32_t*>(digit_in) : digits.lo;
+  const uint32_t* src1 = digit_in ? nullptr : digits.hi;
+  const int q_shift = cin ? __ffs(q_in) - 1 : 0;   // q_in is a power of two
+  if (warp < walkers) {
+    uint16_t* wc = sm.wcount + warp * bins;
+    const unsigned lower = (1u << lane) - 1u;
+    for (int r0 = warp * span; r0 < (warp + 1) * span;
+         r0 += 32 * kGenBatch) {
+      // every load of the batch first, so that they are in flight together
+      uint32_t w0[kGenBatch], w1[kGenBatch];
+      int c[kGenBatch];
+#pragma unroll
+      for (int k = 0; k < kGenBatch; ++k) {
+        const size_t g = first + r0 + 32 * k + lane;
+        w0[k] = w1[k] = 0;
+        c[k] = 0;
+        if (32 * k < span) {               // the warp's span may be shorter
+          w0[k] = src0[g];
+          if (src1) w1[k] = src1[g];
+          if (cin) c[k] = cin[(r0 + 32 * k + lane) >> q_shift];
+        }
+      }
+      uint32_t d[kGenBatch];
+#pragma unroll
+      for (int k = 0; k < kGenBatch; ++k) {
+        const int i = r0 + 32 * k + lane;
+        const bool v = cin ? (i & (q_in - 1)) < c[k]
+                           : (long long)(first + i) < n;
+        const uint32_t x = digit_in ? w0[k] : digits(w0[k], w1[k]);
+        d[k] = v && x < (uint32_t)R ? x : R;
+      }
+#pragma unroll
+      for (int k = 0; k < kGenBatch; ++k) {
+        if (32 * k >= span) break;
+        const int i = r0 + 32 * k + lane;
+        const unsigned peers = match_digit(d[k], bits);
+        const int leader = __ffs(peers) - 1;
+        int before = 0;
+        if (lane == leader) {
+          before = wc[d[k]];
+          wc[d[k]] = (uint16_t)(before + __popc(peers));
+        }
+        before = __shfl_sync(0xFFFFFFFFu, before, leader);
+        sm.slot[i] = (uint16_t)d[k];
+        sm.stage[i] = before + __popc(peers & lower);
+        __syncwarp();            // the next step's leaders read these counts
+      }
     }
-    dig[i] = (uint16_t)d;
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-    if (lane == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
   }
   __syncthreads();
-  for (int d = tid; d < R; d += blockDim.x) {
-    counts_out[(size_t)t * R + d] = hist[d];
+
+  // 2. the scan: per digit over the warps, then over the digits
+  for (int d = tid; d < bins; d += blockDim.x) {
+    int run = 0;
+    for (int w = 0; w < kGenWarps; ++w) {
+      const int c = sm.wcount[w * bins + d];
+      sm.wcount[w * bins + d] = (uint16_t)run;
+      run += c;
+    }
+    sm.hist[d] = run;
+    if (d < R) counts_out[(size_t)t * R + d] = run;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int base_l = 0, base_p = 0;
+    for (int d0 = 0; d0 < R; d0 += 32) {
+      const int d = d0 + lane;
+      const int m = d < R ? min(sm.hist[d], S) : 0;
+      const int a = (m + 3) & ~3;
+      const int b = (m + kGenPiece - 1) / kGenPiece;
+      int sa = a, sb = b;                  // inclusive scans over the lanes
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int xa = __shfl_up_sync(0xFFFFFFFFu, sa, o);
+        const int xb = __shfl_up_sync(0xFFFFFFFFu, sb, o);
+        if (lane >= o) {
+          sa += xa;
+          sb += xb;
+        }
+      }
+      if (d < R) {
+        sm.local[d] = base_l + sa - a;
+        sm.piece[d] = base_p + sb - b;
+      }
+      base_l += __shfl_sync(0xFFFFFFFFu, sa, 31);
+      base_p += __shfl_sync(0xFFFFFFFFu, sb, 31);
+    }
+    if (lane == 0) {
+      sm.local[R] = base_l;
+      sm.piece[R] = base_p;
+    }
+  }
+  __syncthreads();
+
+  // 3. each slot's staging word, or none
+  for (int i = tid; i < K; i += blockDim.x) {
+    const int d = sm.slot[i];
+    uint16_t dst = kNoSlot;
+    if (d < R) {
+      const int j = sm.wcount[(i / span) * bins + d] + (int)sm.stage[i];
+      if (j < S) dst = (uint16_t)(sm.local[d] + j);
+    }
+    sm.slot[i] = dst;
   }
 
+  // 4. each operand word: staged by destination, then stored run by run
   const int seg = t / t_seg;
-  const int j = t - seg * t_seg;
-  const unsigned lower = (1u << lane) - 1u;
-  for (int c0 = 0; c0 < K; c0 += blockDim.x) {
-    for (int e = tid; e < kGenWarps * bins; e += blockDim.x) wcount[e] = 0;
-    __syncthreads();
-    const int i = c0 + tid;
-    const bool inside = i < K;
-    int d = R;
-    unsigned peers = 0;
-    if (inside) {
-      d = dig[i];
-      peers = __match_any_sync(0xFFFFFFFFu, d);
-      if (lane == __ffs(peers) - 1) wcount[warp * bins + d] = __popc(peers);
-    }
-    __syncthreads();
-    // exclusive scan of each digit's per-warp counts in warp order, starting
-    // from the digit's running base; the base moves on by the chunk's total
-    for (int dd = tid; dd < R; dd += blockDim.x) {
-      int run = base[dd];
-      for (int w = 0; w < kGenWarps; ++w) {
-        const int c = wcount[w * bins + dd];
-        wcount[w * bins + dd] = run;
-        run += c;
+  const int tj = t - seg * t_seg;
+  const int pieces = sm.piece[R];
+  for (int k = 0; k < ops.count; ++k) {
+    const uint32_t* in = ops.in[k] + first;
+    __syncthreads();   // destinations written; the last operand's stores done
+    if ((reinterpret_cast<uintptr_t>(in) & 15) == 0) {
+      for (int g0 = 4 * tid; g0 < K; g0 += 4 * kGenLoads * kGenThreads) {
+        uint4 w[kGenLoads];
+#pragma unroll
+        for (int b = 0; b < kGenLoads; ++b) {
+          const int g = g0 + 4 * kGenThreads * b;
+          if (g < K) w[b] = *reinterpret_cast<const uint4*>(in + g);
+        }
+#pragma unroll
+        for (int b = 0; b < kGenLoads; ++b) {
+          const int g = g0 + 4 * kGenThreads * b;
+          if (g < K) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint16_t dst = sm.slot[g + kk];
+              if (dst != kNoSlot) sm.stage[dst] = word(w[b], kk);
+            }
+          }
+        }
       }
-      base[dd] = run;
-    }
-    __syncthreads();
-    if (inside && d < R) {
-      const int rank = wcount[warp * bins + d] + __popc(peers & lower);
-      if (rank < S) {
-        const size_t o = (((size_t)seg * R + d) * t_seg + j) * S + rank;
-        const size_t src = first + i;
-        for (int k = 0; k < ops.count; ++k) ops.out[k][o] = ops.in[k][src];
+    } else {
+      for (int i = tid; i < K; i += blockDim.x) {
+        const uint16_t dst = sm.slot[i];
+        if (dst != kNoSlot) sm.stage[dst] = in[i];
       }
     }
-    __syncthreads();  // wcount is cleared for the next chunk
+    __syncthreads();
+    uint32_t* out = ops.out[k];
+    int d = 0;                   // a warp's pieces ascend, so its digit does
+    for (int pc = warp; pc < pieces; pc += kGenWarps) {
+      while (sm.piece[d + 1] <= pc) ++d;
+      const int m = min(sm.hist[d], S);
+      const int j = (pc - sm.piece[d]) * kGenPiece + 4 * lane;
+      uint32_t* dst = out + (((size_t)seg * R + d) * t_seg + tj) * S;
+      const uint32_t* src = sm.stage + sm.local[d];
+      if (j + 4 <= m) {
+        *reinterpret_cast<uint4*>(dst + j) =
+            *reinterpret_cast<const uint4*>(src + j);
+      } else {
+        for (int kk = 0; kk < 4 && j + kk < m; ++kk) dst[j + kk] = src[j + kk];
+      }
+    }
   }
 }
 
 }  // namespace tpusort
 
 // ops_in/ops_out: n_ops (1-16) device pointers each, the n_planes key planes
-// first; digit: a (T, K) int32 digit plane or null.  Returns a cudaError_t.
+// first, the inputs (T, K) row-major and the outputs (T * R * S,) and
+// 16-byte aligned; digit: a (T, K) int32 digit plane or null; K a power of
+// two from 128 to 32768, S a multiple of 4, R at most 256.  Returns a
+// cudaError_t.
 extern "C" int tpusort_partition_general(
     const void* const* ops_in, void* const* ops_out, int n_ops, int n_planes,
     const void* digit, const void* counts_in, int q_in, long long n, int T,
@@ -161,16 +336,20 @@ extern "C" int tpusort_partition_general(
   using namespace tpusort;
   Operands ops;
   if (!make_operand_list(ops_in, ops_out, n_ops, &ops) || n_planes < 1 ||
-      n_planes > n_ops || R < 1 || R > kGenMaxRadix || K % 128 || t_seg < 1) {
+      n_planes > n_ops || R < 1 || R > kGenMaxRadix || K < 128 ||
+      K > 32768 || (K & (K - 1)) || S <= 0 || S % 4 || t_seg < 1 ||
+      T % t_seg || (counts_in && (q_in <= 0 || (q_in & (q_in - 1)) ||
+                                  K % q_in)) ||
+      !aligned16(ops_out, n_ops)) {
     return (int)cudaErrorInvalidValue;
   }
   if (T == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)K * sizeof(uint16_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      partition_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static std::atomic<bool> smem_set[kMaxDevices];
+  cudaError_t err = allow_smem_once((const void*)partition_general_kernel,
+                                    kMaxSmem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  partition_general_kernel<<<T, kGenThreads, smem, (cudaStream_t)stream>>>(
+  partition_general_kernel<<<T, kGenThreads, GenSmem::bytes(K, R),
+                             (cudaStream_t)stream>>>(
       ops, n_planes, (const int32_t*)digit, (const int32_t*)counts_in, q_in, n,
       K, R, S, lo_bit, width, t_seg, (int32_t*)counts_out);
   return (int)cudaGetLastError();

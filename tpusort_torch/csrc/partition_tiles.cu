@@ -18,7 +18,7 @@
 //
 // One CTA a tile:
 //   1. load the sortkey into shared memory with a 16-bit slot index;
-//   2. sort the K slots (tile_sort.cuh's network, the one K3 runs);
+//   2. sort the K slots (tile_sort.cuh's shared-memory network);
 //   3. write each run's S slots of every data operand, gathered from the
 //      tile's input in global memory through the sorted slot index.
 //
@@ -46,11 +46,10 @@ partition_tiles_kernel(const uint32_t* __restrict__ sortkey, Values vals,
                        int R, int S) {
   extern __shared__ uint32_t smem[];
   __shared__ int32_t start[kMaxRuns];
-  const SmemTile<1, true> tile(smem, K);
+  const SmemTile tile(smem, K);
   const size_t first = (size_t)blockIdx.x * K;
-  const uint32_t* src[1] = {sortkey};
   for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    tile.load(i, src, first, true);
+    tile.load(i, sortkey, first);
   }
   for (int d = threadIdx.x; d < R; d += blockDim.x) {
     start[d] = starts[(size_t)blockIdx.x * R + d];
@@ -95,7 +94,7 @@ extern "C" int tpusort_partition_tiles(const void* sortkey,
     vals.out[v] = static_cast<uint32_t*>(vals_out[v]);
   }
   const int log_k = 31 - __builtin_clz(K);
-  const size_t smem = SmemTile<1, true>::bytes(K);
+  const size_t smem = SmemTile::bytes(K);
   const int threads = K / 2 < kThreads ? K / 2 : kThreads;
   cudaError_t err = cudaFuncSetAttribute(
       partition_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

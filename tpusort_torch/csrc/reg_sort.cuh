@@ -1,6 +1,7 @@
 // Block-wide row sort with the short steps in registers and warp shuffles,
-// used by the row tile sorts (K3, K9, K10; csrc/sort_tiles.cu) and the
-// raw-key partition pass (K1, K1b; csrc/partition.cu).
+// used by the row tile sorts (K3, K9, K10; csrc/sort_tiles.cu), the
+// raw-key partition pass (K1, K1b; csrc/partition.cu) and the leaf sort
+// with its dense collapse (K2; csrc/bitonic.cu).
 //
 // The network is block_sort's (tile_sort.cuh): for each merge level lk
 // (runs of 2^(lk-1) merged into runs of 2^lk) a mirror step, slot i against
@@ -400,20 +401,37 @@ __device__ void load_row(const RegTile<NK, IDX>& t,
   }
 }
 
-// Slots [0, K) of the sorted tile's planes to dst[p] + first, in 16-byte
-// stores (the entry points take only 16-byte aligned outputs; K is a
-// multiple of 128, so every row start is aligned).  Does not synchronise.
+// Words [0, n) to out[0, n), word i = src(i), at any 4-byte aligned out:
+// a scalar head up to the first 16-byte boundary, the body in 16-byte
+// stores, a scalar tail.  Consecutive threads store consecutive words, so
+// each warp's stores coalesce whatever the alignment; n <= 0 stores
+// nothing.  Does not synchronise.
+template <class Src>
+__device__ __forceinline__ void store_words(uint32_t* out, int n, Src src) {
+  if (n <= 0) return;
+  const int tid = threadIdx.x;
+  int head = (int)((16 - (reinterpret_cast<uintptr_t>(out) & 15)) & 15) >> 2;
+  if (head > n) head = n;
+  if (tid < head) out[tid] = src(tid);
+  const int body = head + ((n - head) & ~3);   // the 16-byte body ends here
+  for (int i = head + tid * 4; i < body; i += blockDim.x * 4) {
+    *reinterpret_cast<uint4*>(out + i) =
+        make_uint4(src(i), src(i + 1), src(i + 2), src(i + 3));
+  }
+  if (body + tid < n) out[body + tid] = src(body + tid);
+}
+
+// Slots [0, n) of the sorted tile's planes to dst[p] + first (n <= P), by
+// store_words: all 16-byte stores where the row start is aligned and n a
+// multiple of 4 (the row sorts' rows), a scalar head and tail where not
+// (K2's dense prefixes).  Does not synchronise.
 template <int NK, bool IDX>
 __device__ void store_row(const RegTile<NK, IDX>& t, uint32_t* const* dst,
-                          size_t first, int K) {
+                          size_t first, int n) {
 #pragma unroll
   for (int p = 0; p < NK; ++p) {
-    uint32_t* out = dst[p] + first;
-    for (int i = threadIdx.x * 4; i < K; i += blockDim.x * 4) {
-      *reinterpret_cast<uint4*>(out + i) =
-          make_uint4(t.key[p][swz(i)], t.key[p][swz(i + 1)],
-                     t.key[p][swz(i + 2)], t.key[p][swz(i + 3)]);
-    }
+    store_words(dst[p] + first, n,
+                [&](int i) { return t.key[p][swz(i)]; });
   }
 }
 
@@ -459,28 +477,25 @@ __device__ void stage_row(uint32_t* buf, const uint32_t* in, int K,
   }
 }
 
-// Each payload word of slots [0, K): staged whole in shared memory (over
-// key plane 0, which store_row has read; stage_row), then gathered from
-// there by the slot index, clamped to K - 1, and stored in 16-byte stores.
-// Expects the planes already stored; synchronises before each staging.
+// Each payload word of the row's K input slots at vals.in[v] + first:
+// staged whole in shared memory (over key plane 0, which store_row has
+// read; stage_row), then gathered from there by the slot index, clamped to
+// K - 1, for sorted slots [0, n), which store_words writes to
+// vals.out[v] + dst.  Expects the planes already stored; synchronises
+// before each staging.
 template <int E, int NK>
 __device__ void gather_payloads(const RegTile<NK, true>& t,
                                 const Values& vals, size_t first, int K,
-                                int chunks) {
+                                int chunks, size_t dst, int n) {
   uint32_t* buf = t.key[0];
   for (int v = 0; v < vals.count; ++v) {
-    uint32_t* out = vals.out[v] + first;
     __syncthreads();
     stage_row<E>(buf, vals.in[v] + first, K, chunks);
     __syncthreads();
-    auto src = [&](int i) {
+    store_words(vals.out[v] + dst, n, [&](int i) {
       const int s = t.idx[swz(i)];
       return buf[s < K ? s : K - 1];
-    };
-    for (int i = threadIdx.x * 4; i < K; i += blockDim.x * 4) {
-      *reinterpret_cast<uint4*>(out + i) =
-          make_uint4(src(i), src(i + 1), src(i + 2), src(i + 3));
-    }
+    });
   }
 }
 

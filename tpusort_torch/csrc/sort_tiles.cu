@@ -65,7 +65,9 @@ sort_tiles_kernel(Planes keys, Values vals, int K, int log_p, int chunks) {
   __syncthreads();
   reg_block_sort<E>(tile, log_p, 0, chunks);
   store_row(tile, keys.out, first, K);
-  if constexpr (IDX) gather_payloads<E>(tile, vals, first, K, chunks);
+  if constexpr (IDX) {
+    gather_payloads<E>(tile, vals, first, K, chunks, first, K);
+  }
 }
 
 template <bool IDX, int E>
@@ -105,7 +107,9 @@ sort_tiles_valid_kernel(Planes planes, Values vals,
   __syncthreads();
   reg_block_sort<E>(tile, log_p, log_run, chunks);
   store_row(tile, planes.out, first, K);
-  if constexpr (IDX) gather_payloads<E>(tile, vals, first, K, chunks);
+  if constexpr (IDX) {
+    gather_payloads<E>(tile, vals, first, K, chunks, first, K);
+  }
 }
 
 template <int NK, bool IDX, int E>

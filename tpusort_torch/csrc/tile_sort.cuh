@@ -1,7 +1,8 @@
-// Block-wide tile sort in shared memory, shared by the leaf (K2) and
-// partition_tiles (K8).  The row tile sorts (K3, K9, K10) and the raw-key
-// partition pass (K1, K1b) run reg_sort.cuh, the same network with its
-// short steps in registers and warp shuffles.
+// Block-wide tile sort in shared memory, used by partition_tiles (K8)
+// alone, and the operand structs and mode dispatch every kernel shares.
+// The row tile sorts (K3, K9, K10), the raw-key partition pass (K1, K1b)
+// and the leaf (K2) run reg_sort.cuh, the same network with its short
+// steps in registers and warp shuffles.
 //
 // Replaces the bitonic compare-exchange networks of the Pallas kernels
 // (tpusort/kernels/bitonic.py: _sort_network, _merge_sorted_runs, the staged
@@ -12,11 +13,10 @@
 // separated by __syncthreads().  This is the simple first version: every
 // stage goes through shared memory.
 //
-// Payloads do not ride.  A tile of 1-3 key planes (4 bytes a slot each)
-// carries, when payloads exist, a 16-bit slot index instead; the caller
-// gathers each payload word from global memory by that index as it writes
-// its outputs (rank, then gather).  Shared memory then depends only on the
-// number of key planes: at 16,384 slots 64 KB a plane plus 32 KB of index.
+// Payloads do not ride.  The tile holds K8's sortkey (4 bytes a slot) and a
+// 16-bit slot index; the caller gathers each payload word from global
+// memory by that index as it writes its outputs (rank, then gather): 96 KB
+// at 16,384 slots.
 #pragma once
 
 #include <cstdint>
@@ -27,59 +27,35 @@ namespace tpusort {
 constexpr int kThreads = 1024;
 constexpr uint32_t kSentinel = 0xFFFFFFFFu;  // invalid slots, every plane
 
-// NK key planes of n slots each, laid out one after the other from `base`,
-// then (IDX) a uint16 slot index per slot.  Compares lexicographically as
-// unsigned words, plane 0 most significant; unstable.  With IDX_TIES, equal
-// keys compare by their slot index, so the order is (planes, index): K3
-// needs it to keep its virtual pad slots (index >= K) behind genuine
-// all-ones keys.
-template <int NK, bool IDX, bool IDX_TIES = false>
+// One key word a slot for n slots from `base`, then a uint16 slot index a
+// slot.  Compares the keys as unsigned words; unstable.
 struct SmemTile {
-  static_assert(IDX || !IDX_TIES, "index ties need the index");
-  uint32_t* key[NK];
+  uint32_t* key;
   uint16_t* idx;
 
-  __device__ SmemTile(uint32_t* base, int n) {
-#pragma unroll
-    for (int p = 0; p < NK; ++p) key[p] = base + (size_t)p * n;
-    idx = IDX ? reinterpret_cast<uint16_t*>(base + (size_t)NK * n) : nullptr;
-  }
+  __device__ SmemTile(uint32_t* base, int n)
+      : key(base), idx(reinterpret_cast<uint16_t*>(base + n)) {}
 
   // Dynamic shared memory for n slots.
   static constexpr size_t bytes(int n) {
-    return (size_t)n * (NK * sizeof(uint32_t) + (IDX ? sizeof(uint16_t) : 0));
+    return (size_t)n * (sizeof(uint32_t) + sizeof(uint16_t));
   }
 
   __device__ void cmp_swap(int i, int j) const {
-    uint32_t x[NK], y[NK];
-    bool gt = IDX_TIES && idx[i] > idx[j];
-#pragma unroll
-    for (int p = NK - 1; p >= 0; --p) {
-      x[p] = key[p][i];
-      y[p] = key[p][j];
-      gt = x[p] > y[p] || (x[p] == y[p] && gt);
-    }
-    if (gt) {
-#pragma unroll
-      for (int p = 0; p < NK; ++p) {
-        key[p][i] = y[p];
-        key[p][j] = x[p];
-      }
-      if (IDX) {
-        const uint16_t t = idx[i];
-        idx[i] = idx[j];
-        idx[j] = t;
-      }
+    const uint32_t x = key[i], y = key[j];
+    if (x > y) {
+      key[i] = y;
+      key[j] = x;
+      const uint16_t t = idx[i];
+      idx[i] = idx[j];
+      idx[j] = t;
     }
   }
 
-  // Slot i from the tile's input words (plane p at src[p][i]) or, when
-  // invalid, the all-ones sentinel in every plane.
-  __device__ void load(int i, const uint32_t* const* src, size_t off,
-                       bool valid) const {
-#pragma unroll
-    for (int p = 0; p < NK; ++p) key[p][i] = valid ? src[p][off + i] : kSentinel;
-    if (IDX) idx[i] = (uint16_t)i;
+  // Slot i from src[off + i]; its index is i.
+  __device__ void load(int i, const uint32_t* src, size_t off) const {
+    key[i] = src[off + i];
+    idx[i] = (uint16_t)i;
   }
 };
 

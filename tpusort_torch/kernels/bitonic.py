@@ -8,8 +8,9 @@ PyTorch port of ``tpusort/kernels/bitonic.py:sort_tiles_counts_collapsed``
 (``_counts_sort_kernel``) and ``sort_tiles_masked``
 (``_masked_sort_kernel``).  On a CUDA tensor each wrapper launches its
 hand-written kernel (``csrc/bitonic.cu``, ``csrc/sort_tiles.cu``; one CTA
-per tile, see those files for the design and what bounds it; K3, K9 and
-K10 lay a row out on the CTA by :func:`tile_sort_geometry`).  On a CPU
+per tile on the register network of ``csrc/reg_sort.cuh``, see those files
+for the design and what bounds it; each lays a row out on the CTA by
+:func:`tile_sort_geometry`).  On a CPU
 tensor it runs the plain PyTorch version of the same contract
 (``*_plain``).
 """
@@ -54,7 +55,8 @@ def leaf_tile_cap(num_keys: int, has_values: bool) -> int:
 
 
 class TileGeometry(NamedTuple):
-    """How K3, K9 and K10 lay one row out on a CTA (``csrc/reg_sort.cuh``):
+    """How K2, K3, K9 and K10 (and K1, K1b) lay one row out on a CTA
+    (``csrc/reg_sort.cuh``):
     ``threads`` threads each hold ``slots`` consecutive slots in registers,
     ``chunks`` times over, and the row's P slots live in ``smem_bytes`` of
     shared memory between the steps that need it."""
@@ -148,12 +150,13 @@ def _sort_tiles_counts_collapsed_cuda(
     offsets = torch.zeros(T + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts.sum(dim=1, dtype=torch.int64), dim=0, out=offsets[1:])
     outs = [torch.empty(n_out, dtype=torch.int32, device=dev) for _ in ops]
+    geo = tile_sort_geometry(K, num_keys, n_vals)
     err = _build.library().tpusort_leaf_collapse(
         _build.pointers(ops[:num_keys]), _build.pointers(outs[:num_keys]),
         num_keys, _build.pointers(ops[num_keys:]),
         _build.pointers(outs[num_keys:]), n_vals, counts.data_ptr(), q,
-        offsets.data_ptr(), n_out, T, K, p, sorted_run,
-        torch.cuda.current_stream(dev).cuda_stream,
+        offsets.data_ptr(), n_out, T, K, p, sorted_run, geo.threads,
+        geo.slots, geo.smem_bytes, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "sort_tiles_counts_collapsed")
     _build.count_launch(sort_tiles_counts_collapsed, num_keys, n_vals)
@@ -174,9 +177,12 @@ def sort_tiles_counts_collapsed(
     plane) and write each tile's valid prefix to the dense (n_out,) output
     at the exclusive cumsum of the tiles' valid counts.  The first
     ``num_keys`` operands are key planes (plane 0 most significant); the
-    rest are payload words that ride unstably.  ``sorted_run``: the tile
-    already consists of ascending runs of that power-of-two length once
-    invalid slots are rewritten.
+    rest are payload words that ride along.  The contract allows any order
+    of equal keys; in both versions ties keep slot order (the kernel
+    compares equal keys by slot index), so a valid all-ones key ties the
+    invalid slots in slot order too.  ``sorted_run``: the tile already
+    consists of ascending runs of that power-of-two length once invalid
+    slots are rewritten.
 
     ``op`` is one tensor (returns one) or a list (returns a list), as in
     the JAX wrapper.

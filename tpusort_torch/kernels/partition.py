@@ -14,7 +14,8 @@ PyTorch port of ``tpusort/kernels/partition.py:partition_pass_fused``:
   template (``csrc/partition.cu``);
 * the general branch (K1c) partitions each tile stably by its digit, with
   planes and payload words riding in input order; on a CUDA tensor it
-  launches ``csrc/partition_general.cu`` (a counting partition, no sort).
+  launches ``csrc/partition_general.cu`` (a blocked stable rank, no sort,
+  and the runs staged in shared memory so that their stores coalesce).
 
 K8 (:func:`partition_tiles`, the port of ``partition_tiles``) sorts each
 tile by a sortkey its caller built and cuts the data operands at the
@@ -384,7 +385,8 @@ def _partition_pass_general_cuda(
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     T, K = planes[0].shape
     n_ops = len(planes) + len(values)
-    # shared memory is 2 bytes a slot plus 18.5 KB: any K up to MAX_TILE fits
+    # shared memory is 6 bytes a slot plus at most 16 KB for the digits
+    # (csrc/partition_general.cu: GenSmem): any K up to MAX_TILE fits
     if K > MAX_TILE or n_ops > MAX_OPERANDS or r > MAX_RADIX:
         raise ValueError(
             f"partition_pass_fused (general): a tile of {K} slots with "
