@@ -211,13 +211,25 @@ non-zero:
     and 256, S below and above the counts, a digit straddling two planes,
     the digit plane, 16 operands, pass 0 and later passes, ``t_seg`` > 1;
     then K2 keys on 2^28 valid keys in tiles of K = P = 32768, timed
-    against the path's padded 24,576-slot tiles (the sentinel half).
+    against the path's padded 24,576-slot tiles (the sentinel half);
+33. K8 (``csrc/partition_tiles.cu``, a blocked stable rank of the
+    sortkey) and K4 (``csrc/collapse.cu``, an output-driven copy) at their
+    edges: the ``-Xptxas -v`` lines of their 4 kernels (none may spill);
+    K8 vs plain bit for bit on every slot, the clamped ones too, at K =
+    128 .. 32768, R = 1 .. 128, 1, 2 and 8 data operands, on the engine's
+    sortkeys, tied ones (the order is stable, as plain's), ones on which
+    the kernel's vote fails, random and constant words, one tile and 300;
+    K4 vs plain with nseg from 1 to 2^16: one segment over many chunks,
+    tiny and empty segments, ``n_out`` cutting a segment, sum == ``n_out``,
+    16 operands, int64 counts past the segment and below 0, ``n_out`` past
+    the sum.
 
 The line before the last is a JSON summary of the kernels: each template
 mode compared, with its launches in the run of the path that drives it at
 that shape (counters set to 0 just before), or 0 where no path does, its
 time, its plain version's time, its bound (the least time for the words
-it must move at 3.35 TB/s, or its operations at 67 T/s, the larger), the
+it must move at 3.35 TB/s, or its operations at 67 T/s, the larger; K8
+writes every one of its R x S slots, so they all count), the
 time of a PyTorch call computing the same function where there is one
 (K1, K1b, K1c and K2 with 1-2 planes, K3, K5, K6, K9 and K10, K7, K8, K4
 and K4c) and a remark or null (why a three-plane mode has none); the last
@@ -2293,7 +2305,7 @@ def main() -> None:
         for g, w in zip(got, want):
             check(same_bits(g[m], w[m]), f"K8 {name}: valid slots differ")
             err = max(err, max_abs_err(g[m], w[m]))
-        n_valid, n_out = int(m.sum()), int(cl.sum())
+        n_valid = int(m.sum())
         del got, want, m
         pos = (starts.long()[:, :, None]
                + torch.arange(spec.s, device=dev)).clamp(0, spec.k - 1) \
@@ -2310,11 +2322,13 @@ def main() -> None:
         del pos
         log(f"K8 {name} == plain at ({t}, {spec.k}), R={spec.r}, "
             f"S={spec.s}, {len(tiled)} data operand(s); max_abs_err {err}")
-        # the valid sortkey and data words read once, the starts, and the
-        # valid words of each run written once
+        # the sortkey and data words read once, the starts, and the R x S
+        # words of each data operand written once (every slot is defined:
+        # those past a run's count repeat clamped slots of the tile)
         return (err, *times[:2],
-                n_valid * (1 + len(tiled)) + starts.numel()
-                + n_out * len(tiled), n_valid * log2(spec.k), times[2])
+                t * spec.k * (1 + len(tiled)) + starts.numel()
+                + t * spec.r * spec.s * len(tiled), n_valid * log2(spec.k),
+                times[2])
 
     x_ops, x_np, x_plan = msd_phase_inputs(x)
     check([(p.k, p.s) for p in x_plan.passes]
@@ -2839,6 +2853,123 @@ def main() -> None:
           f"padded to 32768 {fmt(results['K2 keys'][1])} on {card}",
           flush=True)
     del full, fcnt
+
+    # ---- phase 33: partition_tiles.cu and collapse.cu at their edges ----
+    torch.cuda.empty_cache()
+    spills, fn_name = {}, None
+    ours = re.compile(r"\d(partition_tiles_kernel|collapse_kernel|"
+                      r"collapse_offsets_kernel)")
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn_name = line.split("'")[1]
+        elif fn_name and ours.search(fn_name) \
+                and ("spill" in line or "registers" in line):
+            src = "partition_tiles.cu" if "partition_tiles" in fn_name \
+                else "collapse.cu"
+            print(f"  ptxas {src} {fn_name}: {line.strip()}", flush=True)
+            if "spill" in line:
+                spills[fn_name] = [int(w) for w in re.findall(
+                    r"(\d+) bytes spill", line)]
+    # K8; K4 and its offsets kernel for int32 and for int64 counts
+    check(len(spills) == 4,
+          f"partition_tiles.cu / collapse.cu: {sorted(spills)} in the build "
+          "log, expected 4 kernels")
+    check(not any(sum(v) for v in spills.values()),
+          "partition_tiles.cu / collapse.cu: a kernel spills: "
+          f"{[k for k, v in spills.items() if sum(v)]}")
+
+    def k8_edge(t, k, r_, s_, n_data, keys, past_k):
+        """K8's inputs: the engine's sortkey (digit or r) << log2(k) |
+        slot with the exclusive cumsum of the digit counts as starts, or
+        tied words ("ties": 8 distinct, the order stable), the digit over
+        a permutation of the slots ("vote": the kernel's vote fails), any
+        words ("random") or one word ("constant"); with ``past_k`` random
+        starts in [0, k + s_)."""
+        digit = torch.randint(0, r_ + 1, (t, k), device=dev, generator=gen)
+        low = torch.arange(k, device=dev).expand(t, k)
+        if keys == "vote":
+            low = torch.argsort(torch.rand(t, k, device=dev, generator=gen),
+                                1)
+        sk = ((digit << log2(k)) | low).to(torch.int32)
+        if keys == "ties":
+            sk = (torch.randint(0, 8, (t, k), device=dev, generator=gen)
+                  * 0x20202020 - (1 << 31)).to(torch.int32)
+        elif keys == "random":
+            sk = random_i32(t * k).reshape(t, k)
+        elif keys == "constant":
+            sk = torch.full((t, k), -559038737, dtype=torch.int32,
+                            device=dev)
+        cnt = torch.zeros(t, r_ + 1, dtype=torch.int32, device=dev) \
+            .scatter_add_(1, digit, torch.ones_like(digit,
+                                                    dtype=torch.int32))[:, :r_]
+        starts = (torch.cumsum(cnt, 1, dtype=torch.int32) - cnt).contiguous()
+        if past_k:
+            starts = torch.randint(0, k + s_, (t, r_), dtype=torch.int32,
+                                   device=dev, generator=gen)
+        return [sk, *(random_i32(t * k).reshape(t, k)
+                      for _ in range(n_data))], starts
+
+    n_edge = 0
+    for k in (128, 2048, 16384, 32768):
+        for r_, s_, n_data, keys, past_k in (
+                (1, 128, 1, "engine", False), (8, 384, 2, "ties", True),
+                (32, 768, 8, "vote", False), (128, 128, 1, "random", True),
+                (64, 256, 2, "constant", True), (128, 256, 2, "engine", True),
+                (32, 512, 1, "ties", False)):
+            # one tile, and (at K = 16384) enough to fill every SM twice
+            for t in ((1, 300) if k == 16384 and keys == "engine" else (3,)):
+                ops, starts = k8_edge(t, k, r_, s_, n_data, keys, past_k)
+                got = partition_tiles(ops, starts, r=r_, s=s_)
+                want = partition_tiles_plain(ops, starts, r=r_, s=s_)
+                check(all(same_bits(g, w) for g, w in zip(got, want)),
+                      f"phase 33: K8 ({t}, {k}) R {r_} S {s_} {n_data} data "
+                      f"operand(s), {keys} sortkeys, past_k {past_k}: "
+                      "differs from plain")
+                n_edge += 1
+                del ops, starts, got, want
+    log(f"phase 33 ok: no spill in partition_tiles.cu nor collapse.cu; K8 "
+        f"== plain bit for bit on every slot (the clamped ones too) at K = "
+        f"128 .. 32768, R = 1 .. 128, 1, 2 and 8 data operands, the "
+        f"engine's sortkeys, tied ones (stable), ones on which the vote "
+        f"fails, random and constant words: {n_edge} calls")
+
+    n_edge = 0
+    for nseg, seg, n_ops, cut, kind in (
+            (1, 1 << 22, 1, 0, "one segment, many chunks"),
+            (1 << 16, 128, 1, 0, "tiny segments"),
+            (4096, 256, 2, 0, "mostly zero counts"),
+            (64, 1 << 16, 2, 12345, "n_out mid-segment"),
+            (999, 2048, 1, 0, "sum == n_out"),
+            (33, 4096, 16, 3, "16 operands"),
+            (257, 6144, 2, 0, "int64 counts past seg and below 0"),
+            (17, 1024, 1, -1000, "n_out past the sum")):
+        segs = [random_i32(nseg * seg).reshape(nseg, seg)
+                for _ in range(n_ops)]
+        cnts = torch.randint(0, seg + 1, (nseg,), dtype=torch.int32,
+                             device=dev, generator=gen)
+        if kind == "one segment, many chunks":
+            cnts[0] = seg - 5
+        elif kind == "tiny segments":
+            cnts = torch.randint(0, 3, (nseg,), dtype=torch.int32,
+                                 device=dev, generator=gen)
+        elif kind == "mostly zero counts":
+            cnts[torch.rand(nseg, device=dev, generator=gen) < 0.9] = 0
+        elif kind.startswith("int64"):
+            cnts = cnts.long()
+            cnts[::5] = seg + 99
+            cnts[1::7] = -3
+        n_out = int(cnts.clamp(0, seg).sum()) - cut
+        got = collapse_segments(segs, cnts, n_out)
+        want = collapse_segments_plain(segs, cnts, n_out)
+        check(all(same_bits(g, w) for g, w in zip(got, want)),
+              f"phase 33: K4 ({nseg}, {seg}) {n_ops} operand(s), {kind}: "
+              "differs from plain")
+        n_edge += 1
+        del segs, cnts, got, want
+    log(f"phase 33 ok: K4 == plain bit for bit with nseg 1 .. 2^16: one "
+        f"segment over many chunks, tiny and empty segments, n_out cutting "
+        f"a segment, sum == n_out, 16 operands, int64 counts clamped in the "
+        f"kernel, n_out past the sum (zeros): {n_edge} calls")
 
     for name, (err, tk, tp, words, ops, *lib) in results.items():
         extra = f" vs library {fmt(lib[0])}" if lib else ""

@@ -390,6 +390,42 @@ def test_collapse(gen, nseg, seg, n_ops, cut):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("case", ["zeros", "one_long", "tiny", "cut_mid",
+                                  "sum", "ops16", "int64", "past_sum"])
+def test_collapse_edges(gen, case):
+    """K4 at its edges, bit for bit against plain: zero counts among the
+    segments, one segment spanning many 8192-word chunks, many tiny
+    segments in one chunk, n_out cutting mid-segment, sum == n_out, 16
+    operands, int64 counts (clamped in the kernel: past seg and below 0),
+    and n_out past the sum (those words are 0 in both)."""
+    nseg, seg, n_ops, cut = {
+        "zeros": (4096, 256, 2, 0), "one_long": (1, 1 << 22, 1, 0),
+        "tiny": (1 << 16, 128, 1, 0), "cut_mid": (64, 1 << 16, 2, 12345),
+        "sum": (999, 2048, 1, 0), "ops16": (33, 4096, 16, 3),
+        "int64": (257, 6144, 2, 0), "past_sum": (17, 1024, 1, -1000)}[case]
+    ops = [_rand(gen, nseg, seg) for _ in range(n_ops)]
+    counts = torch.randint(0, seg + 1, (nseg,), dtype=torch.int32,
+                           device="cuda", generator=gen)
+    if case == "zeros":
+        counts[torch.rand(nseg, device="cuda", generator=gen) < 0.9] = 0
+    elif case == "one_long":
+        counts[0] = seg - 5
+    elif case == "tiny":
+        counts = torch.randint(0, 3, (nseg,), dtype=torch.int32,
+                               device="cuda", generator=gen)
+    if case == "int64":
+        counts = counts.long()
+        counts[::5] = seg + 99
+        counts[1::7] = -3
+    n_out = int(counts.clamp(0, seg).sum()) - cut
+    tm.reset_counters()
+    got = tc.collapse_segments(ops, counts, n_out)
+    assert tm.mode_counters() == {("K4", 0, n_ops): 1}
+    want = tc.collapse_segments_plain(ops, counts, n_out)
+    for g, w in zip(got, want):
+        assert g.shape == (n_out,) and torch.equal(g, w)
+
+
 def test_sort_tiles_packed_leaf_sentinel(gen):
     """The packed leaf's rows: two segments of 6144 a row, so the last
     segment's invalid slots carry the word 0xFFFFFFFF, and the row is
@@ -1371,14 +1407,29 @@ def test_global_sort_on_card(gen, kw):
         assert (emit > 0) == windows, modes
 
 
-def _k8_case(gen, T, K, r, s, n_data, past_k):
+def _k8_case(gen, T, K, r, s, n_data, past_k, keys="engine"):
     """K8's inputs as the per-phase engine builds them: digits below r or r
     (invalid), the unique sortkey digit << log2(K) | slot, the exclusive
     cumsum of each tile's digit counts as starts; with ``past_k`` random
-    starts in [0, K + S), so runs reach past the tile's end."""
+    starts in [0, K + S), so runs reach past the tile's end.  Other
+    ``keys``: "ties", 8 distinct words with the top bit (equal sortkeys
+    keep their slot order); "vote", the digit over a permutation of the
+    slots, not the slot itself (the kernel's vote fails); "random", any
+    32-bit words; "constant", one word."""
+    lk = K.bit_length() - 1
     digit = torch.randint(0, r + 1, (T, K), device="cuda", generator=gen)
-    sortkey = ((digit << (K.bit_length() - 1))
-               | torch.arange(K, device="cuda")).to(torch.int32)
+    low = torch.arange(K, device="cuda").expand(T, K)
+    if keys == "vote":
+        low = torch.argsort(torch.rand(T, K, device="cuda", generator=gen), 1)
+    sortkey = ((digit << lk) | low).to(torch.int32)
+    if keys == "ties":
+        sortkey = (torch.randint(0, 8, (T, K), device="cuda", generator=gen)
+                   * 0x20202020 - (1 << 31)).to(torch.int32)
+    elif keys == "random":
+        sortkey = _rand(gen, T, K)
+    elif keys == "constant":
+        sortkey = torch.full((T, K), -559038737, dtype=torch.int32,
+                             device="cuda")
     counts = torch.zeros(T, r + 1, dtype=torch.int32, device="cuda") \
         .scatter_add_(1, digit, torch.ones_like(digit, dtype=torch.int32))
     counts = counts[:, :r]
@@ -1390,18 +1441,29 @@ def _k8_case(gen, T, K, r, s, n_data, past_k):
     return [sortkey] + [_rand(gen, T, K) for _ in range(n_data)], starts
 
 
-@pytest.mark.parametrize("T,K,r,s,n_data,past_k", [
-    (3, 128, 1, 128, 1, False), (5, 256, 4, 128, 8, True),
-    (2, 2048, 8, 384, 2, False), (9, 1024, 16, 256, 5, True),
-    (7, 4096, 128, 128, 3, True), (4, 16384, 32, 768, 1, False),
-    (3, 16384, 32, 512, 2, True), (2, 32768, 128, 384, 8, True),
-    (1, 32768, 32, 1536, 2, False),
+@pytest.mark.parametrize("T,K,r,s,n_data,past_k,keys", [
+    (3, 128, 1, 128, 1, False, "engine"), (5, 256, 4, 128, 8, True, "engine"),
+    (2, 2048, 8, 384, 2, False, "engine"),
+    (9, 1024, 16, 256, 5, True, "engine"),
+    (7, 4096, 128, 128, 3, True, "engine"),
+    (4, 16384, 32, 768, 1, False, "engine"),
+    (3, 16384, 32, 512, 2, True, "engine"),
+    (2, 32768, 128, 384, 8, True, "engine"),
+    (1, 32768, 32, 1536, 2, False, "engine"),
+    (3, 2048, 8, 256, 2, True, "ties"), (2, 16384, 32, 512, 1, True, "ties"),
+    (2, 32768, 128, 256, 2, True, "ties"),
+    (4, 2048, 16, 256, 1, False, "vote"), (2, 16384, 32, 768, 2, False, "vote"),
+    (2, 32768, 128, 128, 1, True, "vote"),
+    (3, 4096, 8, 128, 2, True, "random"), (2, 32768, 128, 256, 1, True, "random"),
+    (2, 1024, 4, 256, 1, True, "constant"),
 ])
-def test_partition_tiles(gen, T, K, r, s, n_data, past_k):
-    """K8 against its plain version at odd geometries: the sortkey is
-    unique, so every slot compares, the clamped ones past the tile too;
-    one launch in the mode (1, data operands)."""
-    ops, starts = _k8_case(gen, T, K, r, s, n_data, past_k)
+def test_partition_tiles(gen, T, K, r, s, n_data, past_k, keys):
+    """K8 against its plain version at odd geometries, bit for bit on every
+    slot, the clamped ones past the tile too: the engine's unique sortkey,
+    tied sortkeys (the kernel's order is stable, as plain's), sortkeys on
+    which its vote fails, random and constant words, up to K = 32768 with
+    R = 128; one launch in the mode (1, data operands)."""
+    ops, starts = _k8_case(gen, T, K, r, s, n_data, past_k, keys)
     tm.reset_counters()
     got = tp.partition_tiles(ops, starts, r=r, s=s)
     assert tm.mode_counters() == {("K8", 1, n_data): 1}
@@ -1413,6 +1475,7 @@ def test_partition_tiles(gen, T, K, r, s, n_data, past_k):
 
 def test_partition_tiles_rejects_what_the_kernel_cannot_take(gen):
     ops, starts = _k8_case(gen, 1, 2048, 8, 256, 9, False)
+    tm.reset_counters()
     with pytest.raises(ValueError, match="data operand"):
         tp.partition_tiles(ops, starts, r=8, s=256)
     big = [_rand(gen, 1, 65536), _rand(gen, 1, 65536)]

@@ -9,7 +9,7 @@ slots, the shuffles inside a warp's 32 E slots with the mirror's partner
 at ``lane ^ m`` and the reversed register ``E - 1 - r``, the shared-memory
 steps over the whole row, chunk by chunk where a row is longer than the
 CTA's registers, and the swizzled shared-memory word of each slot).  The
-model must run every step of ``block_sort``'s network exactly once, in
+model must run every step of the bitonic network exactly once, in
 order, and sort rows with ties, with and without ``sorted_run``.
 """
 
@@ -92,7 +92,7 @@ def swz(s):
 
 
 def _reference_steps(log_p, log_run):
-    """block_sort's steps, in order: (level, -1) for the mirror, (level,
+    """The network's steps, in order: (level, -1) for the mirror, (level,
     lj) for the half-cleaner at distance 2^lj; each with its pairs."""
     half = 1 << (log_p - 1)
     p = np.arange(half)
@@ -256,7 +256,7 @@ CHUNKED = [(2048, 32, 32, 2), (4096, 64, 8, 8)]
 @pytest.mark.parametrize("p,threads,slots,chunks", SMALL + CHUNKED)
 @pytest.mark.parametrize("log_run", [0, 7])
 def test_model_runs_every_step_once(p, threads, slots, chunks, log_run):
-    """Each step of block_sort's network runs exactly once on every pair
+    """Each step of the bitonic network runs exactly once on every pair
     it owns, in the network's order within each chunk, at the tier its
     span allows."""
     log_p = p.bit_length() - 1

@@ -59,7 +59,7 @@
 #include <cstdint>
 
 #include "reg_sort.cuh"
-#include "tile_sort.cuh"
+#include "operands.cuh"
 
 namespace tpusort {
 

@@ -9,34 +9,37 @@
 // is a blocked radix rank, then staged stores.  One CTA of 512 threads owns
 // one K-slot tile (K a power of two, 128 .. 32768):
 //
-//   1. the rank.  Each walking warp (min(16, K / 32) of them) owns a
-//      contiguous span of K / warps slots; lane l's step r takes slot
-//      span_start + 32 r + l, so the loads coalesce and (r, lane) is slot
-//      order.  A slot is valid iff its global index < n (pass 0) or slot %
-//      q_in < counts_in[t, slot / q_in] (later passes); its digit is bits
-//      [lo_bit, lo_bit + width) of the key across the planes (plane 0 the
-//      most significant 32 bits; the bits may straddle two planes) or the
-//      caller's digit plane; an invalid slot, or a digit not below R, gets
-//      digit R and is dropped.  Ballots on the digit's bits group the
-//      lanes of a step by digit: a lane's warp-local rank is its group
-//      leader's count of the digit so far plus the group's lanes below it,
-//      and the leader adds the group's size.  No atomics, so the ranks are
-//      deterministic and the partition stable.  The digit and the
-//      warp-local rank of each slot go to shared memory;
-//   2. the scan.  For each digit, an exclusive scan of its per-warp counts
-//      in warp order (digit-major: thread d walks the 16 warps) gives each
-//      warp's first rank within the digit, and the digit's total hist[d]:
-//      counts_out[t, d] = hist[d], which may exceed S.  Warp 0 then scans
-//      the run lengths m_d = min(hist[d], S) over the digits into the
-//      staging offsets (each rounded up to 4 words, so every staged run is
-//      16-byte aligned) and the runs' pieces of 128 words;
+//   1. the rank (block_rank.cuh:rank_walk, which K8 shares).  Each
+//      walking warp (min(16, K / 32) of them) owns a contiguous span of
+//      K / warps slots; lane l's step r takes slot span_start + 32 r + l,
+//      so the loads coalesce and (r, lane) is slot order.  A slot is valid
+//      iff its global index < n (pass 0) or slot % q_in < counts_in[t,
+//      slot / q_in] (later passes); its digit is bits [lo_bit, lo_bit +
+//      width) of the key across the planes (plane 0 the most significant
+//      32 bits; the bits may straddle two planes) or the caller's digit
+//      plane; an invalid slot, or a digit not below R, gets digit R and is
+//      dropped.  Ballots on the digit's bits group the lanes of a step by
+//      digit: a lane's warp-local rank is its group leader's count of the
+//      digit so far plus the group's lanes below it, and the leader adds
+//      the group's size.  No atomics, so the ranks are deterministic and
+//      the partition stable.  The digit and the warp-local rank of each
+//      slot go to shared memory;
+//   2. the scan (block_rank.cuh:scan_warp_counts).  For each digit, an
+//      exclusive scan of its per-warp counts in warp order (digit-major:
+//      thread d walks the 16 warps) gives each warp's first rank within
+//      the digit, and the digit's total hist[d]: counts_out[t, d] =
+//      hist[d], which may exceed S.  Warp 0 then scans the run lengths
+//      m_d = min(hist[d], S) over the digits into the staging offsets
+//      (each rounded up to 4 words, so every staged run is 16-byte
+//      aligned) and the runs' pieces of 128 words;
 //   3. a slot's destination: where d < R and its rank j within the digit
 //      is below S, the staging word local[d] + j, else none;
 //   4. for each operand word: the tile re-read from device memory (16-byte
 //      loads where the row is aligned; the planes that hold the digit come
-//      mostly from L2), scattered into the staging buffer by destination;
-//      then each warp stores whole pieces, lane l the 16 bytes at 4 l of
-//      the piece, to out[((seg * R + d) * t_seg + tile_in_seg) * S + j]
+//      mostly from L2), scattered into the staging buffer by destination
+//      (block_rank.cuh:stage_row); then each warp stores whole pieces,
+//      lane l the 16 bytes at 4 l of the piece, to
+//      out[((seg * R + d) * t_seg + tile_in_seg) * S + j]
 //      (the digit-major layout of the next pass, the fused exchange), so
 //      consecutive lanes store consecutive words and a run's tail past
 //      m_d is left unwritten.
@@ -65,18 +68,13 @@
 #include <atomic>
 #include <cstdint>
 
-#include "reg_sort.cuh"
-#include "tile_sort.cuh"
+#include "block_rank.cuh"
+#include "operands.cuh"
 
 namespace tpusort {
 
-constexpr int kGenThreads = 512;
-constexpr int kGenWarps = kGenThreads / 32;
 constexpr int kGenMaxRadix = 256;
 constexpr int kGenPiece = 128;     // words a warp stores at once: 16 B a lane
-constexpr int kGenBatch = 8;       // digits a lane loads before it ranks them
-constexpr int kGenLoads = 4;       // 16-byte loads a thread has in flight
-constexpr uint16_t kNoSlot = 0xFFFF;
 
 // The kernel's dynamic shared memory, carved the same way on both sides.
 struct GenSmem {
@@ -84,7 +82,7 @@ struct GenSmem {
   int* hist;         // R + 1
   int* local;        // R + 1: staging offset of each digit's run
   int* piece;        // R + 1: first piece of each digit's run
-  uint16_t* wcount;  // kGenWarps x (R + 1)
+  uint16_t* wcount;  // kRankWarps x (R + 1)
   uint16_t* slot;    // K: digit, then destination
 
   __host__ __device__ static size_t ints(int R) {
@@ -92,7 +90,7 @@ struct GenSmem {
   }
   __host__ __device__ static size_t bytes(int K, int R) {
     return 4 * ((size_t)K + 4 * R) + 4 * ints(R) +
-           2 * (size_t)kGenWarps * (R + 1) + 2 * (size_t)K;
+           2 * (size_t)kRankWarps * (R + 1) + 2 * (size_t)K;
   }
   __device__ GenSmem(uint32_t* base, int K, int R) {
     stage = base;
@@ -100,7 +98,7 @@ struct GenSmem {
     local = hist + (R + 1);
     piece = local + (R + 1);
     wcount = reinterpret_cast<uint16_t*>(hist + ints(R));
-    slot = wcount + kGenWarps * (R + 1);
+    slot = wcount + kRankWarps * (R + 1);
   }
 };
 
@@ -127,19 +125,37 @@ struct DigitBits {
   }
 };
 
-// The lanes of the warp whose digit equals this lane's: one ballot per bit
-// of the digits 0 .. R (as CUB's MatchAny does), not __match_any_sync.
-__device__ __forceinline__ unsigned match_digit(uint32_t d, int bits) {
-  unsigned peers = 0xFFFFFFFFu;
-  for (int b = 0; b < bits; ++b) {
-    const bool set = (d >> b) & 1u;
-    const unsigned on = __ballot_sync(0xFFFFFFFFu, set);
-    peers &= set ? on : ~on;
-  }
-  return peers;
-}
+// The walk's source: slot i's digit from the key planes (or the caller's
+// digit plane), R where the slot is invalid or its digit is not below R.
+struct GenDigits {
+  struct Raw {
+    uint32_t w0, w1;
+    int c;
+  };
+  DigitBits bits;
+  const uint32_t* src0;    // the digit's low plane, or the digit plane
+  const uint32_t* src1;    // the plane above where the digit straddles two
+  const int32_t* cin;      // the tile's counts_in row, or null (pass 0)
+  bool plane;              // src0 is the caller's digit plane
+  size_t first;
+  long long n;
+  int q_in, q_shift, R;
 
-__global__ void __launch_bounds__(kGenThreads, 2)
+  __device__ Raw load(int i) const {
+    const size_t g = first + i;
+    Raw r{src0[g], 0u, 0};
+    if (src1) r.w1 = src1[g];
+    if (cin) r.c = cin[i >> q_shift];
+    return r;
+  }
+  __device__ uint32_t digit(const Raw& r, int i) const {
+    const bool v = cin ? (i & (q_in - 1)) < r.c : (long long)(first + i) < n;
+    const uint32_t x = plane ? r.w0 : bits(r.w0, r.w1);
+    return v && x < (uint32_t)R ? x : R;
+  }
+};
+
+__global__ void __launch_bounds__(kRankThreads, 2)
 partition_general_kernel(Operands ops, int n_planes,
                          const int32_t* __restrict__ digit_in,
                          const int32_t* __restrict__ counts_in, int q_in,
@@ -153,85 +169,35 @@ partition_general_kernel(Operands ops, int n_planes,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int bins = R + 1;
-  for (int e = tid; e < kGenWarps * bins; e += blockDim.x) sm.wcount[e] = 0;
+  for (int e = tid; e < kRankWarps * bins; e += blockDim.x) sm.wcount[e] = 0;
   __syncthreads();
 
   // 1. the rank, warp by warp over contiguous spans, in slot order
   const size_t first = (size_t)t * K;
   const int32_t* cin = counts_in ? counts_in + (size_t)t * (K / q_in) : nullptr;
-  const int walkers = K / 32 < kGenWarps ? K / 32 : kGenWarps;
-  const int span = K / walkers;             // a multiple of 32
-  const int bits = 32 - __clz(R);            // digits 0 .. R take this many
+  const int span = K / rank_walkers(K);      // a multiple of 32
   const DigitBits digits(ops, n_planes, lo_bit, width);
-  const uint32_t* src0 =
-      digit_in ? reinterpret_cast<const uint32_t*>(digit_in) : digits.lo;
-  const uint32_t* src1 = digit_in ? nullptr : digits.hi;
-  const int q_shift = cin ? __ffs(q_in) - 1 : 0;   // q_in is a power of two
-  if (warp < walkers) {
-    uint16_t* wc = sm.wcount + warp * bins;
-    const unsigned lower = (1u << lane) - 1u;
-    for (int r0 = warp * span; r0 < (warp + 1) * span;
-         r0 += 32 * kGenBatch) {
-      // every load of the batch first, so that they are in flight together
-      uint32_t w0[kGenBatch], w1[kGenBatch];
-      int c[kGenBatch];
-#pragma unroll
-      for (int k = 0; k < kGenBatch; ++k) {
-        const size_t g = first + r0 + 32 * k + lane;
-        w0[k] = w1[k] = 0;
-        c[k] = 0;
-        if (32 * k < span) {               // the warp's span may be shorter
-          w0[k] = src0[g];
-          if (src1) w1[k] = src1[g];
-          if (cin) c[k] = cin[(r0 + 32 * k + lane) >> q_shift];
-        }
-      }
-      uint32_t d[kGenBatch];
-#pragma unroll
-      for (int k = 0; k < kGenBatch; ++k) {
-        const int i = r0 + 32 * k + lane;
-        const bool v = cin ? (i & (q_in - 1)) < c[k]
-                           : (long long)(first + i) < n;
-        const uint32_t x = digit_in ? w0[k] : digits(w0[k], w1[k]);
-        d[k] = v && x < (uint32_t)R ? x : R;
-      }
-#pragma unroll
-      for (int k = 0; k < kGenBatch; ++k) {
-        if (32 * k >= span) break;
-        const int i = r0 + 32 * k + lane;
-        const unsigned peers = match_digit(d[k], bits);
-        const int leader = __ffs(peers) - 1;
-        int before = 0;
-        if (lane == leader) {
-          before = wc[d[k]];
-          wc[d[k]] = (uint16_t)(before + __popc(peers));
-        }
-        before = __shfl_sync(0xFFFFFFFFu, before, leader);
-        sm.slot[i] = (uint16_t)d[k];
-        sm.stage[i] = before + __popc(peers & lower);
-        __syncwarp();            // the next step's leaders read these counts
-      }
-    }
-  }
+  const GenDigits src{digits, digit_in ? reinterpret_cast<const uint32_t*>(
+                                             digit_in) : digits.lo,
+                      digit_in ? nullptr : digits.hi, cin, digit_in != nullptr,
+                      first, n, q_in, cin ? __ffs(q_in) - 1 : 0, R};
+  // digits 0 .. R take 32 - __clz(R) bits
+  rank_walk(sm.wcount, bins, K, 32 - __clz(R), src,
+            [&](int i, uint32_t d, int rank) {
+              sm.slot[i] = (uint16_t)d;
+              sm.stage[i] = rank;
+            });
   __syncthreads();
 
   // 2. the scan: per digit over the warps, then over the digits
-  for (int d = tid; d < bins; d += blockDim.x) {
-    int run = 0;
-    for (int w = 0; w < kGenWarps; ++w) {
-      const int c = sm.wcount[w * bins + d];
-      sm.wcount[w * bins + d] = (uint16_t)run;
-      run += c;
-    }
-    sm.hist[d] = run;
-    if (d < R) counts_out[(size_t)t * R + d] = run;
-  }
+  scan_warp_counts(sm.wcount, bins, sm.hist);
   __syncthreads();
   if (warp == 0) {
     int base_l = 0, base_p = 0;
     for (int d0 = 0; d0 < R; d0 += 32) {
       const int d = d0 + lane;
       const int m = d < R ? min(sm.hist[d], S) : 0;
+      if (d < R) counts_out[(size_t)t * R + d] = sm.hist[d];
       const int a = (m + 3) & ~3;
       const int b = (m + kGenPiece - 1) / kGenPiece;
       int sa = a, sb = b;                  // inclusive scans over the lanes
@@ -274,38 +240,12 @@ partition_general_kernel(Operands ops, int n_planes,
   const int tj = t - seg * t_seg;
   const int pieces = sm.piece[R];
   for (int k = 0; k < ops.count; ++k) {
-    const uint32_t* in = ops.in[k] + first;
     __syncthreads();   // destinations written; the last operand's stores done
-    if ((reinterpret_cast<uintptr_t>(in) & 15) == 0) {
-      for (int g0 = 4 * tid; g0 < K; g0 += 4 * kGenLoads * kGenThreads) {
-        uint4 w[kGenLoads];
-#pragma unroll
-        for (int b = 0; b < kGenLoads; ++b) {
-          const int g = g0 + 4 * kGenThreads * b;
-          if (g < K) w[b] = *reinterpret_cast<const uint4*>(in + g);
-        }
-#pragma unroll
-        for (int b = 0; b < kGenLoads; ++b) {
-          const int g = g0 + 4 * kGenThreads * b;
-          if (g < K) {
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              const uint16_t dst = sm.slot[g + kk];
-              if (dst != kNoSlot) sm.stage[dst] = word(w[b], kk);
-            }
-          }
-        }
-      }
-    } else {
-      for (int i = tid; i < K; i += blockDim.x) {
-        const uint16_t dst = sm.slot[i];
-        if (dst != kNoSlot) sm.stage[dst] = in[i];
-      }
-    }
+    stage_row(ops.in[k] + first, K, sm.slot, sm.stage);
     __syncthreads();
     uint32_t* out = ops.out[k];
     int d = 0;                   // a warp's pieces ascend, so its digit does
-    for (int pc = warp; pc < pieces; pc += kGenWarps) {
+    for (int pc = warp; pc < pieces; pc += kRankWarps) {
       while (sm.piece[d + 1] <= pc) ++d;
       const int m = min(sm.hist[d], S);
       const int j = (pc - sm.piece[d]) * kGenPiece + 4 * lane;
@@ -348,7 +288,7 @@ extern "C" int tpusort_partition_general(
   cudaError_t err = allow_smem_once((const void*)partition_general_kernel,
                                     kMaxSmem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  partition_general_kernel<<<T, kGenThreads, GenSmem::bytes(K, R),
+  partition_general_kernel<<<T, kRankThreads, GenSmem::bytes(K, R),
                              (cudaStream_t)stream>>>(
       ops, n_planes, (const int32_t*)digit, (const int32_t*)counts_in, q_in, n,
       K, R, S, lo_bit, width, t_seg, (int32_t*)counts_out);

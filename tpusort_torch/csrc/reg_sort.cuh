@@ -3,10 +3,12 @@
 // raw-key partition pass (K1, K1b; csrc/partition.cu) and the leaf sort
 // with its dense collapse (K2; csrc/bitonic.cu).
 //
-// The network is block_sort's (tile_sort.cuh): for each merge level lk
-// (runs of 2^(lk-1) merged into runs of 2^lk) a mirror step, slot i against
-// i ^ (2^lk - 1), then half-cleaners, i against i + d for d = 2^(lk-2)
-// down to 1.  What changes is where each step runs.  The P slots of a row
+// The network is a bitonic merge sort of P = 2^p slots, ascending: for
+// each merge level lk (runs of 2^(lk-1) merged into runs of 2^lk) a mirror
+// step, slot i against i ^ (2^lk - 1), which turns two ascending runs into
+// two bitonic halves split at the median, then half-cleaners, i against
+// i + d for d = 2^(lk-2) down to 1.  Each step is a set of independent
+// compare-exchanges; where each step runs is the design.  The P slots of a row
 // live in shared memory between phases; thread t of a chunk of
 // C = threads * E slots owns the E consecutive slots [t*E, t*E + E) of it
 // in registers ("blocked"), so a step whose pairs lie inside an aligned
@@ -17,7 +19,7 @@
 //     a mirror of block B pairs lane l with lane l ^ (B / E - 1) at the
 //     reversed register E - 1 - r;
 //   - more runs in shared memory, one compare-exchange per pair and a
-//     __syncthreads() per step, as block_sort does.
+//     __syncthreads() per step.
 // At P = 16384 with 1024 threads x 16 slots, 15 of the 105 steps touch
 // shared memory, with 512 x 32 10; at 2048 with 128 x 16, 3 of 66, with
 // 64 x 32 none.  A thread's slots take at most 64 registers
@@ -44,7 +46,7 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "tile_sort.cuh"
+#include "operands.cuh"
 
 namespace tpusort {
 
@@ -327,10 +329,6 @@ __device__ void reg_block_sort(const RegTile<NK, IDX>& t, int log_p,
 
 // ---- loading and storing a row -----------------------------------------
 
-__device__ __forceinline__ uint32_t word(const uint4& q, int k) {
-  return k == 0 ? q.x : (k == 1 ? q.y : (k == 2 ? q.z : q.w));
-}
-
 // Slots [0, P) of the tile (P = blockDim.x * E * chunks) from the row's NK
 // input planes at src[p] + first: slot i < K with valid(i) its words, any
 // other slot all-ones in every plane; the index of slot i is i.  16-byte
@@ -499,15 +497,6 @@ __device__ void gather_payloads(const RegTile<NK, true>& t,
   }
 }
 
-// Host side: true if the n output pointers are 16-byte aligned (the
-// kernels store 16 bytes at a time; the wrappers' fresh outputs are).
-inline bool aligned16(void* const* out, int n) {
-  for (int k = 0; k < n; ++k) {
-    if (reinterpret_cast<uintptr_t>(out[k]) & 15) return false;
-  }
-  return true;
-}
-
 // Host side: true if (threads, E, smem) is a geometry the kernels take for
 // a row of P slots: E in {4, 8, 16, 32}, threads a multiple of 32 up to
 // kThreads, threads * E dividing P, and smem the tile's bytes.
@@ -541,29 +530,6 @@ constexpr bool fits_registers(int nk, bool idx, int e) {
 // The most threads an instance may launch with (its __launch_bounds__).
 __host__ __device__ constexpr int max_threads(int nk, bool idx, int e) {
   return slot_words(nk, idx, e) <= kRegWords ? kThreads : kThreads / 2;
-}
-
-constexpr int kMaxSmem = 232448;   // dynamic shared memory of a CTA, sm_90
-constexpr int kMaxDevices = 64;
-
-// Host side: raise a kernel's dynamic shared memory cap to `cap` bytes,
-// once per device (the runtime call costs microseconds, which a single-row
-// sort, launched from the host each time, would pay at every launch):
-// `done` is the kernel instance's own flag array.
-inline cudaError_t allow_smem_once(const void* kernel, int cap,
-                                   std::atomic<bool>* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) {
-    return cudaSuccess;
-  }
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
-  if (err == cudaSuccess && dev < kMaxDevices) {
-    done[dev].store(true, std::memory_order_release);
-  }
-  return err;
 }
 
 // The cap an instance asks for: its tile at the largest row, 32768 slots,

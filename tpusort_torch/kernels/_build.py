@@ -57,8 +57,9 @@ _SIGNATURES = {
     # S, lo_bit, width, t_seg, counts_out, stream
     "tpusort_partition_general": [_PP, _PP, _I, _I, _P, _P, _I, _LL, _I, _I,
                                   _I, _I, _I, _I, _I, _P, _P],
-    # ops_in, ops_out, n_ops, counts, offsets, n_out, nseg, seg, stream
-    "tpusort_collapse": [_PP, _PP, _I, _P, _P, _LL, _I, _I, _P],
+    # ops_in, ops_out, n_ops, counts, counts_64, offsets, n_out, nseg, seg,
+    # stream
+    "tpusort_collapse": [_PP, _PP, _I, _P, _I, _P, _LL, _I, _I, _P],
     # in, out, scratch (tile aggregates, group anchors, the tile counter),
     # n, is_float, exclusive, stream
     "tpusort_prefix_sum": [_P, _P, _P, _LL, _I, _I, _P],
@@ -97,22 +98,22 @@ def _nvcc() -> str:
     )
 
 
-def build() -> Path:
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link
-    them into one shared library (cached by content hash); return its
-    path.  Raises if nvcc fails."""
-    sources = sorted(CSRC.glob("*.cu"))
+    them into one shared library in ``build_dir`` (cached by content
+    hash); return its path.  Raises if nvcc fails."""
+    sources = sorted(csrc.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(csrc.glob("*.cu*")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     tag = digest.hexdigest()[:16]
-    lib = BUILD_DIR / f"libtpusort_torch-{tag}.so"
+    lib = build_dir / f"libtpusort_torch-{tag}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    objs = [BUILD_DIR / f"{src.stem}-{tag}.{os.getpid()}.o" for src in sources]
+    objs = [build_dir / f"{src.stem}-{tag}.{os.getpid()}.o" for src in sources]
     procs = [
         subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -131,7 +132,7 @@ def build() -> Path:
         logs.append(link.stdout)
         if link.returncode:
             failed.append(("link", link.returncode))
-    (BUILD_DIR / "build.log").write_text("".join(logs))
+    (build_dir / "build.log").write_text("".join(logs))
     for obj in objs:
         obj.unlink(missing_ok=True)
     if failed:
@@ -148,15 +149,21 @@ def library() -> ctypes.CDLL:
         return _lib
     with _LOCK:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.tpusort_error_string.argtypes = [ctypes.c_int]
-            lib.tpusort_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load(build())
     return _lib
+
+
+def load(path: Path, signatures=None) -> ctypes.CDLL:
+    """The library at ``path`` with the argument types of its C entry
+    points (``signatures``, by default this tree's) set."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in (signatures or _SIGNATURES).items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tpusort_error_string.argtypes = [ctypes.c_int]
+    lib.tpusort_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def pointers(tensors) -> ctypes.Array:

@@ -49,15 +49,16 @@ def _collapse_segments_cuda(ops: Sequence[torch.Tensor],
                          f"kernel's {MAX_OPERANDS}")
     nseg, seg = ops[0].shape
     dev = ops[0].device
-    # clipped as the plain version's mask clips them: no read past a row
-    counts = seg_counts.to(torch.int32).clamp(0, seg).contiguous()
-    # dense offset of each segment: exclusive cumsum of the valid counts
-    offsets = torch.zeros(nseg + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(counts, dim=0, dtype=torch.int64, out=offsets[1:])
+    # the kernel clamps the counts to [0, seg] and scans them itself
+    if seg_counts.dtype not in (torch.int32, torch.int64):
+        seg_counts = seg_counts.to(torch.int32)
+    counts = seg_counts.contiguous()
+    offsets = torch.empty(nseg + 1, dtype=torch.int64, device=dev)
     outs = [torch.empty(n_out, dtype=torch.int32, device=dev) for _ in ops]
     err = _build.library().tpusort_collapse(
         _build.pointers(ops), _build.pointers(outs), len(ops),
-        counts.data_ptr(), offsets.data_ptr(), n_out, nseg, seg,
+        counts.data_ptr(), int(counts.dtype == torch.int64),
+        offsets.data_ptr(), n_out, nseg, seg,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "collapse_segments")
@@ -73,8 +74,7 @@ def collapse_segments(ops: Sequence[torch.Tensor], seg_counts: torch.Tensor,
     ops: (nseg, seg) int32 bit-pattern tensors (seg a multiple of 128);
     seg_counts: (nseg,) integer valid prefix lengths (clipped to
     [0, seg]), with sum >= n_out (data past n_out is dropped; slots past
-    the sum are unspecified).  Returns one (n_out,) int32 tensor per
-    operand.
+    the sum are zero).  Returns one (n_out,) int32 tensor per operand.
     """
     ops = [o.contiguous() for o in ops]
     if not ops or any(o.dtype != torch.int32 or o.dim() != 2 for o in ops):

@@ -17,10 +17,11 @@ PyTorch port of ``tpusort/kernels/partition.py:partition_pass_fused``:
   launches ``csrc/partition_general.cu`` (a blocked stable rank, no sort,
   and the runs staged in shared memory so that their stores coalesce).
 
-K8 (:func:`partition_tiles`, the port of ``partition_tiles``) sorts each
-tile by a sortkey its caller built and cuts the data operands at the
-caller's run starts; on a CUDA tensor it launches
-``csrc/partition_tiles.cu``.
+K8 (:func:`partition_tiles`, the port of ``partition_tiles``) orders each
+tile stably by a sortkey its caller built and cuts the data operands at
+the caller's run starts; on a CUDA tensor it launches
+``csrc/partition_tiles.cu`` (a blocked stable rank of the sortkey's varying
+bits, no sort, and the runs staged in shared memory).
 
 See those files for the designs and what bounds them.  On a CPU tensor
 the wrapper runs the plain PyTorch version of the same contract
@@ -616,21 +617,22 @@ def _partition_tiles_cuda(ops: Sequence[torch.Tensor], starts: torch.Tensor,
 
 def partition_tiles(ops: Sequence[torch.Tensor], starts: torch.Tensor, *,
                     r: int, s: int) -> List[torch.Tensor]:
-    """K8: sort each tile by a sortkey the caller built and emit its data
+    """K8: order each tile by a sortkey the caller built and emit its data
     operands as R runs of S slots from the caller's run starts (port of
     ``tpusort/kernels/partition.py:partition_tiles``).
 
     ``ops`` = [sortkey, data...], each (T, K) int32 (bit patterns; the
     sortkey compares as unsigned); ``starts``: (T, R) int32 run starts in
     the sorted tile.  Returns one (T, R*S) int32 tensor per data operand:
-    out[t, d*S + j] = sorted[t, starts[t, d] + j]; the sortkey is not
-    emitted.  Slots past a run's count are unspecified (they repeat slots
-    of the same tile, never words past it).  The engine's sortkey, (digit
-    or R) << log2(K) | slot, is unique; the order of equal sortkeys is
-    unspecified.  K is a power of two and a multiple of 128, S a multiple
-    of 128, R at most 128, and there are 1 to ``MAX_VALUES`` data
-    operands; on a card K is at most ``MAX_TILE``.  The TPU-only ``batch``
-    and ``interpret`` arguments are gone.
+    out[t, d*S + j] = sorted[t, clamp(starts[t, d] + j, 0, K - 1)]; the
+    sortkey is not emitted.  The order is stable: equal sortkeys keep
+    their slot order (the engine's sortkey, (digit or R) << log2(K) |
+    slot, has none).  So every slot is defined, those past a run's count
+    too: they repeat slots of the same tile, never words past it (the
+    Pallas kernel leaves them garbage).  K is a power of two and a
+    multiple of 128, S a multiple of 128, R at most 128, and there are 1
+    to ``MAX_VALUES`` data operands; on a card K is at most ``MAX_TILE``.
+    The TPU-only ``batch`` and ``interpret`` arguments are gone.
     """
     ops = [o.contiguous() for o in ops]
     if len(ops) < 2 or any(o.dtype != torch.int32 or o.dim() != 2
