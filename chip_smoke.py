@@ -54,7 +54,9 @@ non-zero:
     position) rows at (32768, 12288), then K4 (``collapse_segments``) on
     K3's output, each vs its plain version, and the dense result equal to
     the stable sort of the input; then K4 on 64 segments of 2^21 slots,
-    the shape the TPU sends to its chunked kernel (K4c), vs plain;
+    the shape the TPU sends to its chunked kernel (K4c), vs plain; each
+    packed leaf's K4 call traced once (device ms by kernel, printed beside
+    its CUDA-event time);
 15. the wide leaf of the last two: K2 with 3 key planes (the masked planes
     and the position) and 4 (or 3) payload words at (32768, 6144) (or
     (32768, 768)) vs its plain version, and equal to the stable sort;
@@ -138,7 +140,8 @@ non-zero:
     1.0 (the
     exchange overflows; the gathered exact sort), ``adaptive=True`` (the
     second call takes no fallback), and ``make_global_sort_planes`` on
-    2^27 uint64 keys; then K4 vs plain at the collapse finish's shape;
+    2^27 uint64 keys; then K4 vs plain at the collapse finish's shape,
+    and that call traced once, as in phase 14;
 17. timings, median of 5 CUDA-event runs, alternating: the 2^28 sort
     against ``torch.sort``, the 2^28 pairs sort against ``torch.sort``
     (stable) plus the values gather, 2^27 uint64 keys against
@@ -218,7 +221,9 @@ non-zero:
     K8 vs plain bit for bit on every slot, the clamped ones too, at K =
     128 .. 32768, R = 1 .. 128, 1, 2 and 8 data operands, on the engine's
     sortkeys, tied ones (the order is stable, as plain's), ones on which
-    the kernel's vote fails, random and constant words, one tile and 300;
+    the kernel's vote fails, random and constant words, one tile and 300,
+    the engine's and vote-failing sortkeys and their data in views 4 bytes
+    off a 16-byte boundary (the scalar loads);
     K4 vs plain with nseg from 1 to 2^16: one segment over many chunks,
     tiny and empty segments, ``n_out`` cutting a segment, sum == ``n_out``,
     16 operands, int64 counts past the segment and below 0, ``n_out`` past
@@ -229,7 +234,8 @@ mode compared, with its launches in the run of the path that drives it at
 that shape (counters set to 0 just before), or 0 where no path does, its
 time, its plain version's time, its bound (the least time for the words
 it must move at 3.35 TB/s, or its operations at 67 T/s, the larger; K8
-writes every one of its R x S slots, so they all count), the
+counts its whole sortkey read and each data operand's valid words read
+and written, not the clamped slots past a run's count), the
 time of a PyTorch call computing the same function where there is one
 (K1, K1b, K1c and K2 with 1-2 planes, K3, K5, K6, K9 and K10, K7, K8, K4
 and K4c) and a remark or null (why a three-plane mode has none); the last
@@ -350,6 +356,24 @@ def main() -> None:
             for fn, a in (order if i % 2 == 0 else order[::-1]):
                 a.append(sync_ms(fn))
         return tuple(acc)
+
+    def device_ms(fn):
+        """(device ms, the kernels' names and ms) of one call of fn traced
+        by torch.profiler after a warm call: what the card ran, without the
+        time it waited on the host inside a CUDA-event window."""
+        from tpusort_torch.utils.profile_calls import _device_ms_by_name
+
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name = sorted(_device_ms_by_name(prof).items(),
+                         key=lambda kv: -kv[1])
+        return (sum(ms for _, ms in by_name),
+                "; ".join(f"{k[:48]} {ms:.3f}" for k, ms in by_name))
 
     def time_pair(kernel_fn, plain_fn):
         return time_alt(kernel_fn, plain_fn)
@@ -660,6 +684,11 @@ def main() -> None:
                       lambda: collapse_segments_plain(segs, seg_counts, n),
                       lambda: k4_library(segs, seg_counts))
         w4 = 2 * n * len(segs) + nseg
+        dev_ms, kernels = device_ms(
+            lambda: collapse_segments(segs, seg_counts, n))
+        print(f"trace: K4 {len(segs)} operand(s) at {name}: CUDA-event "
+              f"median {statistics.median(t4[0]):.3f} ms, device "
+              f"{dev_ms:.3f} ms ({kernels}) on {card}", flush=True)
         del segs
         log(f"K4 {name} == plain at ({nseg}, {seg}) with {len(k_dense)} "
             f"operand(s), n_out={n}; max_abs_err {err4}")
@@ -2131,6 +2160,11 @@ def main() -> None:
     results[f"K4c ({gs_d}, {col_cap}) 1 operand"] = (
         max_abs_err(k_dense[0], p_dense[0]), *t4c[:2], 2 * gs_shard + gs_d,
         0, t4c[2])
+    dev_ms, kernels = device_ms(
+        lambda: collapse_segments(col_segs, col_counts, gs_shard))
+    print(f"trace: K4c at the collapse finish ({gs_d}, {col_cap}): "
+          f"CUDA-event median {statistics.median(t4c[0]):.3f} ms, device "
+          f"{dev_ms:.3f} ms ({kernels}) on {card}", flush=True)
     del col_segs, k_dense, p_dense
     log(f"phase 28 ok: K4 == plain at the collapse finish's ({gs_d}, "
         f"{col_cap})")
@@ -2322,13 +2356,12 @@ def main() -> None:
         del pos
         log(f"K8 {name} == plain at ({t}, {spec.k}), R={spec.r}, "
             f"S={spec.s}, {len(tiled)} data operand(s); max_abs_err {err}")
-        # the sortkey and data words read once, the starts, and the R x S
-        # words of each data operand written once (every slot is defined:
-        # those past a run's count repeat clamped slots of the tile)
+        # the whole sortkey read once, the starts, and each data operand's
+        # valid words read once and written once (the slots past a run's
+        # count repeat clamped slots of the tile: no caller needs them)
         return (err, *times[:2],
-                t * spec.k * (1 + len(tiled)) + starts.numel()
-                + t * spec.r * spec.s * len(tiled), n_valid * log2(spec.k),
-                times[2])
+                t * spec.k + starts.numel() + 2 * n_valid * len(tiled),
+                n_valid * log2(spec.k), times[2])
 
     x_ops, x_np, x_plan = msd_phase_inputs(x)
     check([(p.k, p.s) for p in x_plan.passes]
@@ -2911,27 +2944,38 @@ def main() -> None:
 
     n_edge = 0
     for k in (128, 2048, 16384, 32768):
-        for r_, s_, n_data, keys, past_k in (
-                (1, 128, 1, "engine", False), (8, 384, 2, "ties", True),
-                (32, 768, 8, "vote", False), (128, 128, 1, "random", True),
-                (64, 256, 2, "constant", True), (128, 256, 2, "engine", True),
-                (32, 512, 1, "ties", False)):
+        for r_, s_, n_data, keys, past_k, shift in (
+                (1, 128, 1, "engine", False, False),
+                (8, 384, 2, "ties", True, False),
+                (32, 768, 8, "vote", False, False),
+                (128, 128, 1, "random", True, False),
+                (64, 256, 2, "constant", True, False),
+                (128, 256, 2, "engine", True, False),
+                (32, 512, 1, "ties", False, False),
+                (32, 768, 2, "engine", False, True),
+                (8, 384, 2, "vote", True, True)):
             # one tile, and (at K = 16384) enough to fill every SM twice
-            for t in ((1, 300) if k == 16384 and keys == "engine" else (3,)):
+            for t in ((1, 300) if k == 16384 and keys == "engine"
+                      and not shift else (3,)):
                 ops, starts = k8_edge(t, k, r_, s_, n_data, keys, past_k)
+                if shift:        # the sortkey's and the data's scalar loads
+                    ops = [off16(o) for o in ops]
+                    check(ops[0].data_ptr() % 16 == 4,
+                          "phase 33: the shifted view is aligned")
                 got = partition_tiles(ops, starts, r=r_, s=s_)
                 want = partition_tiles_plain(ops, starts, r=r_, s=s_)
                 check(all(same_bits(g, w) for g, w in zip(got, want)),
                       f"phase 33: K8 ({t}, {k}) R {r_} S {s_} {n_data} data "
-                      f"operand(s), {keys} sortkeys, past_k {past_k}: "
-                      "differs from plain")
+                      f"operand(s), {keys} sortkeys, past_k {past_k}, "
+                      f"shifted {shift}: differs from plain")
                 n_edge += 1
                 del ops, starts, got, want
     log(f"phase 33 ok: no spill in partition_tiles.cu nor collapse.cu; K8 "
         f"== plain bit for bit on every slot (the clamped ones too) at K = "
         f"128 .. 32768, R = 1 .. 128, 1, 2 and 8 data operands, the "
         f"engine's sortkeys, tied ones (stable), ones on which the vote "
-        f"fails, random and constant words: {n_edge} calls")
+        f"fails, random and constant words, the engine's and vote-failing "
+        f"ones 4 bytes off a 16-byte boundary: {n_edge} calls")
 
     n_edge = 0
     for nseg, seg, n_ops, cut, kind in (

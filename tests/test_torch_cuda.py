@@ -1473,6 +1473,24 @@ def test_partition_tiles(gen, T, K, r, s, n_data, past_k, keys):
         assert g.shape == (T, r * s) and torch.equal(g, w)
 
 
+@pytest.mark.parametrize("T,K,r,s,n_data,past_k,keys", [
+    (3, 2048, 8, 384, 2, True, "engine"), (2, 16384, 32, 768, 1, False, "vote"),
+    (2, 32768, 128, 256, 2, True, "ties"),
+])
+def test_partition_tiles_unaligned(gen, T, K, r, s, n_data, past_k, keys):
+    """K8 on a sortkey and data in views 4 bytes past a 16-byte boundary:
+    the AND/OR, the vote and the staging take their scalar loads; bit for
+    bit against plain on every slot."""
+    ops, starts = _k8_case(gen, T, K, r, s, n_data, past_k, keys)
+    ops = [_off16(o) for o in ops]
+    tm.reset_counters()
+    got = tp.partition_tiles(ops, starts, r=r, s=s)
+    assert tm.mode_counters() == {("K8", 1, n_data): 1}
+    want = tp.partition_tiles_plain(ops, starts, r=r, s=s)
+    for g, w in zip(got, want):
+        assert g.shape == (T, r * s) and torch.equal(g, w)
+
+
 def test_partition_tiles_rejects_what_the_kernel_cannot_take(gen):
     ops, starts = _k8_case(gen, 1, 2048, 8, 256, 9, False)
     tm.reset_counters()

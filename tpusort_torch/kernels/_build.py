@@ -25,9 +25,14 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpusort_torch"
+# -fno-gnu-unique: a static inside a template (each entry point's "shared
+# memory attribute set" flags) would otherwise be one object for every copy
+# of the library in the process, so a second build loaded beside the first
+# (another tree's, to compare the two) would skip setting its own kernels'
+# attribute and fail their launches.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xcompiler", "-fno-gnu-unique", "-Xptxas", "-v",
 )
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -98,22 +103,22 @@ def _nvcc() -> str:
     )
 
 
-def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+def build() -> Path:
     """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link
-    them into one shared library in ``build_dir`` (cached by content
-    hash); return its path.  Raises if nvcc fails."""
-    sources = sorted(csrc.glob("*.cu"))
+    them into one shared library (cached by content hash); return its
+    path.  Raises if nvcc fails."""
+    sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(csrc.glob("*.cu*")):
+    for p in sorted(CSRC.glob("*.cu*")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     tag = digest.hexdigest()[:16]
-    lib = build_dir / f"libtpusort_torch-{tag}.so"
+    lib = BUILD_DIR / f"libtpusort_torch-{tag}.so"
     if lib.exists():
         return lib
-    build_dir.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    objs = [build_dir / f"{src.stem}-{tag}.{os.getpid()}.o" for src in sources]
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.{os.getpid()}.o" for src in sources]
     procs = [
         subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -132,7 +137,7 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
         logs.append(link.stdout)
         if link.returncode:
             failed.append(("link", link.returncode))
-    (build_dir / "build.log").write_text("".join(logs))
+    (BUILD_DIR / "build.log").write_text("".join(logs))
     for obj in objs:
         obj.unlink(missing_ok=True)
     if failed:
@@ -149,21 +154,15 @@ def library() -> ctypes.CDLL:
         return _lib
     with _LOCK:
         if _lib is None:
-            _lib = load(build())
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.tpusort_error_string.argtypes = [ctypes.c_int]
+            lib.tpusort_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
-
-
-def load(path: Path, signatures=None) -> ctypes.CDLL:
-    """The library at ``path`` with the argument types of its C entry
-    points (``signatures``, by default this tree's) set."""
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in (signatures or _SIGNATURES).items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.tpusort_error_string.argtypes = [ctypes.c_int]
-    lib.tpusort_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def pointers(tensors) -> ctypes.Array:
