@@ -88,14 +88,18 @@ non-zero:
     16-byte boundary, bit for bit; float32 at 2^28 against a float64
     cumsum within 1e-5 of the running sum, float32 zeros and ones at 2^24
     exactly, and two runs of one float32 input bit for bit;
-21. K6 (``digit_histogram_tiles``) vs plain (``torch.bincount``) on 2^28
-    uniform keys at (shift, bits) = (24, 8), (27, 5), (0, 3), at
-    2^28 - 12345 keys off a 16-byte boundary, and on 2^28 constant keys:
-    exact;
+21. K6 (``digit_histogram_tiles``) vs plain (``torch.bincount``),
+    exactly, at 2^28 - 12345 keys off a 16-byte boundary and in ten modes
+    at 2^28, each timed with plain and ``torch.bincount``, traced once
+    (device ms by kernel) and its host enqueue timed, both printed beside
+    the CUDA-event time: uniform keys at
+    (shift, bits) = (24, 8), (27, 5), (0, 3), (31, 1); constant keys at
+    (24, 8) and (0, 3); presorted keys at (24, 8) and (0, 8); two words
+    alternating key by key at (24, 8); Zipf 1.1 keys at (0, 8);
 22. ``ops.scan.inclusive_sum`` / ``exclusive_sum`` and
-    ``ops.histogram.digit_histogram`` through their public routes: one K5
-    or K6 launch each (K5 is one single-pass kernel after one fill of its
-    descriptors);
+    ``ops.histogram.digit_histogram`` (in K6's ten modes) through their
+    public routes: one K5 or K6 launch each (K5 is one single-pass kernel
+    after one fill of its descriptors);
 23. K9 (``sort_tiles_counts``) and K10 (``sort_tiles_masked``) vs plain at
     (8192, 2048) keys, (2048, 12288) key + value (the virtual pad) and 2
     planes + a value at (4096, 4096), with ragged counts and a random
@@ -193,8 +197,8 @@ non-zero:
     tile and the payloads over the valid prefix;
 31. K1 and K1b (``csrc/partition.cu`` on ``csrc/reg_sort.cuh``) and K5
     (``csrc/scanhist.cu``) at their edges: the ``-Xptxas -v`` lines of the
-    42 instances of ``partition_raw_kernel`` and the 5 kernels of
-    ``scanhist.cu`` (none may spill); K1 vs plain bit for bit on the
+    42 instances of ``partition_raw_kernel`` and the 6 kernels of
+    ``scanhist.cu``, K6's two among them (none may spill); K1 vs plain bit for bit on the
     counts and every valid slot, payloads included (ties keep their slot
     order, as in plain), at K = 2^11 .. 2^14 with 1-3 planes, 0, 1, 2 and
     8 payloads and every ``sorted_run`` from none through 128 .. K, on
@@ -360,20 +364,35 @@ def main() -> None:
     def device_ms(fn):
         """(device ms, the kernels' names and ms) of one call of fn traced
         by torch.profiler after a warm call: what the card ran, without the
-        time it waited on the host inside a CUDA-event window."""
+        time it waited on the host inside a CUDA-event window.  A trace
+        that caught no kernel at all (the profiler lost it) is taken
+        again, up to three times."""
         from tpusort_torch.utils.profile_calls import _device_ms_by_name
 
         fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        by_name = sorted(_device_ms_by_name(prof).items(),
-                         key=lambda kv: -kv[1])
+        for _ in range(3):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            by_name = sorted(_device_ms_by_name(prof).items(),
+                             key=lambda kv: -kv[1])
+            if by_name:
+                break
         return (sum(ms for _, ms in by_name),
                 "; ".join(f"{k[:48]} {ms:.3f}" for k, ms in by_name))
+
+    def host_us(fn) -> float:
+        """Host microseconds fn takes to return on an idle card: the
+        work it queues, not the work's time on the card."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        t = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return t * 1e6
 
     def time_pair(kernel_fn, plain_fn):
         return time_alt(kernel_fn, plain_fn)
@@ -1569,29 +1588,55 @@ def main() -> None:
     del bits01, want
 
     # ---- phase 21: K6 vs plain ------------------------------------------
-    for shift, nbits in ((24, 8), (27, 5), (0, 3)):
-        check(torch.equal(digit_histogram_tiles(x, shift, nbits),
-                          digit_histogram_tiles_plain(x, shift, nbits)),
-              f"K6 uniform ({shift}, {nbits}) at 2^28: differs from plain")
     odd = x[3:3 + RAGGED_N]
     got = digit_histogram_tiles(odd, 24, 8)
     check(torch.equal(got, digit_histogram_tiles_plain(odd, 24, 8))
           and int(got.sum()) == RAGGED_N,
           f"K6 at n={RAGGED_N} off a 16-byte boundary: differs from plain")
-    got = digit_histogram_tiles(const, 24, 8)
-    check(torch.equal(got, digit_histogram_tiles_plain(const, 24, 8))
-          and int(got[0x12]) == MAIN_N, "K6 constant keys: differs")
-    for name, keys in (("uniform", x), ("constant", const)):
+    alt_word = torch.tensor(0x3C5A96F0, dtype=torch.int32, device=dev)
+    alternating = torch.where(
+        torch.arange(MAIN_N, device=dev) % 2 == 1, ~alt_word, alt_word) \
+        .view(torch.uint32)
+    # K6's modes: every digit width of its two counting paths on the keys
+    # that give the run pairs and the register fields the least and the
+    # most to do; each also through the public route in phase 22
+    k6_modes = (("uniform", x, 24, 8), ("constant", const, 24, 8),
+                ("uniform", x, 27, 5), ("uniform", x, 0, 3),
+                ("uniform", x, 31, 1), ("constant", const, 0, 3),
+                ("presorted", presorted, 24, 8), ("presorted", presorted, 0, 8),
+                ("alternating", alternating, 24, 8), ("Zipf 1.1", zu, 0, 8))
+    for name, keys, shift, nbits in k6_modes:
+        got = digit_histogram_tiles(keys, shift, nbits)
+        check(torch.equal(got, digit_histogram_tiles_plain(keys, shift, nbits))
+              and int(got.sum()) == MAIN_N,
+              f"K6 {name} ({shift}, {nbits}) at 2^28: differs from plain")
         ki = keys.view(torch.int32)
         t6 = time_alt(
-            lambda: digit_histogram_tiles(keys, 24, 8),
-            lambda: digit_histogram_tiles_plain(keys, 24, 8),
-            lambda: torch.bincount((ki >> 24) & 0xFF, minlength=256))
-        results[f"K6 {name} (24, 8)"] = (0, *t6[:2], MAIN_N + 256, MAIN_N,
-                                         t6[2])
-    log("phase 21 ok: K6 == plain exactly at 2^28 uniform keys for (24, 8), "
-        f"(27, 5), (0, 3), at n={RAGGED_N} off alignment, and on 2^28 "
-        "constant keys")
+            lambda: digit_histogram_tiles(keys, shift, nbits),
+            lambda: digit_histogram_tiles_plain(keys, shift, nbits),
+            lambda: torch.bincount((ki >> shift) & ((1 << nbits) - 1),
+                                   minlength=1 << nbits))
+        mode = f"K6 {name} ({shift}, {nbits})"
+        results[mode] = (0, *t6[:2], MAIN_N + (1 << nbits), MAIN_N, t6[2])
+        # a single call's CUDA-event window also holds the wrapper's host
+        # work on an idle card, a large share at a third of a millisecond
+        dev_ms, kernels = device_ms(
+            lambda: digit_histogram_tiles(keys, shift, nbits))
+        enqueue_us = statistics.median(
+            host_us(lambda: digit_histogram_tiles(keys, shift, nbits))
+            for _ in range(9))
+        notes[mode] = (f"device ms of a traced call {dev_ms:.4f}; the "
+                       f"wrapper's host enqueue {enqueue_us:.1f} us")
+        print(f"trace: {mode}: CUDA-event median "
+              f"{statistics.median(t6[0]):.3f} ms, device {dev_ms:.4f} ms "
+              f"({kernels}), host enqueue {enqueue_us:.1f} us (median of "
+              f"9) on {card}", flush=True)
+        log(f"phase 21 ok: {mode} == plain exactly: kernel {fmt(t6[0])}, "
+            f"plain {fmt(t6[1])}, torch.bincount {fmt(t6[2])}")
+    check(int(digit_histogram_tiles(const, 24, 8)[0x12]) == MAIN_N,
+          "K6 constant keys: not all in bin 0x12")
+    log(f"phase 21 ok: K6 == plain exactly in {len(k6_modes)} modes at 2^28 "
+        f"and at n={RAGGED_N} off alignment")
     del odd, got
 
     # ---- phase 22: the public scan and histogram routes ------------------
@@ -1611,15 +1656,17 @@ def main() -> None:
         launches[mode] = modes.get(("K5", 0, 1), 0)
         notes[mode] = ("one launch of the single-pass kernel, after one "
                        "fill that zeroes its descriptors")
-    for name, keys in (("uniform", x), ("constant", const)):
-        got, c, modes = drive(lambda: histogram.digit_histogram(keys, 24, 8))
-        check(c == dict(quiet, k6_launches=1) and got.shape == (1, 256)
-              and int(got.sum()) == MAIN_N,
-              f"digit_histogram ({name}): not one K6 launch: {c}")
-        launches[f"K6 {name} (24, 8)"] = modes.get(("K6", 1, 0), 0)
+    for name, keys, shift, nbits in k6_modes:
+        got, c, modes = drive(
+            lambda: histogram.digit_histogram(keys, shift, nbits))
+        mode = f"K6 {name} ({shift}, {nbits})"
+        check(c == dict(quiet, k6_launches=1)
+              and got.shape == (1, 1 << nbits) and int(got.sum()) == MAIN_N,
+              f"digit_histogram ({mode}): not one K6 launch: {c}")
+        launches[mode] = modes.get(("K6", 1, 0), 0)
     log("phase 22 ok: inclusive_sum, exclusive_sum and digit_histogram "
-        "launched K5 or K6 once each")
-    del small, f32, got
+        f"(in K6's {len(k6_modes)} modes) launched K5 or K6 once each")
+    del small, f32, got, alternating
 
     # ---- phase 23: K9 and K10 vs plain -----------------------------------
     for shape_name, (t, k, nk, nv, q_) in {
@@ -2634,14 +2681,16 @@ def main() -> None:
                     r"(\d+) bytes spill", line)]
     # partition.cu: (planes, payloads, slots a thread) whose slots fit 64
     # registers, K1 and K1b each; scanhist.cu: K5 x (uint32, float32) x
-    # (aligned, not), and K6
+    # (aligned, not), and K6 x (register fields, per-warp shared bins)
     n_k1 = 2 * sum(e * (nk + idx) <= 64 for e in (4, 8, 16, 32)
                    for idx in (0, 1) for nk in (1, 2, 3))
     n_k1_seen = sum("partition_raw_kernel" in k for k in spills)
-    check(n_k1_seen == n_k1 and len(spills) == n_k1 + 5,
-          f"partition.cu / scanhist.cu: {n_k1_seen} K1 instances and "
-          f"{len(spills) - n_k1_seen} others in the build log, expected "
-          f"{n_k1} and 5")
+    n_k6_seen = sum("digit_histogram_kernel" in k for k in spills)
+    check(n_k1_seen == n_k1 and n_k6_seen == 2
+          and len(spills) == n_k1 + 6,
+          f"partition.cu / scanhist.cu: {n_k1_seen} K1 instances, "
+          f"{n_k6_seen} K6 and {len(spills) - n_k1_seen - n_k6_seen} others "
+          f"in the build log, expected {n_k1}, 2 and 4")
     check(not any(sum(v) for v in spills.values()),
           "partition.cu / scanhist.cu: an instance spills: "
           f"{[k for k, v in spills.items() if sum(v)]}")
@@ -2709,7 +2758,7 @@ def main() -> None:
                                   vals_, cin, run, kw)
                     n_edge += 1
     log(f"phase 31 ok: no spill in the {n_k1} instances of partition.cu "
-        f"nor the 5 of scanhist.cu; K1 == plain bit for bit (payloads "
+        f"nor the 6 of scanhist.cu; K1 == plain bit for bit (payloads "
         f"too: ties keep their slot order) at K = 2^11 .. 2^14, 1-3 planes, "
         f"0, 1, 2 and 8 payloads, every sorted_run, tied keys with a block "
         f"of 0xFFFFFFFF: {n_edge} calls")

@@ -29,7 +29,8 @@ from tpusort_torch.ops import scan as tsc
 from tpusort_torch.ops import msd as tm
 from tpusort_torch.ops.reference import (
     _mask_plane_bits, sort_rows_lex, sort_twiddled_reference)
-from tpusort_torch.utils.datagen import segment_offsets, zipf_keys
+from tpusort_torch.utils.datagen import (
+    segment_offsets, zipf_keys, zipf_keys_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -843,6 +844,46 @@ def test_digit_histogram_skew(gen):
     ramp = torch.arange(n, dtype=torch.int32, device="cuda") >> 3
     assert torch.equal(tsh.digit_histogram_tiles(ramp, 2, 8),
                        tsh.digit_histogram_tiles_plain(ramp, 2, 8))
+
+
+def _hist_keys(gen, kind, n):
+    """n int32 keys: two words alternating key by key (every digit of the
+    one differs from the other's), uniform keys sorted as unsigned, or Zipf
+    1.1."""
+    if kind == "alternating":
+        a = int(_rand(gen, 1))
+        odd = torch.arange(n, device="cuda") & 1
+        return torch.where(odd == 1, torch.tensor(~a, dtype=torch.int32,
+                                                  device="cuda"),
+                           torch.tensor(a, dtype=torch.int32, device="cuda"))
+    if kind == "presorted":
+        return torch.sort(_rand(gen, n) ^ dtypes.INT32_MIN).values \
+            ^ dtypes.INT32_MIN
+    return zipf_keys_torch(gen, n)
+
+
+@pytest.mark.parametrize("kind", ["alternating", "presorted", "zipf"])
+@pytest.mark.parametrize("shift,bits", [(24, 8), (0, 8), (27, 5), (0, 3),
+                                        (31, 1)])
+def test_digit_histogram_skewed_keys(gen, kind, shift, bits):
+    """The inputs on which K6's run pairs and register fields do the least
+    or the most work, on a view 4 bytes off a 16-byte boundary."""
+    x = _hist_keys(gen, kind, (1 << 22) + 4)[1:]
+    got = tsh.digit_histogram_tiles(x, shift, bits)
+    assert torch.equal(got, tsh.digit_histogram_tiles_plain(x, shift, bits))
+    assert int(got.sum()) == x.shape[0]
+
+
+@pytest.mark.parametrize("shift,bits", [(24, 8), (0, 3), (31, 1)])
+def test_digit_histogram_one_bin_past_255_a_thread(gen, shift, bits):
+    """2^28 + 7 equal keys: every thread of the resident grid counts about
+    a thousand keys of one bin, so each 8-bit register field is flushed
+    several times before it could pass 255."""
+    x = torch.full(((1 << 28) + 8,), 0x5A5A5A5A, dtype=torch.int32,
+                   device="cuda")[1:]
+    got = tsh.digit_histogram_tiles(x, shift, bits)
+    assert torch.equal(got, tsh.digit_histogram_tiles_plain(x, shift, bits))
+    assert int(got[(0x5A5A5A5A >> shift) & ((1 << bits) - 1)]) == x.shape[0]
 
 
 def test_scan_and_histogram_routes(gen):

@@ -18,6 +18,10 @@ Cases (all of them by default; name some to run only those):
   and 1, keys and key + value;
 - ``k1c``: K1c (``partition_pass_fused``, general) at pass 0 of the 2^28
   general plans of ``sort_pairs(end_bit=24)`` and ``sort(begin_bit=8)``;
+- ``k6``: K6 (``digit_histogram_tiles``) at 2^28 in ``chip_smoke.py``'s
+  ten modes (uniform, constant, presorted, alternating and Zipf 1.1 keys
+  at several digit widths): one call, 20 calls back to back, and each
+  tree in turns with plain and ``torch.bincount`` with a traced call;
 - ``k4``: K4 (``collapse_segments``) at those plans' packed leaves (2^28 -
   12345 keys), at the global sort's collapse finish ((8, capacity)
   segments holding 2^25 words) and at (64, 2^21);
@@ -28,9 +32,11 @@ Cases (all of them by default; name some to run only those):
 
 A kernel row is the median of 5 CUDA-event times of the wrapper call, in
 turns whose order reverses every round (OTHER, THIS, THIS, OTHER), after
-one warm-up each.  A K4 row adds, for each tree, the same call timed in
-turns with its plain version and its PyTorch call, as ``chip_smoke.py``
-times it, and the device time by kernel of one traced call.  A wall row
+one warm-up each.  A K4 or K6 row adds, for each tree, the same call
+timed in turns with its plain version and its PyTorch call, as
+``chip_smoke.py`` times it, and the device time by kernel of one traced
+call (traced again, up to three times, if the trace caught no kernel); a
+K6 row also 20 calls queued between two events.  A wall row
 is the median of 9 host walls, each ending in a synchronize.  The card's
 name and power limit head the output.  It fails without a CUDA card.
 """
@@ -48,9 +54,10 @@ from pathlib import Path
 import torch
 
 PKG = "tpusort_torch"
-CASES = ("k8", "k1c", "k4", "walls", "phases")
+CASES = ("k8", "k1c", "k6", "k4", "walls", "phases")
 REPS = 5
 WALL_REPS = 9            # host walls spread more than CUDA-event times
+BATCH = 20               # calls queued between two events (short calls)
 SEED = 20261016
 MAIN_N = 1 << 28
 RAGGED_N = MAIN_N - 12345
@@ -103,6 +110,20 @@ def _event_ms(fn) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b)
+
+
+def _batch_ms(fn) -> float:
+    """CUDA-event ms a call of ``BATCH`` calls queued back to back: the
+    card does not wait on the host between them, as it does before a
+    single call."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(BATCH):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / BATCH
 
 
 def _wall_ms(fn) -> float:
@@ -175,11 +196,14 @@ class Bench:
                         a.append(_event_ms(fn))
                 fn = fns[0]
                 torch.cuda.synchronize()
-                with torch.profiler.profile(activities=acts) as prof:
-                    fn()
-                    torch.cuda.synchronize()
-            by_name = sorted(self.device_ms_by_name(prof).items(),
-                             key=lambda kv: -kv[1])
+                for _ in range(3):     # again if the trace lost the kernels
+                    with torch.profiler.profile(activities=acts) as prof:
+                        fn()
+                        torch.cuda.synchronize()
+                    by_name = sorted(self.device_ms_by_name(prof).items(),
+                                     key=lambda kv: -kv[1])
+                    if by_name:
+                        break
             self.print(
                 f"ab: {name} {t.label}, in turns with plain and library: "
                 f"{_fmt(acc[0])} ms (plain {_fmt(acc[1])}); traced: device "
@@ -248,6 +272,44 @@ def case_k1c(b: Bench, gen: torch.Generator) -> None:
               .partition_pass_fused(tiles[:1], tiles[1:], None, general=True,
                                     **kw))
         del tiles
+
+
+def case_k6(b: Bench, gen: torch.Generator) -> None:
+    dev = gen.device
+    x = _rand(MAIN_N, gen)
+    sign = -(1 << 31)
+    word = torch.tensor(0x3C5A96F0, dtype=torch.int32, device=dev)
+    with b.this.active():
+        zipf = b.this.mod("utils.datagen").zipf_keys_torch(gen, MAIN_N)
+    keys = {"uniform": x,
+            "constant": torch.full_like(x, 0x12345678),
+            "presorted": torch.sort(x ^ sign).values ^ sign,
+            "alternating": torch.where(
+                torch.arange(MAIN_N, device=dev) % 2 == 1, ~word, word),
+            "Zipf 1.1": zipf}
+    for name, shift, bits in (
+            ("uniform", 24, 8), ("constant", 24, 8), ("uniform", 27, 5),
+            ("uniform", 0, 3), ("uniform", 31, 1), ("constant", 0, 3),
+            ("presorted", 24, 8), ("presorted", 0, 8),
+            ("alternating", 24, 8), ("Zipf 1.1", 0, 8)):
+        k = keys[name].view(torch.uint32)
+        row = f"K6 {name} ({shift}, {bits}) 2^28"
+
+        def make(tr):
+            fn = tr.mod("kernels.scanhist").digit_histogram_tiles
+            return lambda: fn(k, shift, bits)
+
+        def plain(tr):
+            fn = tr.mod("kernels.scanhist").digit_histogram_tiles_plain
+            return lambda: fn(k, shift, bits)
+
+        ki = keys[name]
+        b.row(row, make)
+        b.row(f"{row}, {BATCH} calls back to back, a call", make, _batch_ms)
+        b.with_plain(row, make, plain,
+                     lambda: torch.bincount((ki >> shift) & ((1 << bits) - 1),
+                                            minlength=1 << bits))
+    del keys, x, zipf
 
 
 def _k4_rows(b: Bench, name: str, segs, counts, n_out: int) -> None:

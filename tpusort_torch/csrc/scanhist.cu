@@ -64,20 +64,47 @@
 // element at 3.35 TB/s (0.641 ms at 2^28); descriptors add 8 bytes a tile.
 //
 // K6 replaces _hist_kernel behind scanhist.py:digit_histogram_tiles, which
-// accumulates into one VMEM vector across the ordered grid.  Here each CTA
-// keeps a shared-memory histogram (atomicAdd on shared int32), walks the
-// keys 16 bytes a thread in a grid-stride loop, and adds its non-zero bins
-// to the zeroed global output with one atomicAdd each.  Integer adds
-// commute, so the counts are exact in any order.  A warp whose 32 keys
-// share one digit (constant or presorted keys) adds 32 with one atomic, by
-// __match_all_sync; otherwise every thread adds 1.  Any n: the keys before
-// the first 16-byte boundary and after the last whole vector are counted
-// one by one.  Bound: bytes (each key read once).
+// keeps one VMEM vector of bins across a grid that runs in order.  Bound:
+// bytes.  Each key is read once, n x 4 bytes at 3.35 TB/s (0.321 ms at
+// 2^28), and the counts are one add a key, well under the card's integer
+// rate; so the kernel must keep enough reads in flight and spend few
+// instructions, and above all few conflicting shared atomics, a key.
+//
+//   1. Loads.  The grid is the CTAs that fit on the card at once (the SM
+//      count times the occupancy), each of 16 warps.  The 16-byte body
+//      comes in chunks of 4 x 32 vectors; a warp takes every (warps in the
+//      grid)-th chunk and issues its 4 loads (lane l: vectors 32 k + l, so
+//      each load is coalesced) before it counts any of them: 64 bytes a
+//      thread, 64 KB or more an SM, in flight.  The keys before the first
+//      16-byte boundary and after the last whole chunk (at most 3 + 511)
+//      go to the grid's last warp, one a lane.
+//   2. Up to 8 bins (bits <= 3): registers.  A thread counts bin d in the
+//      8-bit field d % 4 of one of two words (+= 1 << 8 (d % 4), the word
+//      chosen by a select, so nothing is indexed), which takes 240 keys,
+//      15 chunks, before a field could pass 255; then the warp adds the
+//      fields with __reduce_add_sync (two bins a sum, in 16-bit halves)
+//      into lane b's total of bin b, and starts again from zero.  No
+//      atomic until the merge, whatever the keys.
+//   3. More bins: shared memory, a copy a warp (16 x 256 x 4 B = 16 KB a
+//      CTA), so no two warps ever add to one word.  A thread keeps two
+//      (digit, run) pairs over its keys in order and adds a run to its
+//      warp's bin only when a key matches neither pair (the older run goes
+//      out) and at the end.  Constant and presorted keys, and any stretch
+//      of keys with two digits in any order, then cost no atomic a key;
+//      uniform keys one, at few conflicts (32 lanes over many bins).  The
+//      worst case is many lanes of one instruction missing both pairs onto
+//      one bin, e.g. three digits taken in turn.
+//   4. Merge.  After __syncthreads, thread b sums bin b over the warps and
+//      adds it, if not 0, to the zeroed output with one global atomicAdd.
+//
+// Integer adds commute, so the counts are exact in any order, and equal
+// torch.bincount of the digit on every input.
 #include <cuda_runtime.h>
 
 #include <cuda/atomic>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace tpusort {
 
@@ -367,65 +394,173 @@ int launch_prefix_sum(const void* in, void* out, void* scratch, long long n,
   return (int)cudaGetLastError();
 }
 
-constexpr int kHistThreads = 512;
+constexpr int kHistWarps = 16;
+constexpr int kHistThreads = 32 * kHistWarps;
 constexpr int kHistMaxBins = 256;
-constexpr int kHistMaxBlocks = 132 * 8;
+constexpr int kHistRegBins = 8;          // bits <= 3: counts in registers
+constexpr int kHistLoads = 4;            // 16-byte loads in flight a thread
+constexpr int kHistChunkVecs = 32 * kHistLoads;
+constexpr int kHistChunkKeys = 4 * kHistChunkVecs;
+constexpr int kHistChunkKeysLane = 4 * kHistLoads;    // a lane's keys a chunk
+constexpr int kHistFlushEvery = 255 / kHistChunkKeysLane;   // chunks
+constexpr int kHistRestSteps = (3 + kHistChunkKeys - 1 + 31) / 32;
+// a field holds what a lane counts between two flushes: at most
+// kHistFlushEvery - 1 chunks before the loop ends, then the rest
+static_assert((kHistFlushEvery - 1) * kHistChunkKeysLane + kHistRestSteps
+                  <= 255 && kHistFlushEvery * kHistChunkKeysLane <= 255,
+              "an 8-bit field could pass 255");
 
-// Count digit d once for every thread of the mask m (the calling threads).
-__device__ inline void count_digit(int* hist, uint32_t d, unsigned m,
-                                   int lane) {
-  int same;
-  __match_all_sync(m, d, &same);
-  if (same) {
-    if (lane == __ffs(m) - 1) atomicAdd(&hist[d], __popc(m));
-  } else {
-    atomicAdd(&hist[d], 1);
+// Counts in 8-bit register fields: bins 0-3 in lo, 4-7 in hi; lane b < 8
+// holds the warp's flushed total of bin b.
+struct RegCounts {
+  uint32_t lo = 0, hi = 0, total = 0;
+
+  __device__ __forceinline__ void add(uint32_t d, bool ok = true) {
+    const uint32_t inc = ok ? 1u << ((d & 3u) << 3) : 0u;
+    lo += d < 4u ? inc : 0u;
+    hi += d < 4u ? 0u : inc;
+  }
+
+  // Every lane of the warp calls it.  The masked halves hold two fields in
+  // 16 bits each, whose sum over 32 lanes (at most 32 x 255) cannot carry.
+  __device__ __forceinline__ void flush(int lane) {
+    const uint32_t e0 = __reduce_add_sync(kFullWarp, lo & 0x00FF00FFu);
+    const uint32_t o0 = __reduce_add_sync(kFullWarp, (lo >> 8) & 0x00FF00FFu);
+    const uint32_t e1 = __reduce_add_sync(kFullWarp, hi & 0x00FF00FFu);
+    const uint32_t o1 = __reduce_add_sync(kFullWarp, (hi >> 8) & 0x00FF00FFu);
+    const uint32_t w = lane & 4 ? (lane & 1 ? o1 : e1) : (lane & 1 ? o0 : e0);
+    total += (w >> ((lane & 2) << 3)) & 0xFFFFu;
+    lo = hi = 0;
+  }
+
+  __device__ __forceinline__ void finish(uint32_t* wbins, int lane) {
+    flush(lane);
+    if (lane < kHistRegBins) wbins[lane] = total;
+  }
+};
+
+// Counts as runs into the warp's own shared bins: the two latest digits a
+// key matched, each with its run; c0 != c1 always (bins >= 16 here).
+struct RunCounts {
+  uint32_t* wbins;
+  uint32_t c0 = 0, c1 = 1, r0 = 0, r1 = 0;
+
+  __device__ __forceinline__ void add(uint32_t d, bool ok = true) {
+    if (!ok) return;
+    if (d != c0 && d != c1) {
+      if (r1) atomicAdd(wbins + c1, r1);
+      c1 = c0;
+      r1 = r0;
+      c0 = d;
+      r0 = 0;
+    }
+    r0 += d == c0;
+    r1 += d == c1;
+  }
+
+  __device__ __forceinline__ void finish(uint32_t*, int) {
+    if (r0) atomicAdd(wbins + c0, r0);
+    if (r1) atomicAdd(wbins + c1, r1);
+  }
+};
+
+// in[0..n): the keys; in + head is 16-byte aligned and full chunks of
+// kHistChunkKeys keys follow it; the rest (the head and what follows the
+// chunks) goes to the grid's last warp.  out: (bins,) int32, zeroed.
+template <bool kRegs>
+__global__ void __launch_bounds__(kHistThreads)
+digit_histogram_kernel(const uint32_t* __restrict__ in, long long n,
+                       long long head, long long full, int shift,
+                       uint32_t mask, int bins, int* __restrict__ out) {
+  constexpr int kBins = kRegs ? kHistRegBins : kHistMaxBins;
+  __shared__ uint32_t warp_bins[kHistWarps][kBins];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* wbins = warp_bins[warp];
+  for (int b = lane; b < kBins; b += 32) wbins[b] = 0;
+  __syncwarp();
+  typename std::conditional<kRegs, RegCounts, RunCounts>::type c;
+  if constexpr (!kRegs) c.wbins = wbins;
+  const long long gwarp = (long long)blockIdx.x * kHistWarps + warp;
+  const long long nwarps = (long long)gridDim.x * kHistWarps;
+  const uint4* body = reinterpret_cast<const uint4*>(in + head) + lane;
+  int since_flush = 0;
+  for (long long ch = gwarp; ch < full; ch += nwarps) {
+    const uint4* p = body + ch * kHistChunkVecs;
+    uint4 v[kHistLoads];
+#pragma unroll
+    for (int k = 0; k < kHistLoads; ++k) v[k] = __ldg(p + 32 * k);
+#pragma unroll
+    for (int k = 0; k < kHistLoads; ++k) {
+      c.add((v[k].x >> shift) & mask);
+      c.add((v[k].y >> shift) & mask);
+      c.add((v[k].z >> shift) & mask);
+      c.add((v[k].w >> shift) & mask);
+    }
+    if constexpr (kRegs) {
+      if (++since_flush == kHistFlushEvery) {   // the whole warp
+        c.flush(lane);
+        since_flush = 0;
+      }
+    }
+  }
+  if (gwarp == nwarps - 1) {
+    const long long tail = head + full * kHistChunkKeys;
+    const long long rest = head + (n - tail);
+    for (long long i = lane; i - lane < rest; i += 32) {
+      const bool ok = i < rest;
+      const uint32_t key = ok ? in[i < head ? i : tail + (i - head)] : 0u;
+      c.add((key >> shift) & mask, ok);
+    }
+  }
+  c.finish(wbins, lane);
+  __syncthreads();
+  for (int b = threadIdx.x; b < bins; b += blockDim.x) {
+    uint32_t s = 0;
+#pragma unroll
+    for (int w = 0; w < kHistWarps; ++w) s += warp_bins[w][b];
+    if (s) atomicAdd(&out[b], (int)s);
   }
 }
 
-__global__ void __launch_bounds__(kHistThreads)
-digit_histogram_kernel(const uint32_t* __restrict__ in, long long n,
-                       long long head, int shift, uint32_t mask, int bins,
-                       int* __restrict__ out) {
-  __shared__ int hist[kHistMaxBins];
-  for (int i = threadIdx.x; i < bins; i += blockDim.x) hist[i] = 0;
-  __syncthreads();
-  const uint4* body = reinterpret_cast<const uint4*>(in + head);
-  const long long nv = (n - head) / 4;
-  const int lane = threadIdx.x & 31;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  // the loop's bounds are the same for a whole warp, so all 32 lanes reach
-  // the ballot
-  const long long warp0 =
-      (long long)blockIdx.x * blockDim.x + threadIdx.x - lane;
-  for (long long base = warp0; base < nv; base += stride) {
-    const long long i = base + lane;
-    const bool ok = i < nv;
-    const unsigned m = __ballot_sync(kFullWarp, ok);
-    if (ok) {
-      const uint4 v = body[i];
-      count_digit(hist, (v.x >> shift) & mask, m, lane);
-      count_digit(hist, (v.y >> shift) & mask, m, lane);
-      count_digit(hist, (v.z >> shift) & mask, m, lane);
-      count_digit(hist, (v.w >> shift) & mask, m, lane);
-    }
+// The CTAs of the instance that fit on the card at once, per device.
+template <bool kRegs>
+cudaError_t resident_hist_blocks(int* blocks) {
+  constexpr int kMaxDevices = 64;
+  static int cached[kMaxDevices];
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && cached[dev]) {
+    *blocks = cached[dev];
+    return cudaSuccess;
   }
-  if (blockIdx.x == 0) {
-    // the keys outside the vectors: before the first 16-byte boundary and
-    // after the last whole vector, six at most
-    const long long tail = head + nv * 4;
-    const long long extra = head + (n - tail);
-    if (threadIdx.x < extra) {
-      const long long i =
-          threadIdx.x < head ? threadIdx.x : tail + (threadIdx.x - head);
-      atomicAdd(&hist[(in[i] >> shift) & mask], 1);
-    }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, digit_histogram_kernel<kRegs>, kHistThreads, 0);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < bins; i += blockDim.x) {
-    const int c = hist[i];
-    if (c) atomicAdd(&out[i], c);
-  }
+  if (err != cudaSuccess) return err;
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < kMaxDevices) cached[dev] = *blocks;
+  return cudaSuccess;
+}
+
+template <bool kRegs>
+int launch_digit_histogram(const uint32_t* in, long long n, long long head,
+                           int shift, int bits, int* out,
+                           cudaStream_t stream) {
+  int resident = 0;
+  const cudaError_t err = resident_hist_blocks<kRegs>(&resident);
+  if (err != cudaSuccess) return (int)err;
+  const long long full = (n - head) / kHistChunkKeys;
+  long long blocks = (full + kHistWarps - 1) / kHistWarps;
+  if (blocks < 1) blocks = 1;
+  if (blocks > resident) blocks = resident;
+  digit_histogram_kernel<kRegs><<<(unsigned)blocks, kHistThreads, 0,
+                                  stream>>>(in, n, head, full, shift,
+                                            (1u << bits) - 1u, 1 << bits,
+                                            out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tpusort
@@ -450,25 +585,22 @@ extern "C" int tpusort_prefix_sum(const void* in, void* out, void* scratch,
 }
 
 // out[d] += the number of keys in[0..n) whose digit (key >> shift) & (2^bits
-// - 1) is d; out is (2^bits,) int32 and zeroed by the caller; bits <= 8.
-// Returns a cudaError_t.
+// - 1) is d; out is (2^bits,) int32 and zeroed by the caller; bits <= 8;
+// in 4-byte aligned.  One launch.  Returns a cudaError_t.
 extern "C" int tpusort_digit_histogram(const void* in, long long n, int shift,
                                        int bits, void* out, void* stream) {
   using namespace tpusort;
   if (n < 0 || bits < 1 || (1 << bits) > kHistMaxBins || shift < 0 ||
-      shift + bits > 32) {
+      shift + bits > 32 || ((uintptr_t)in & 3)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return (int)cudaSuccess;
   long long head = ((16 - ((uintptr_t)in & 15)) & 15) / 4;
   if (head > n) head = n;
-  const long long nv = (n - head) / 4;
-  long long blocks = (nv + kHistThreads - 1) / kHistThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > kHistMaxBlocks) blocks = kHistMaxBlocks;
-  digit_histogram_kernel<<<(unsigned)blocks, kHistThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const uint32_t*)in, n, head, shift, (1u << bits) - 1u, 1 << bits,
-      (int*)out);
-  return (int)cudaGetLastError();
+  const auto* keys = static_cast<const uint32_t*>(in);
+  return (1 << bits) <= kHistRegBins
+             ? launch_digit_histogram<true>(keys, n, head, shift, bits,
+                                            (int*)out, (cudaStream_t)stream)
+             : launch_digit_histogram<false>(keys, n, head, shift, bits,
+                                             (int*)out, (cudaStream_t)stream);
 }

@@ -4,8 +4,8 @@ PyTorch port of ``tpusort/kernels/scanhist.py``: ``prefix_sum_tiles``
 (``_scan_kernel``) and ``digit_histogram_tiles`` (``_hist_kernel``).  On a
 CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/scanhist.cu``: a single-pass scan with decoupled look-back, and
-per-CTA shared-memory histograms merged by atomics; see that file for the
-designs and what bounds them).  On a CPU tensor it runs the plain PyTorch version of
+a histogram counted in registers or in per-warp shared-memory copies,
+merged by atomics; see that file for the designs and what bounds them).  On a CPU tensor it runs the plain PyTorch version of
 the same contract (``*_plain``: ``torch.cumsum`` and ``torch.bincount``).
 
 uint32 tensors are worked on through their int32 views (PyTorch's CPU
@@ -28,7 +28,7 @@ __all__ = ["prefix_sum_tiles", "prefix_sum_tiles_plain",
 SCAN_DTYPES = (torch.int32, torch.uint32, torch.float32)
 SCAN_TILE = 8192           # elements a CTA of K5 scans (csrc/scanhist.cu)
 SCAN_GROUP = 128           # tiles under one anchor of K5's look-back
-MAX_DIGIT_BITS = 8         # K6's shared-memory histogram has 256 bins
+MAX_DIGIT_BITS = 8         # K6's per-warp bins hold 256 counts
 
 
 def _words(x: torch.Tensor) -> torch.Tensor:
