@@ -868,8 +868,9 @@ def main() -> None:
           and out.device == x.device, "main path: wrong dtype/shape/device")
     check(same_bits(out, reference_sort(x)),
           "main path: 2^28 sort differs from the reference")
+    # host reads: the planner's sample and the tier's flag
     check(main_counts == dict(quiet, k1_launches=len(main_plan.passes),
-                              k2_launches=1, radix_tiers=1),
+                              k2_launches=1, radix_tiers=1, host_reads=2),
           f"main path did not run K1 x{len(main_plan.passes)} + K2 "
           f"without overflow: {main_counts}")
     launches["K1 keys"] = modes.get(("K1", 1, 0), 0)
@@ -1045,7 +1046,7 @@ def main() -> None:
           and same_bits(ko, wk) and same_bits(vo, wv),
           "sort_pairs 2^28: keys or values differ from the stable reference")
     check(pairs_counts == dict(quiet, k1_launches=len(pairs_main.passes),
-                               k2_launches=1, radix_tiers=1),
+                               k2_launches=1, radix_tiers=1, host_reads=2),
           f"sort_pairs did not run K1 x{len(pairs_main.passes)} + K2 "
           f"without overflow: {pairs_counts}")
     launches["K1 composite+value"] = modes.get(("K1", 2, 1), 0)
@@ -1511,7 +1512,8 @@ def main() -> None:
                        device=dev).view(torch.uint32)
     for name, keys in (("presorted", presorted), ("constant", const)):
         got, c, _ = drive(lambda: tpusort_torch.sort(keys))
-        check(c == dict(quiet, identity_routes=1),
+        # host reads: the planner's sample and the sortedness check
+        check(c == dict(quiet, identity_routes=1, host_reads=2),
               f"{name} 2^28: not the identity path with no launch: {c}")
         check(same_bits(got, keys) and got.data_ptr() != keys.data_ptr(),
               f"{name} 2^28: not a copy of the input")

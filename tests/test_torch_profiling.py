@@ -13,6 +13,7 @@ import dataclasses
 import io
 import logging
 import time
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +28,7 @@ from tpusort_torch.kernels import partition as tp
 from tpusort_torch.kernels.collapse import collapse_segments
 from tpusort_torch.ops import msd as tm
 from tpusort_torch.utils import log as tlog
+from tpusort_torch.utils import profile_calls as tpc
 from tpusort_torch.utils import timing as ttiming
 from tpusort_torch.utils.datagen import random_keys
 from tpusort_torch.utils.profiling import (
@@ -369,6 +371,7 @@ def test_timing_on_the_cpu():
 
 
 def test_log_levels_and_timed():
+    """``span`` logs its block's host ms at TRACE and nothing above it."""
     buf = io.StringIO()
     handler = logging.StreamHandler(buf)
     old = tlog.logger.level
@@ -377,11 +380,11 @@ def test_log_levels_and_timed():
         assert tlog.logger.name == "tpusort_torch"
         tlog.set_level("TRACE")
         assert tlog.logger.level == tlog.TRACE == 5
-        with tlog.timed("phase", level=tlog.TRACE):
+        with tlog.span("tpusort.phase"):
             pass
-        assert "phase: " in buf.getvalue() and " ms" in buf.getvalue()
+        assert "tpusort.phase: " in buf.getvalue() and " ms" in buf.getvalue()
         tlog.set_level("warning")
-        with tlog.timed("hidden"):
+        with tlog.span("tpusort.hidden"):
             pass
         assert "hidden" not in buf.getvalue()
         tlog.set_level(logging.INFO)
@@ -389,3 +392,37 @@ def test_log_levels_and_timed():
     finally:
         tlog.logger.removeHandler(handler)
         tlog.logger.setLevel(old)
+
+
+def _event(name, a, b, device=False, annotation=False):
+    """A profiler event of ``name`` from ``a`` to ``b`` microseconds."""
+    dt = torch.autograd.DeviceType
+    return types.SimpleNamespace(
+        name=name, time_range=types.SimpleNamespace(start=a, end=b),
+        device_type=dt.CUDA if device else dt.CPU,
+        is_user_annotation=annotation)
+
+
+def test_profile_calls_reads_one_traced_call():
+    """``profile_calls``' window, busy time and idle gaps of the one traced
+    call: device work clipped to the call's span and merged where it
+    overlaps, each gap charged to the innermost host span running as it
+    began, user annotations left out."""
+    ev = [_event("profile_calls.call", 1000, 11000),
+          _event("tpusort.api.sort", 1000, 9000),
+          _event("tpusort.plan", 1000, 3000),
+          _event("tpusort.read.tier_flag", 8000, 8500),
+          _event("annotated", 1000, 11000, annotation=True),
+          _event("k1", 0, 2000, device=True),          # cut at the span
+          _event("k1", 4000, 6000, device=True),
+          _event("k2", 5000, 8200, device=True),       # overlaps k1
+          _event("k2", 9500, 10500, device=True),
+          _event("gpu ann", 6000, 10000, device=True, annotation=True)]
+    window, busy, idle = tpc._window_busy_idle(ev, "profile_calls.call")
+    assert window == 10.0
+    assert busy == pytest.approx(1.0 + 4.2 + 1.0)
+    assert dict(idle) == pytest.approx(
+        {"tpusort.plan": 2.0, "tpusort.read.tier_flag": 1.3, "caller": 0.5})
+    assert [k for k, _ in idle][0] == "tpusort.plan"
+    with pytest.raises(RuntimeError):
+        tpc._window_busy_idle(ev[1:], "profile_calls.call")

@@ -47,6 +47,7 @@ from tpusort_torch.ops.equidepth import sort_twiddled_equidepth
 from tpusort_torch.ops.msd import _plan_cached, count_route, sort_twiddled_msd
 from tpusort_torch.ops.reference import sort_twiddled_reference
 from tpusort_torch.ops.small import sort_twiddled_bitonic
+from tpusort_torch.utils.log import host_read, span, spanned
 
 __all__ = [
     "sort",
@@ -222,13 +223,26 @@ def _run_tier_chain(dispatch: Callable, cfg, device: torch.device,
     out = None
     for i, tier in enumerate(tiers):
         out = None                # free the overflowed tier's output first
-        *out, ovf = dispatch(tier)
+        with span("tpusort.tier." + tier):
+            *out, ovf = dispatch(tier)
         if first_sync is not None:
             first_sync()
             first_sync = None
-        if i == len(tiers) - 1 or not bool(ovf):
+        if i == len(tiers) - 1:
+            break
+        with host_read("tier_flag"):
+            overflowed = bool(ovf)
+        if not overflowed:
             break
     return out
+
+
+def _plan(decide: Callable, sample: "_Sample"):
+    """The host planner's decision on the sample, read first."""
+    with span("tpusort.plan"):
+        with host_read("sample"):
+            s = sample.get()
+        return decide(s)
 
 
 def _tiered_flow(ckey: tuple, classify, decide: Callable, cfg,
@@ -250,8 +264,12 @@ def _tiered_flow(ckey: tuple, classify, decide: Callable, cfg,
         _TIER_CACHE.clear()
     cached = _TIER_CACHE.get(ckey)
     if cached is None or cached["presorted"]:
-        presorted, tier = decide(sample.get())
-        if presorted and bool(check()):
+        presorted, tier = _plan(decide, sample)
+        if presorted:
+            is_sorted = check()
+            with host_read("presorted"):
+                presorted = bool(is_sorted)
+        if presorted:
             _TIER_CACHE[ckey] = {"presorted": True, "tier": tier}
             count_route("identity_routes")
             return identity()
@@ -261,7 +279,7 @@ def _tiered_flow(ckey: tuple, classify, decide: Callable, cfg,
     tier = cached["tier"]
 
     def refresh():
-        p, t = decide(sample.get())
+        p, t = _plan(decide, sample)
         _TIER_CACHE[ckey] = {"presorted": p, "tier": t}
 
     return _run_tier_chain(dispatch, cfg, device,
@@ -336,6 +354,7 @@ def _sort_tiered(planes, traits, vt, *, kind: str, begin_bit: int,
                         identity)
 
 
+@spanned("tpusort.api.sort")
 def sort(
     keys: torch.Tensor,
     values=None,
@@ -384,6 +403,7 @@ def sort(
     return out, (sv[0] if single else tuple(sv))
 
 
+@spanned("tpusort.api.sort_planes")
 def sort_planes(
     planes,
     values=None,
@@ -430,6 +450,7 @@ def sort_planes(
     return out, (sv[0] if single else tuple(sv))
 
 
+@spanned("tpusort.api.argsort")
 def argsort(
     keys: torch.Tensor,
     *,
@@ -487,6 +508,7 @@ def unstable_sort_pairs(keys, values, **kw):
     return sort(keys, values, stable=False, **kw)
 
 
+@spanned("tpusort.api.sort_pairs_lsb_in_value")
 def sort_pairs_lsb_in_value(keys: torch.Tensor, values: torch.Tensor,
                             num_lsb_bytes: int = 4, *,
                             descending: bool = False):

@@ -43,6 +43,7 @@ from tpusort_torch.configs import get_config
 from tpusort_torch.kernels.partition import partition_pass_fused
 from tpusort_torch.ops import msd as _msd
 from tpusort_torch.ops.reference import sort_twiddled_reference
+from tpusort_torch.utils.log import host_read, span, spanned
 
 __all__ = ["sort_twiddled_equidepth", "supports"]
 
@@ -111,6 +112,7 @@ class _EqTable:
         self.q, self.lo, self.hi, self.ranks, self.m = q, lo, hi, ranks, m
 
 
+@spanned("tpusort.equidepth.sample")
 def _quantile_table(planes: Sequence[torch.Tensor], n: int, nq: int,
                     sample_log2: Optional[int] = None) -> _EqTable:
     """Equi-depth splitters and tie spans from a strided sample of
@@ -134,7 +136,9 @@ def _quantile_table(planes: Sequence[torch.Tensor], n: int, nq: int,
         cfg = get_config(bits, False, samples[0].device.type)
         sp, _, ovf = _msd.sort_twiddled_msd(
             samples, (), config=cfg, on_overflow="flag", **ref_bits)
-        if bool(ovf):            # a skewed sample: its exact sort instead
+        with host_read("sample_flag"):
+            skewed = bool(ovf)
+        if skewed:               # a skewed sample: its exact sort instead
             _msd.count_route("sample_fallbacks")
             sp, _ = sort_twiddled_reference(samples, (), **ref_bits)
         samples = sp
@@ -162,6 +166,7 @@ def _quantile_table(planes: Sequence[torch.Tensor], n: int, nq: int,
     return _EqTable(q, first, last1, ranks, m)
 
 
+@spanned("tpusort.equidepth.splitters")
 def _pass_splitters(table: _EqTable, p: int, j: int, r: int,
                     t_seg: int) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Per-tile splitters and tie fractions for pass j of p (port of
@@ -227,20 +232,21 @@ def _run_pipeline(
     prev_s = None
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     for j, spec in enumerate(plan.passes):
-        t = spec.n_seg * spec.t_seg
-        tiled = [o.reshape(t, spec.k) for o in ops]
-        spl, frac = _pass_splitters(q, p, j, r, spec.t_seg)
-        ops, counts = partition_pass_fused(
-            tiled[:nplanes], tiled[nplanes:], ctable.reshape(t, spec.k // qg),
-            q_in=qg, r=spec.r, s=spec.s, lo_bit=spec.lo_bit,
-            width=spec.width,
-            sorted_run=None if prev_s is None else prev_s & -prev_s,
-            t_seg=spec.t_seg, splitters=spl, splitter_fracs=frac,
-            unstable=True)
-        del tiled
-        overflow |= (counts > spec.s).any()
-        ctable, qg = _msd.next_counts_table(counts, spec)
-        prev_s = spec.s
+        with span("tpusort.pass"):
+            t = spec.n_seg * spec.t_seg
+            tiled = [o.reshape(t, spec.k) for o in ops]
+            spl, frac = _pass_splitters(q, p, j, r, spec.t_seg)
+            ops, counts = partition_pass_fused(
+                tiled[:nplanes], tiled[nplanes:],
+                ctable.reshape(t, spec.k // qg), q_in=qg, r=spec.r, s=spec.s,
+                lo_bit=spec.lo_bit, width=spec.width,
+                sorted_run=None if prev_s is None else prev_s & -prev_s,
+                t_seg=spec.t_seg, splitters=spl, splitter_fracs=frac,
+                unstable=True)
+            del tiled
+            overflow |= (counts > spec.s).any()
+            ctable, qg = _msd.next_counts_table(counts, spec)
+            prev_s = spec.s
     # the raw-key leaf, as the radix engine's: segments are value ranges in
     # ascending order, and adjacent segments share only equal (boundary)
     # values, so tiles of whole segments sort into global order
@@ -349,7 +355,9 @@ def sort_twiddled_equidepth(
     nplanes = len(planes)
     if flag_mode:
         return tuple(out[:nplanes]), tuple(out[nplanes:]), overflow
-    if bool(overflow):                   # the one host sync of the path
+    with host_read("equidepth_flag"):    # the one host sync of the path
+        overflowed = bool(overflow)
+    if overflowed:
         del out
         _msd.count_route("overflow_fallbacks")
         return sort_twiddled_reference(planes, values, **bits)

@@ -62,6 +62,7 @@ from tpusort_torch.ops.reference import (
     _mask_plane_bits, sort_twiddled_reference)
 from tpusort_torch.ops.small import single_tile_ok, sort_twiddled_bitonic
 from tpusort_torch.parallel.ring import ring_all_to_all
+from tpusort_torch.utils.log import COUNTS, host_read, span, spanned
 
 # ---------------------------------------------------------------------------
 # Geometry planning (verbatim from tpusort/ops/msd.py)
@@ -306,6 +307,7 @@ def plan_msd(
 # ``partition_tiles.launches`` (K8, the per-phase engine's passes), and
 # ``.modes`` by key planes and payload words), which count only where they
 # launch a CUDA kernel; :func:`counters` and :func:`mode_counters` read them.
+# The host reads are counted in ``utils.log.COUNTS``.
 _ROUTES = {"reference_routes": 0, "overflow_fallbacks": 0,
            "radix_tiers": 0, "equidepth_runs": 0, "sample_fallbacks": 0,
            "identity_routes": 0, "exchange_fallbacks": 0}
@@ -343,8 +345,11 @@ def counters() -> dict:
     dispatched; the equi-depth pipelines run, and the exact sorts their
     samples took after an overflow; presorted inputs returned as they
     were; global sorts whose exchange would overflow its capacity, which
-    gather and sort every shard instead (once a call)."""
-    return dict({k: fn.launches for k, fn in _KERNELS.items()}, **_ROUTES)
+    gather and sort every shard instead (once a call); the places where
+    the host waited for a device value (``host_reads``, each a
+    ``tpusort.read.*`` span)."""
+    return dict({k: fn.launches for k, fn in _KERNELS.items()}, **_ROUTES,
+                **COUNTS)
 
 
 def mode_counters() -> dict:
@@ -367,6 +372,8 @@ def reset_counters() -> None:
             fn.modes.clear()
         for key in _ROUTES:
             _ROUTES[key] = 0
+        for key in COUNTS:
+            COUNTS[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -397,20 +404,22 @@ def run_passes(
     ops = list(ops)
     overflow = torch.zeros((), dtype=torch.bool, device=ops[0].device)
     for spec in plan.passes:
-        t = spec.n_seg * spec.t_seg
-        tiled = [o.reshape(t, spec.k) for o in ops]
-        cin = None if ctable is None else ctable.reshape(t, spec.k // q)
-        # emitted runs are monotone slices of sorted tiles, so chunks of
-        # the previous run size's pow2 part are sorted: K1 only merges
-        ops, counts = partition_pass_fused(
-            tiled[:nplanes], tiled[nplanes:], cin, q_in=q, r=spec.r,
-            s=spec.s, lo_bit=spec.lo_bit, width=spec.width,
-            n=(n if ctable is None else None), sorted_run=prev_run,
-            unstable=unstable, t_seg=spec.t_seg, general=general,
-        )
-        prev_run = spec.s & -spec.s
-        overflow |= (counts > spec.s).any()
-        ctable, q = next_counts_table(counts, spec)
+        with span("tpusort.pass"):
+            t = spec.n_seg * spec.t_seg
+            tiled = [o.reshape(t, spec.k) for o in ops]
+            cin = None if ctable is None else ctable.reshape(t, spec.k // q)
+            # emitted runs are monotone slices of sorted tiles, so chunks
+            # of the previous run size's pow2 part are sorted: K1 only
+            # merges
+            ops, counts = partition_pass_fused(
+                tiled[:nplanes], tiled[nplanes:], cin, q_in=q, r=spec.r,
+                s=spec.s, lo_bit=spec.lo_bit, width=spec.width,
+                n=(n if ctable is None else None), sorted_run=prev_run,
+                unstable=unstable, t_seg=spec.t_seg, general=general,
+            )
+            prev_run = spec.s & -spec.s
+            overflow |= (counts > spec.s).any()
+            ctable, q = next_counts_table(counts, spec)
     return ops, (ctable, q), overflow
 
 
@@ -422,6 +431,7 @@ def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
         if dev.type == "cuda" else t
 
 
+@spanned("tpusort.feed")
 def strided_feed(operands: Sequence[torch.Tensor], n: int, plan: MsdPlan
                  ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Pass 0's input: the (n,) operands padded to plan.m1 and laid out
@@ -644,6 +654,7 @@ def sort_segments(
     return [rem | prefix[:, None], *out[1:]], seg_counts
 
 
+@spanned("tpusort.leaf")
 def _leaf_sort(
     ops: List[torch.Tensor], nplanes: int, ctable: torch.Tensor, q: int,
     plan: MsdPlan, n: int,
@@ -673,6 +684,7 @@ def _leaf_sort(
                              n)
 
 
+@spanned("tpusort.leaf")
 def raw_leaf(data: Sequence[torch.Tensor], ctable: torch.Tensor, q: int,
              plan: MsdPlan, nplanes: int, n: int) -> List[torch.Tensor]:
     """The raw path's leaf: K2 over tiles of whole final segments of the
@@ -950,7 +962,9 @@ def sort_twiddled_msd(
     del data, ctable                     # free the pass buffers first
     if flag_mode:
         return tuple(outs[:nplanes]), tuple(outs[nplanes:]), overflow
-    if bool(overflow):                   # the one host sync of the path
+    with host_read("msd_flag"):          # the one host sync of the path
+        overflowed = bool(overflow)
+    if overflowed:
         del outs
         if skew_tier is None:
             skew_tier = config.skew_tier

@@ -58,6 +58,7 @@ from tpusort_torch.kernels.partition import MAX_VALUES
 from tpusort_torch.ops import msd as _msd
 from tpusort_torch.ops.reference import (
     _mask_plane_bits, sort_rows_lex, sort_twiddled_reference)
+from tpusort_torch.utils.log import host_read, spanned
 
 __all__ = ["segmented_sort", "sort_batched"]
 
@@ -104,6 +105,7 @@ def _tile_route_ok(device_type: str, key_planes: int, full_range: bool,
             and all(v.element_size() == 4 for v in vt))
 
 
+@spanned("tpusort.api.sort_batched")
 def sort_batched(
     keys: torch.Tensor,
     values=None,
@@ -157,9 +159,11 @@ def sort_batched(
 def _checked_offsets(segment_offsets, n: int) -> np.ndarray:
     """The offsets on the host as int64, checked: a non-decreasing
     (num_segments + 1,) array covering [0, n)."""
-    so = segment_offsets.detach().cpu().numpy() \
-        if isinstance(segment_offsets, torch.Tensor) \
-        else np.asarray(segment_offsets)
+    if isinstance(segment_offsets, torch.Tensor):
+        with host_read("segment_offsets"):
+            so = segment_offsets.detach().cpu().numpy()
+    else:
+        so = np.asarray(segment_offsets)
     if (so.ndim != 1 or so.shape[0] < 2 or so[0] != 0 or so[-1] != n
             or np.any(np.diff(so.astype(np.int64)) < 0)):
         raise ValueError(
@@ -228,7 +232,9 @@ def _looks_doomed(offsets: np.ndarray, key: torch.Tensor, plan) -> bool:
         (sample.to(torch.int64) & 0xFFFFFFFF) >> (32 - deepest),
         minlength=1 << deepest)
     heaviest = torch.stack([counts.reshape(1 << w, -1).sum(dim=1).max()
-                            for w, _ in levels]).cpu().tolist()
+                            for w, _ in levels])
+    with host_read("segment_levels"):
+        heaviest = heaviest.cpu().tolist()
     return any(_planner.prefix_mass_overflows(float(c), m, w, spec, n)
                for c, (w, spec) in zip(heaviest, levels))
 
@@ -287,12 +293,15 @@ def _sort_on_engine(
             init_chain=(ctable, 128, None))
         del ops
         outs = _msd.raw_leaf(data, ctable, q, plan, nplanes, n)
-    if bool(overflow):
+    with host_read("segmented_flag"):
+        overflowed = bool(overflow)
+    if overflowed:
         _msd.count_route("overflow_fallbacks")
         return None
     return outs[1], list(outs[nplanes:])
 
 
+@spanned("tpusort.api.segmented_sort")
 def segmented_sort(
     keys: torch.Tensor,
     segment_offsets,

@@ -63,6 +63,7 @@ from tpusort_torch.kernels.collapse import collapse_segments
 from tpusort_torch.ops import msd as _msd
 from tpusort_torch.ops.reference import sort_twiddled_reference
 from tpusort_torch.parallel.comm import InProcessComm, ProcessGroupComm
+from tpusort_torch.utils.log import host_read, spanned
 
 __all__ = ["global_sort", "make_global_sort", "make_global_sort_planes"]
 
@@ -234,7 +235,9 @@ def _finish_windows(recv, seg_counts, norm, *, n_shard, capacity,
             < seg_counts[:, None]
         overflow = overflow | ((kn == -1) & valid).any()
     del kn
-    if bool(overflow):
+    with host_read("global_flag"):
+        overflowed = bool(overflow)
+    if overflowed:
         _msd.count_route("overflow_fallbacks")
         compacted = collapse_segments(list(recv), seg_counts, n_shard)
         sp, sv = sort_twiddled_reference(
@@ -266,7 +269,9 @@ def _global_sort_shard(comm, ops: Sequence[torch.Tensor], *, nplanes: int,
     cmat = comm.all_gather(counts)                         # (d src, d dst)
     # the one host read of the shard: every shard sees the same matrix, so
     # all take the same branch, and it gives every run's offset
-    host = torch.cat([cmat.reshape(-1), _u32(splitters[0])]).tolist()
+    host = torch.cat([cmat.reshape(-1), _u32(splitters[0])])
+    with host_read("global_counts"):
+        host = host.tolist()
     cm = np.asarray(host[:d * d], dtype=np.int64).reshape(d, d)
     spl0 = host[d * d:]
     offs = np.cumsum(cm, axis=1) - cm                    # run starts
@@ -471,6 +476,7 @@ def make_global_sort(comm, *, capacity_factor: float = 4.0, chunks: int = 1,
         adaptive=adaptive, finish=finish, exchange=exchange,
         finish_for=finish_for)
 
+    @spanned("tpusort.api.global_sort")
     def sorter(keys: torch.Tensor, values=None, *, descending: bool = False):
         if not isinstance(keys, torch.Tensor) or keys.dim() != 1:
             raise NotImplementedError("the global sort takes 1-D tensors")
@@ -511,6 +517,7 @@ def make_global_sort_planes(comm, *, key_dtype: str = "uint64",
         adaptive=adaptive, finish="collapse", exchange="collective",
         finish_for=lambda *_: ("collapse", {}))
 
+    @spanned("tpusort.api.global_sort_planes")
     def sorter(planes, values=None, *, descending: bool = False):
         planes = tuple(planes)
         if len(planes) != traits.planes:

@@ -12,13 +12,15 @@ whose name contains an argument, it
 makes the inputs on the card from a seed, runs the call twice to warm it
 (kernel build, plan cache, tier cache), times five calls with the host
 clock, each ending in a ``torch.cuda.synchronize()`` (the median is
-"wall"), then traces one more with ``torch.profiler`` and prints the
-device time of every kernel and copy, summed by name, the 14 largest
-first, with their sum ("device") and the share of the wall the card was
-idle (1 - device / wall, as the kernels do not overlap on one stream),
-then the 6 host operations with the most host time of their own.
-The card's name and power limit head the output.  It fails without a CUDA
-card.
+"wall"), then traces one more, with its ``synchronize()``, inside the span
+``profile_calls.call`` and prints, all of that one traced call: its
+window (the span), the device's busy time (the union of its operations'
+intervals) and the share of the window the card was idle; the device
+time of every kernel and copy, summed by name, the 14 largest first; the
+card's idle time summed by the innermost host operation or program span
+(``tpusort.*``, ``utils/log.py``) running when each gap began; then the 6
+host operations with the most host time of their own.  The card's name
+and power limit head the output.  It fails without a CUDA card.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -36,6 +38,7 @@ U64_N = 1 << 27
 SEG_N = 1 << 26
 SMALL_N = 1 << 24
 SEED = 20261016
+SPAN = "profile_calls.call"
 
 
 def _calls(dev: torch.device) -> Dict[str, Callable]:
@@ -142,7 +145,52 @@ def _device_ms_by_name(prof) -> Dict[str, float]:
     return out
 
 
+def _window_busy_idle(events, span: str
+                      ) -> Tuple[float, float, List[Tuple[str, float]]]:
+    """The window ms of the host span named ``span`` among a profile's
+    ``events``, the device's busy ms inside it (the union of the device
+    operations' intervals), and its idle ms summed by the innermost host
+    operation or span running when each gap began ("caller" where none
+    was), the largest first.  User annotations are left out."""
+    host, dev, window = [], [], None
+    for e in events:
+        a, b = e.time_range.start / 1e3, e.time_range.end / 1e3
+        if getattr(e, "is_user_annotation", False):
+            continue
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            dev.append((a, b))
+        elif e.name == span:
+            window = (a, b)
+        else:
+            host.append((e.name, a, b))
+    if window is None:
+        raise RuntimeError(f"the profile holds no span {span!r}")
+    t0, t1 = window
+    busy: List[List[float]] = []
+    for a, b in sorted(dev):
+        a, b = max(a, t0), min(b, t1)
+        if b <= a:
+            continue
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    idle: Dict[str, float] = {}
+    t = t0
+    for a, b in busy + [[t1, t1]]:
+        if a > t:
+            running = [(hb - ha, name) for name, ha, hb in host
+                       if ha <= t < hb]
+            label = min(running)[1] if running else "caller"
+            idle[label] = idle.get(label, 0.0) + (a - t)
+        t = max(t, b)
+    return (t1 - t0, sum(b - a for a, b in busy),
+            sorted(idle.items(), key=lambda kv: -kv[1]))
+
+
 def main(argv) -> None:
+    from tpusort_torch.utils.log import span
+
     if not torch.cuda.is_available():
         raise SystemExit("profile_calls: needs a CUDA card")
     card = subprocess.run(
@@ -167,16 +215,20 @@ def main(argv) -> None:
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        by_name = _device_ms_by_name(prof)
+            with span(SPAN):
+                fn()
+                torch.cuda.synchronize()
+        window, busy, idle = _window_busy_idle(prof.events(), SPAN)
         wall = statistics.median(walls)
-        busy = sum(by_name.values())
         print(f"== {name}: wall {wall:.3f} ms (5 calls "
-              f"{min(walls):.3f}..{max(walls):.3f}), device {busy:.3f} ms, "
-              f"idle share {1 - busy / wall:.3f} on {card}", flush=True)
+              f"{min(walls):.3f}..{max(walls):.3f}); traced call {window:.3f}"
+              f" ms, device busy {busy:.3f} ms, idle share "
+              f"{1 - busy / window:.3f} on {card}", flush=True)
+        by_name = _device_ms_by_name(prof)
         for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
             print(f"   {ms:9.3f} ms  {k[:110]}", flush=True)
+        print("   idle: " + "; ".join(
+            f"{k[:50]} {ms:.3f} ms" for k, ms in idle[:8]), flush=True)
         host = sorted(prof.key_averages(),
                       key=lambda e: -e.self_cpu_time_total)[:6]
         print("   host: " + "; ".join(
