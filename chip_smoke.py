@@ -35,15 +35,18 @@ non-zero:
    also timed back to back (20 calls between two events);
 10. ``sort_pairs`` of 2^28 uniform uint32 keys with ``values = arange``:
     keys and values bit-identical to the stable reference, K1 x passes,
-    K2 x 1, no reference route and no fallback;
+    K2 x 1 on the key plane alone (no position plane), no reference route
+    and no fallback;
 11. ``unstable_sort_pairs`` at 2^28: keys exact, the values a permutation
     with keys_in[values_out] == keys_out;
 12. 2^27 uint64 keys; at 2^24 float64 descending with NaN and +-0
     planted, int64 keys with int64 values (unstable), argsort against
-    ``torch.sort(stable=True).indices``, unstable pairs with a block of
-    0xFFFFFFFF keys (the exact fallback); the single-tile path (through
-    K3) for keys at n = 16384 and n = 1000, and for unstable pairs at
-    n = 16384 and n = 15616 with a block of 0xFFFFFFFF keys;
+    ``torch.sort(stable=True).indices``, unstable and stable pairs with a
+    block of 16 0xFFFFFFFF keys (K1 and K2, no fallback) and of 128 (the
+    radix tier overflows; the equi-depth tier, then for unstable pairs the
+    exact fallback), exact against the stable reference; the single-tile
+    path (through K3) for keys at n = 16384 and n = 1000, and for unstable
+    pairs at n = 16384 and n = 15616 with a block of 0xFFFFFFFF keys;
 13. K1c (the general branch of ``partition_pass_fused``) vs its plain
     version, bit for bit on the counts and every valid slot, payloads
     included, on pass 0 and pass 1 of the general path's plans: the 2^28
@@ -1034,7 +1037,7 @@ def main() -> None:
     # ---- phase 10: sort_pairs at 2^28 ----------------------------------
     vals = torch.arange(MAIN_N, dtype=torch.int32, device=dev) \
         .view(torch.uint32)
-    pairs_main = plan_for(MAIN_N, 64, pcfg)
+    pairs_main = plan_for(MAIN_N, 32, pcfg)
     t0 = time.perf_counter()
     (ko, vo), pairs_counts, modes = drive(
         lambda: tpusort_torch.sort_pairs(x, vals))
@@ -1049,9 +1052,13 @@ def main() -> None:
                                k2_launches=1, radix_tiers=1, host_reads=2),
           f"sort_pairs did not run K1 x{len(pairs_main.passes)} + K2 "
           f"without overflow: {pairs_counts}")
-    launches["K1 composite+value"] = modes.get(("K1", 2, 1), 0)
-    launches["K2 composite+value"] = modes.get(("K2", 2, 1), 0)
-    log("phase 10 ok: 2^28 sort_pairs == stable reference, keys and values")
+    # the key plane alone: no composite (key, position) planes
+    check(modes == {("K1", 1, 1): len(pairs_main.passes), ("K2", 1, 1): 1},
+          f"sort_pairs did not run the one-plane key+value modes: {modes}")
+    launches["K1 key+value"] = modes[("K1", 1, 1)]
+    launches["K2 key+value"] = modes[("K2", 1, 1)]
+    log("phase 10 ok: 2^28 sort_pairs == stable reference, keys and values, "
+        "on the key plane alone")
     del ko, vo, wk, wv
 
     # ---- phase 11: unstable_sort_pairs at 2^28 -------------------------
@@ -1067,8 +1074,9 @@ def main() -> None:
           and unstable_counts["overflow_fallbacks"] == 0
           and unstable_counts["reference_routes"] == 0,
           f"unstable pairs did not run the kernels: {unstable_counts}")
-    launches["K1 key+value"] = modes.get(("K1", 1, 1), 0)
-    launches["K2 key+value"] = modes.get(("K2", 1, 1), 0)
+    check(modes == {("K1", 1, 1): len(pairs_main.passes), ("K2", 1, 1): 1},
+          f"unstable pairs did not run the one-plane key+value modes: "
+          f"{modes}")
     log(f"phase 11 ok: 2^28 unstable_sort_pairs: keys exact, values a "
         f"permutation ({unstable_counts})")
     del ko, vo
@@ -1128,18 +1136,54 @@ def main() -> None:
           "argsort differs from torch.sort(stable=True).indices")
     log("phase 12 ok: argsort at 2^24 == torch.sort(stable=True).indices")
     ff = random_i32(SMALL_N)
-    ff[5_000_000:5_000_128] = -1
+    # equal keys share a run: a block of 16 fits the 2^24 plan's last runs
+    # of 256 beside their uniform keys (128 overflowed them)
+    ff[5_000_000:5_000_016] = -1
     ffv = torch.arange(SMALL_N, dtype=torch.int32, device=dev)
-    msd.reset_counters()
-    ko, vo = tpusort_torch.unstable_sort_pairs(ff.view(torch.uint32), ffv)
-    c = msd.counters()
-    check(c["overflow_fallbacks"] == 1,
-          f"0xFFFFFFFF pairs did not take the fallback: {c}")
-    wk, (wv,) = reference_sort(ff.view(torch.uint32), (ffv,))
-    check(same_bits(ko, wk) and same_bits(vo, wv),
-          "0xFFFFFFFF pairs: the fallback is not exact")
-    log("phase 12 ok: unstable pairs with 0xFFFFFFFF keys took the exact "
-        "fallback")
+    # an invalid slot ranks after a valid all-ones key, so neither takes
+    # the fallback
+    for name, fn in (("unstable", tpusort_torch.unstable_sort_pairs),
+                     ("stable", tpusort_torch.sort_pairs)):
+        msd.reset_counters()
+        ko, vo = fn(ff.view(torch.uint32), ffv)
+        c = msd.counters()
+        check(c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0
+              and c["equidepth_runs"] == 0 and c["k2_launches"] == 1,
+              f"0xFFFFFFFF {name} pairs did not run the kernels alone: {c}")
+        wk, (wv,) = reference_sort(ff.view(torch.uint32), (ffv,))
+        check(same_bits(ko, wk), f"0xFFFFFFFF {name} pairs: keys differ")
+        if name == "stable":
+            check(same_bits(vo, wv), "0xFFFFFFFF stable pairs: values "
+                  "differ from the stable reference")
+        else:
+            check(same_bits(torch.sort(vo).values, ffv)
+                  and same_bits(ff[vo.long()], ko.view(torch.int32)),
+                  "0xFFFFFFFF unstable pairs: values are not the keys' own")
+    log("phase 12 ok: unstable and stable pairs with 0xFFFFFFFF keys ran "
+        "K1 and K2 with no fallback, exact")
+    # a block of 128 equal keys (of any value) overflows those runs: the
+    # radix tier hands the call to the equi-depth tier, whose sentinel
+    # check sends unstable pairs with an all-ones key on to the exact
+    # sort; stable pairs finish there, on the composite (key, position)
+    # planes
+    ff[5_000_000:5_000_128] = -1
+    for name, fn, fallbacks in (
+            ("unstable", tpusort_torch.unstable_sort_pairs, 1),
+            ("stable", tpusort_torch.sort_pairs, 0)):
+        msd.reset_counters()
+        ko, vo = fn(ff.view(torch.uint32), ffv)
+        c = msd.counters()
+        check(c["equidepth_runs"] == 1
+              and c["overflow_fallbacks"] == fallbacks
+              and c["reference_routes"] == 0,
+              f"128 0xFFFFFFFF keys, {name} pairs: not the equi-depth tier "
+              f"and {fallbacks} fallback: {c}")
+        wk, (wv,) = reference_sort(ff.view(torch.uint32), (ffv,))
+        check(same_bits(ko, wk) and same_bits(vo, wv),
+              f"128 0xFFFFFFFF keys, {name} pairs: keys or values differ "
+              "from the stable reference")
+        log(f"phase 12 ok: {name} pairs with 128 0xFFFFFFFF keys took the "
+            f"equi-depth tier and {fallbacks} exact fallback, exact ({c})")
     del ff, ffv, ko, vo, wk, wv
     for n in (16384, 1000):
         s = random_i32(n).view(torch.uint32)
@@ -1321,7 +1365,7 @@ def main() -> None:
     launches["K2 3 planes+3 values"] = modes.get(("K2", 3, 3), 0)
     log("phase 16 ok: int64 argsort at 2^24 == torch.sort(stable=True)")
     lk, lv = random_i32(SMALL_N), unique_i32(SMALL_N)
-    (ko, vo), c, _ = drive(
+    (ko, vo), c, modes = drive(
         lambda: tpusort_torch.sort_pairs_lsb_in_value(lk, lv, 2))
     comp = (lk.long() << 16) | (lv.long() & 0xFFFF)
     check(same_bits(ko, lk[torch.sort(comp).indices])
@@ -1335,6 +1379,12 @@ def main() -> None:
     check(c["k1_launches"] >= 2 and c["k2_launches"] == 1
           and c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0,
           f"sort_pairs_lsb_in_value did not run K1 and K2: {c}")
+    # the one path left on the composite + value modes (phases 7 and 8
+    # compare them at the 2^28 pairs plan, where no path runs them now)
+    for kid in ("K1", "K2"):
+        notes[f"{kid} composite+value"] = (
+            "no path at this shape: 0 launches; sort_pairs_lsb_in_value at "
+            f"2^24 launches it x{modes.get((kid, 2, 1), 0)}")
     del lk, lv, ko, vo, comp, order, src
     log("phase 16 ok: sort_pairs_lsb_in_value (2 bytes) at 2^24 through K1 "
         "and K2")

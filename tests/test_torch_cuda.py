@@ -312,6 +312,33 @@ def test_pair_and_64bit_sorts_on_card(gen, call):
     assert c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0
 
 
+def test_stable_pairs_with_all_ones_keys_at_2p28(gen):
+    """Stable ``sort_pairs`` of 2^28 uniform keys with a block of 16
+    0xFFFFFFFF keys and one in every 1,000,003, values 0..n-1: the key
+    plane alone through K1 and K2 (no position plane), no fallback, and
+    keys and values equal to ``torch.sort(stable=True)``.  (Equal keys
+    share a run, so a block must fit beside the uniform keys of its digit
+    in a last-pass run, about 341 of 512; and a stride that the planner's
+    sample stride of 4,096 divides puts every all-ones key in the sample,
+    which then predicts a million of them and starts at the next tier.)"""
+    n = 1 << 28
+    x = _rand(gen, n)
+    x[(1 << 27) + 12345:(1 << 27) + 12345 + 16] = -1
+    x[977::1000003] = -1
+    vals = torch.arange(n, dtype=torch.int32, device="cuda")
+    tm.reset_counters()
+    ko, vo = tpusort_torch.sort_pairs(x.view(torch.uint32), vals)
+    c, modes = tm.counters(), tm.mode_counters()
+    assert c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0
+    assert c["equidepth_runs"] == 0
+    assert set(modes) == {("K1", 1, 1), ("K2", 1, 1)}, modes
+    want = torch.sort(x.to(torch.int64) & 0xFFFFFFFF, stable=True)
+    del x
+    assert torch.equal(vo.to(torch.int64), want.indices)
+    assert torch.equal(ko.view(torch.int32),
+                       want.values.to(torch.int32))
+
+
 @pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.float32])
 @pytest.mark.parametrize("descending", [False, True])
 def test_sort_on_card(gen, dtype, descending):
@@ -743,10 +770,24 @@ def test_prefix_sum_f32_reproducible_and_modelled(gen):
     assert ex.tobytes() == k5_model(x.cpu().numpy(), exclusive=True).tobytes()
 
 
+def _pads_before_ones(planes, cin, q):
+    """Make the last q-chunk of every tile all-ones in every plane and
+    wholly valid, and leave pads in the first: the pads then lie at lower
+    slots than valid all-ones keys, which they tie but for the slot index
+    (0xFFFF on a pad), so they must still sort after them."""
+    if cin.shape[1] < 2:
+        return
+    for p in planes:
+        p[:, -q:] = -1
+    cin[:, -1] = q
+    cin[:, 0] = q // 2
+
+
 def _k1_edge_inputs(gen, T, K, nk, nv, run):
     """Key planes of 16 distinct words with a block of all-ones, payloads,
     and, with ``run``, a counts table of q = run whose chunks' valid
-    prefixes are sorted (what an earlier pass leaves)."""
+    prefixes are sorted (what an earlier pass leaves), with pads ahead of
+    a chunk of valid all-ones keys."""
     planes = [(torch.randint(0, 16, (T, K), device="cuda", generator=gen)
                .to(torch.int32) * 0x10EF0F01) for _ in range(nk)]
     planes[0][:, K // 4: K // 4 + K // 8] = -1
@@ -755,6 +796,7 @@ def _k1_edge_inputs(gen, T, K, nk, nv, run):
         return planes, vals, None
     cin = torch.randint(0, run + 1, (T, K // run), dtype=torch.int32,
                         device="cuda", generator=gen)
+    _pads_before_ones(planes, cin, run)
     planes, vals = _lex_chunks(planes, vals, run, cin)
     return planes, vals, cin
 
@@ -766,7 +808,8 @@ def test_partition_k1_edges(gen, K, nk, nv):
     """K1 on the register network against its plain version, bit for bit on
     the counts and every valid slot, payloads included (ties keep their
     slot order in both): every sorted_run from none through 128 .. K (the
-    emit-only mode), keys with ties and a block of 0xFFFFFFFF."""
+    emit-only mode), keys with ties and a block of 0xFFFFFFFF, and (below
+    K) pads ahead of valid all-ones keys, which sort after them in both."""
     T, R = 4, 16
     S = max(128, (3 * K // (2 * R)) // 128 * 128)
     for run in [None] + [1 << lr for lr in range(7, K.bit_length())]:
@@ -790,7 +833,9 @@ def test_partition_k1_edges(gen, K, nk, nv):
 def test_partition_k1b_zipf_edges(gen, K, nk, nv):
     """K1b against its plain version on Zipf 1.1 keys cut at the keys' own
     quantiles (the same splitters in every tile, random tie fractions),
-    with and without a sorted_run: counts bit for bit, every valid slot."""
+    with and without a sorted_run: counts bit for bit, every valid slot.
+    With the sorted_run the counts table leaves pads ahead of a chunk of
+    valid all-ones keys."""
     T, R = 4, 16
     S = max(128, (3 * K // (2 * R)) // 128 * 128)
     rng = np.random.default_rng(K + nk)
@@ -812,7 +857,9 @@ def test_partition_k1b_zipf_edges(gen, K, nk, nv):
             cin = torch.randint(run // 2, run + 1, (T, K // run),
                                 dtype=torch.int32, device="cuda",
                                 generator=gen)
-            kp, kv = _lex_chunks(planes, vals, run, cin)
+            kp = [p.clone() for p in planes]
+            _pads_before_ones(kp, cin, run)
+            kp, kv = _lex_chunks(kp, vals, run, cin)
             kw.update(q_in=run, n=None)
         got, counts = tp.partition_pass_fused(
             kp, kv, cin, sorted_run=run, unstable=True, splitters=words,
@@ -1071,8 +1118,10 @@ def test_leaf_collapse_edges(gen, nk, log_p, pad):
     and P - 128 at every P the shared memory takes, every sorted_run from
     none through 128 .. K, 0, 1 and 8 payloads in turn, keys with ties and
     a block of 0xFFFFFFFF, a tile with no valid slot, n_out cutting the
-    last tiles, and dense outputs at offsets that are not 16-byte aligned
-    (the offsets are the cumsum of ragged counts)."""
+    last tiles, dense outputs at offsets that are not 16-byte aligned
+    (the offsets are the cumsum of ragged counts), and a tile whose pads
+    lie ahead of a chunk of valid all-ones keys (where K holds two
+    chunks), which sort after them in both."""
     P = 1 << log_p
     K = P - pad
     T = 5
@@ -1087,6 +1136,8 @@ def test_leaf_collapse_edges(gen, nk, log_p, pad):
                                device="cuda", generator=gen)
         counts[1] = 0                          # a tile with no valid slot
         counts[2, 0] = q - 3                   # offsets off 16 bytes
+        tile3 = [p[3:4] for p in planes]       # views: written in place
+        _pads_before_ones(tile3, counts[3:4], q)
         if run:
             planes, vals = _lex_chunks(planes, vals, q, counts)
         total = int(counts.sum())

@@ -1,6 +1,6 @@
 """The port's MSD engine against ``tpusort.ops.msd``: the same plans, and
 the same passes, counts chain and leaf output on one small keys-only slice
-and one composite stable-pairs slice run in Pallas interpret mode.  Inputs
+and one stable-pairs slice run in Pallas interpret mode.  Inputs
 are numpy arrays from a seed; keys compare bit for bit, and stable payloads
 exactly.
 """
@@ -263,9 +263,10 @@ def test_single_tile_route_below_min_n(n, nv, stable, k3):
 
 
 def test_composite_pairs_slice_matches_pallas():
-    """Stable 32-bit pairs at n = 6000 under SMALL: the composite
-    (key, position) planes through K1 and K2 in both packages (JAX in
-    Pallas interpret mode, flag mode), keys and values exact."""
+    """Stable 32-bit pairs at n = 6000 under SMALL through K1 and K2 in
+    both packages (JAX in Pallas interpret mode, flag mode, on the
+    composite (key, position) planes; the port on the key plane alone,
+    its ties kept in slot order), keys and values exact."""
     n = 6000
     rng = np.random.default_rng(31)
     # 2048 distinct keys spread over the top bits, each ~3 times: ties

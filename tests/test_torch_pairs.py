@@ -59,7 +59,7 @@ def test_plans_two_passes():
 
 @pytest.mark.parametrize("level", LEVELS)
 def test_sort_pairs_entropy_ladder(level):
-    """Stable pairs (composite (key, position) planes), ascending and
+    """Stable pairs (the raw key plane, ties in slot order), ascending and
     descending, and unstable pairs (raw key + payload), uint32 keys."""
     x = _keys(level, np.uint32)
     v = enumerated_values(N)
@@ -100,7 +100,7 @@ def test_sort64_entropy_ladder(level, dtype):
 @pytest.mark.parametrize("level", [1, 3, 6, 0])
 def test_sort64_pairs(level):
     """int64 keys with int64 values, unstable (2 key planes + 2 words),
-    and uint32 keys with float64 values, stable (composite + 2 words)."""
+    and uint32 keys with float64 values, stable (key + 2 words)."""
     x = _keys(level, np.int64)
     v = enumerated_values(N, np.int64)
     ko, vo = tpusort_torch.unstable_sort_pairs(_t(x), _t(v))
@@ -192,17 +192,19 @@ def test_sort64_matches_jax_engine(level):
 
 
 def test_sentinel_keys_take_the_fallback():
-    """Unstable pairs whose keys include 0xFFFFFFFF tie the invalid-slot
-    sentinel: the engine must fall back, and the output stays exact."""
+    """Pairs whose keys include 0xFFFFFFFF, the invalid slots' key: an
+    invalid slot ranks after a valid all-ones key in K1 and K2, so neither
+    unstable nor stable pairs take the fallback, and the output is
+    exact."""
     x = random_keys(np.random.default_rng(9), N)
     x[1000::20000] = 0xFFFFFFFF          # 15 of them, spread over the tiles
     v = enumerated_values(N)
     tm.reset_counters()
     ko, vo = tpusort_torch.unstable_sort_pairs(_t(x), _t(v))
-    assert tm.counters()["overflow_fallbacks"] == 1
+    assert tm.counters()["overflow_fallbacks"] == 0
     _assert_unstable_pairs(x, ko.numpy(), vo.numpy())
-    # the composite position plane never ties it: stable pairs run through
     tm.reset_counters()
     ko, vo = tpusort_torch.sort_pairs(_t(x), _t(v))
     assert tm.counters()["overflow_fallbacks"] == 0
+    np.testing.assert_array_equal(ko.numpy(), np.sort(x))
     np.testing.assert_array_equal(vo.numpy(), np.argsort(x, kind="stable"))

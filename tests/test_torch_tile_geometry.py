@@ -406,12 +406,14 @@ def _k1_epilogue_model(planes, values, counts_in, q_in, n, r, s, t_seg,
         else:
             valid = slot % q_in < np.repeat(counts_in[t], q_in)
         keys = [np.where(valid, p[t], np.uint32(0xFFFFFFFF)) for p in planes]
-        order = np.lexsort([slot, *keys[::-1]])       # stable, plane 0 first
+        # the slot index: the slot where valid, 0xFFFF (kPadIndex) where not
+        index = np.where(valid, slot, 0xFFFF)
+        order = np.lexsort([index, *keys[::-1]])      # stable, plane 0 first
         word = [np.empty(K, dtype=np.uint32) for _ in range(nk)]
         idx = np.empty(K, dtype=np.int64)
         for p in range(nk):
             word[p][sw] = keys[p][order]
-        idx[sw] = order
+        idx[sw] = index[order]
         n_valid = int(valid.sum())
 
         def key_at(pos):
@@ -619,7 +621,9 @@ def _k2_model(planes, values, counts, q, n_out, log_run, base_word=0):
         keys = [np.where(valid, np.concatenate(
             [p_[t], np.zeros(P - K, np.uint32)]), np.uint32(0xFFFFFFFF))
             .astype(np.int64) for p_ in planes]
-        order = np.lexsort([slot, *keys[::-1]] if nv else keys[::-1])
+        # the slot index: the slot where valid, 0xFFFF (kPadIndex) where not
+        index = np.where(valid, slot, 0xFFFF)
+        order = np.lexsort([index, *keys[::-1]] if nv else keys[::-1])
         rank = np.empty(P, dtype=np.int64)
         rank[order] = np.arange(P)
         if not nv:                  # keys alone: equal keys share a rank
@@ -638,7 +642,8 @@ def _k2_model(planes, values, counts, q, n_out, log_run, base_word=0):
                 for p_ in range(nk):
                     outs[p_][off + j] = keys[p_][src]
                 for v in range(nv):            # the staged payload tile
-                    outs[nk + v][off + j] = values[v][t][min(src, K - 1)]
+                    outs[nk + v][off + j] = \
+                        values[v][t][min(index[src], K - 1)]
                 written[off + j] += 1
     assert (written <= 1).all()
     return outs

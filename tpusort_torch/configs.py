@@ -68,8 +68,8 @@ register_config(32, False, "cuda", SortConfig(tile_elems=1 << 14, radix=32,
 # Pairs and 64-bit keys: the kernels hold every key plane in shared memory
 # (4 bytes a slot each) plus a 2-byte slot index when payloads ride, so the
 # leaf must stay at 16,384 slots once a second plane appears (2 planes:
-# 160 KB; 3 planes: 224 KB).  Stable 32-bit pairs sort the composite
-# (key, position) planes under the (32, True) row, and argsort the
+# 160 KB; 3 planes: 224 KB).  Stable 32-bit pairs sort the key plane
+# with the value words under the (32, True) row, and argsort the
 # (key, index) planes under (64, False).  At 2^28 each plans the same
 # 3 passes as above with 12,288-key final segments.
 _CUDA_MULTI = SortConfig(tile_elems=1 << 14, radix=32, leaf_max=1 << 14,

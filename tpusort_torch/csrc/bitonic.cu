@@ -11,13 +11,15 @@
 //
 //   1. load_row: slot i is valid iff i % q < counts[t, i / q]; invalid and
 //      pad slots become 0xFFFFFFFF in every key plane; with payloads a
-//      16-bit slot index rides under the last plane;
+//      16-bit slot index rides under the last plane, 0xFFFF on invalid and
+//      pad slots (reg_sort.cuh:kPadIndex);
 //   2. reg_block_sort merges the tile from its ascending runs of
 //      sorted_run slots (the last pass's emitted runs), or sorts it whole
 //      when sorted_run is 0, lexicographically over the planes; with
 //      payloads equal keys compare by slot index, so the order is the
-//      stable one (the plain version's), and a pad slot never reaches the
-//      valid prefix;
+//      stable one (the plain version's), and an invalid or pad slot sorts
+//      after every valid slot, a valid all-ones key included, so it never
+//      reaches the valid prefix;
 //   3. the dense epilogue: the first c_t = offsets[t+1] - offsets[t] slots
 //      (the valid prefix), bounded by K and by n_out, go to
 //      out[offsets[t] + i]: key planes from the swizzled tile, each payload

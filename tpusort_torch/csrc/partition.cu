@@ -13,8 +13,9 @@
 //      into shared memory; a slot is valid iff its global index < n
 //      (pass 0) or slot % q_in < counts_in[t, slot / q_in] (later passes);
 //      invalid slots become 0xFFFFFFFF in every plane, which sorts last and
-//      ties only equal keys, so the keys-only multiset stays exact (with
-//      payloads the engine checks that no valid key is all-ones);
+//      ties only equal keys, so the keys-only multiset stays exact; with
+//      payloads an invalid slot's index is 0xFFFF (reg_sort.cuh:kPadIndex),
+//      so it sorts after a valid all-ones key too and never enters a run;
 //   2. sort the tile ascending, lexicographically over the planes
 //      (reg_sort.cuh:reg_block_sort: the steps inside a thread's E slots in
 //      registers, inside a warp's 32 E on shuffles, only the longer ones in

@@ -32,8 +32,11 @@
 // A slot is an element of NK 32-bit key planes compared lexicographically,
 // plane 0 most significant, and (IDX) a 16-bit slot index that breaks ties:
 // in registers the last plane and the index are one 64-bit word,
-// (plane << 16) | index, so one unsigned compare orders them.  With the
-// index the order is total, so the result is the stable order.  In shared
+// (plane << 16) | index, so one unsigned compare orders them.  A valid
+// slot's index is its slot number, an invalid slot's kPadIndex (0xFFFF),
+// which no valid slot reaches: so the valid slots come out in the stable
+// order, and every invalid slot (all-ones in every plane) after every
+// valid one, a valid all-ones key included.  In shared
 // memory a slot is NK words and a uint16 index, at the word
 // s ^ ((s >> 5) & 31): each 32-slot group is permuted by its group number,
 // which makes the blocked reads and writes of E = 4-32 consecutive slots a
@@ -52,6 +55,14 @@ namespace tpusort {
 
 // The shared-memory word of slot s (a permutation of each 32-slot group).
 __device__ __forceinline__ int swz(int s) { return s ^ ((s >> 5) & 31); }
+
+// The index of an invalid slot.  A valid index is a slot number below P,
+// and P * (4 + 2) bytes (the smallest tile with the index) fits a CTA only
+// for P < kPadIndex, so no valid slot ties an invalid one.
+constexpr uint16_t kPadIndex = 0xFFFF;
+static_assert((size_t)kPadIndex * (sizeof(uint32_t) + sizeof(uint16_t)) >
+                  (size_t)kMaxSmem,
+              "a tile with the slot index must hold fewer than 0xFFFF slots");
 
 template <int NK, bool IDX>
 struct RegElem {
@@ -146,12 +157,13 @@ struct RegTile {
     }
   }
 
-  // slot s from its NK words (the index is s)
-  __device__ __forceinline__ void set(int s, const uint32_t (&w)[NK]) const {
+  // slot s from its NK words (the index is s if valid, else kPadIndex)
+  __device__ __forceinline__ void set(int s, const uint32_t (&w)[NK],
+                                      bool valid) const {
     const int a = swz(s);
 #pragma unroll
     for (int p = 0; p < NK; ++p) key[p][a] = w[p];
-    if (IDX) idx[a] = (uint16_t)s;
+    if (IDX) idx[a] = valid ? (uint16_t)s : kPadIndex;
   }
 };
 
@@ -330,19 +342,21 @@ __device__ void reg_block_sort(const RegTile<NK, IDX>& t, int log_p,
 // ---- loading and storing a row -----------------------------------------
 
 // Slots [0, P) of the tile (P = blockDim.x * E * chunks) from the row's NK
-// input planes at src[p] + first: slot i < K with valid(i) its words, any
-// other slot all-ones in every plane; the index of slot i is i.  16-byte
+// input planes at src[p] + first: slot i < K with valid(i) its words and
+// the index i, any other slot all-ones in every plane and the index
+// kPadIndex, so that it sorts after every valid slot.  16-byte
 // loads where every plane's row start is 16-byte aligned (K is a multiple
 // of 128, so the row start is aligned when the base is), else 4-byte ones;
-// a thread issues a batch of loads (16 words over its planes, or 16 / 2^
-// (NK - 1) scalars) before it stores any of them.  Does not synchronise.
-template <int E, int NK, bool IDX, class Valid>
+// a thread issues a batch of loads (Fly words over its planes, or Fly /
+// 2^(NK - 1) scalars) before it stores any of them.  Does not synchronise.
+template <int E, int Fly = 16, int NK, bool IDX, class Valid>
 __device__ void load_row(const RegTile<NK, IDX>& t,
                          const uint32_t* const* src, size_t first, int K,
                          int chunks, Valid valid) {
   constexpr int kV = E / 4;                  // vectors a thread a chunk
-  constexpr int kVB = kV < (4 >> (NK - 1)) ? kV : (4 >> (NK - 1));
-  constexpr int kSB = E < (16 >> (NK - 1)) ? E : (16 >> (NK - 1));
+  constexpr int kFlyV = (Fly / 4) >> (NK - 1);
+  constexpr int kVB = kV < kFlyV ? kV : kFlyV;
+  constexpr int kSB = E < (Fly >> (NK - 1)) ? E : (Fly >> (NK - 1));
   const int nt = blockDim.x;
   bool vec = true;
 #pragma unroll
@@ -371,7 +385,7 @@ __device__ void load_row(const RegTile<NK, IDX>& t,
           uint32_t s[NK];
 #pragma unroll
           for (int p = 0; p < NK; ++p) s[p] = ok ? word(q[p][k], kk) : kSentinel;
-          t.set(i + kk, s);
+          t.set(i + kk, s, ok);
         }
       }
     }
@@ -393,7 +407,7 @@ __device__ void load_row(const RegTile<NK, IDX>& t,
         uint32_t s[NK];
 #pragma unroll
         for (int p = 0; p < NK; ++p) s[p] = ok ? w[p][k] : kSentinel;
-        t.set(i, s);
+        t.set(i, s, ok);
       }
     }
   }

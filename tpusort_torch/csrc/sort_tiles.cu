@@ -14,8 +14,8 @@
 //      within a thread's E slots in registers, within a warp's 32 E slots
 //      on shuffles, only the longer ones in shared memory); with payloads
 //      equal keys compare by slot index, so the order is the stable one
-//      and a pad slot (index >= K) sorts after every genuine 0xFFFFFFFF key
-//      and never lands inside [0, K);
+//      and a pad slot (index 0xFFFF, reg_sort.cuh:kPadIndex) sorts after
+//      every genuine 0xFFFFFFFF key and never lands inside [0, K);
 //   3. write slots [0, K) of the keys; then each payload word: the row's
 //      K words staged in shared memory (over the keys, now written),
 //      gathered from there by the index and stored coalesced.  The payloads
@@ -38,7 +38,8 @@
 // a (T, K / q) counts table (slot i valid iff i % q < counts[t, i / q]; K9)
 // or from a (T, K) byte mask (K10).  Invalid and pad slots become
 // 0xFFFFFFFF in every key plane, the P slots are sorted lexicographically
-// over the planes, ties by slot index (merged from ascending runs of
+// over the planes, ties by slot index, an invalid slot's 0xFFFF (so it
+// sorts after a valid all-ones key; merged from ascending runs of
 // sorted_run slots where the caller says so; the index keeps a run
 // ascending), and all K slots are written back: the valid keys sorted at
 // the head, all-ones behind them.  Payload words are gathered by the
@@ -95,14 +96,19 @@ sort_tiles_valid_kernel(Planes planes, Values vals,
   const int P = 1 << log_p;
   const RegTile<NK, IDX> tile(smem, P);
   const size_t first = (size_t)blockIdx.x * K;
+  // one plane with the index at E = 16 fills a thread's 64 registers
+  // (slot_words == kRegWords): there 16 words of loads in flight, beside
+  // the pad index's select, spill, and 8 do not
+  constexpr int kFly =
+      NK == 1 && IDX && slot_words(NK, IDX, E) == kRegWords ? 8 : 16;
   if (counts != nullptr) {
     const int32_t* cnt = counts + (size_t)blockIdx.x * (K / q);
-    load_row<E>(tile, planes.in, first, K, chunks,
-                [=](int i) { return (i % q) < cnt[i / q]; });
+    load_row<E, kFly>(tile, planes.in, first, K, chunks,
+                      [=](int i) { return (i % q) < cnt[i / q]; });
   } else {
     const uint8_t* m = mask + first;
-    load_row<E>(tile, planes.in, first, K, chunks,
-                [=](int i) { return m[i] != 0; });
+    load_row<E, kFly>(tile, planes.in, first, K, chunks,
+                      [=](int i) { return m[i] != 0; });
   }
   __syncthreads();
   reg_block_sort<E>(tile, log_p, log_run, chunks);

@@ -25,7 +25,7 @@ import torch
 
 from tpusort_torch.kernels import _build
 from tpusort_torch.kernels.partition import (
-    MAX_TILE, SMEM_MAX, _valid, check_fits, tile_smem_bytes)
+    MAX_TILE, SMEM_MAX, _valid, check_fits, sort_valid_rows, tile_smem_bytes)
 from tpusort_torch.ops.reference import sort_rows_lex
 
 LANES = 128
@@ -119,8 +119,7 @@ def sort_tiles_counts_collapsed_plain(
     prefixes concatenated in tile order into (n_out,) per operand.  Slots
     past the total valid count are zero."""
     valid = _valid(ops[0], counts, q, None)
-    sp, sv = sort_rows_lex([torch.where(valid, p, -1)
-                            for p in ops[:num_keys]], ops[num_keys:])
+    sp, sv = sort_valid_rows(ops[:num_keys], ops[num_keys:], valid)
     K = ops[0].shape[1]
     tile_counts = counts.sum(dim=1)
     keep = torch.arange(K, device=ops[0].device)[None, :] < \
@@ -179,8 +178,9 @@ def sort_tiles_counts_collapsed(
     ``num_keys`` operands are key planes (plane 0 most significant); the
     rest are payload words that ride along.  The contract allows any order
     of equal keys; in both versions ties keep slot order (the kernel
-    compares equal keys by slot index), so a valid all-ones key ties the
-    invalid slots in slot order too.  ``sorted_run``: the tile already
+    compares equal keys by slot index), and an invalid slot sorts after
+    every valid one, a valid all-ones key included, so each tile's valid
+    prefix holds its valid slots alone.  ``sorted_run``: the tile already
     consists of ascending runs of that power-of-two length once invalid
     slots are rewritten.
 
@@ -274,10 +274,8 @@ sort_tiles.modes = collections.Counter()
 
 def _sort_valid_plain(ops: Sequence[torch.Tensor], valid: torch.Tensor,
                       num_keys: int) -> list:
-    """Each row sorted by its key planes with the invalid slots' planes
-    rewritten to all-ones, payloads carried along, stably."""
-    sp, sv = sort_rows_lex([torch.where(valid, p, -1)
-                            for p in ops[:num_keys]], ops[num_keys:])
+    """Each row sorted as :func:`sort_valid_rows` sorts it."""
+    sp, sv = sort_valid_rows(ops[:num_keys], ops[num_keys:], valid)
     return [*sp, *sv]
 
 
@@ -350,11 +348,12 @@ def sort_tiles_counts(
     The first ``num_keys`` operands are key planes (plane 0 most
     significant, compared as unsigned words), the rest payload words that
     ride along (the contract allows any order of equal keys; both versions
-    keep their input order).  Each tile comes back whole: its valid elements sorted
-    at the head, every key plane 0xFFFFFFFF behind them (a valid all-ones
-    key ties the invalid slots); the payloads behind the valid prefix are
-    unspecified.  K is a multiple of 128 and is padded virtually to a
-    power of two.  ``sorted_run``: the tile already consists of ascending
+    keep their input order).  Each tile comes back whole: its valid
+    elements sorted at the head, every key plane 0xFFFFFFFF behind them
+    (an invalid slot sorts after a valid all-ones key, so the head's
+    payloads are the valid slots' own); the payloads behind the valid
+    prefix are unspecified.  K is a multiple of 128 and is padded
+    virtually to a power of two.  ``sorted_run``: the tile already consists of ascending
     runs of that power-of-two length once invalid slots are rewritten (a
     hint: the result is the same without it).
 

@@ -4,10 +4,12 @@ general branches; K8: the tile partition by a caller's sortkey.
 PyTorch port of ``tpusort/kernels/partition.py:partition_pass_fused``:
 
 * the raw-key branch (K1) sorts each tile by 1-3 key planes, with payload
-  words that ride unstably; on a CUDA tensor it launches
+  words riding along; on a CUDA tensor it launches
   ``csrc/partition.cu`` (the register network of ``csrc/reg_sort.cuh``
-  per tile, laid out by ``kernels/bitonic.py:tile_sort_geometry``; ties
-  keep their slot order there, the contract allows any);
+  per tile, laid out by ``kernels/bitonic.py:tile_sort_geometry``).  With
+  payloads equal keys keep their slot order, by a slot index under the
+  last plane, and invalid slots sort after every valid one: the tile's
+  order is the stable one, in both versions;
 * its splitter mode (K1b, the equi-depth skew tier) sorts each tile the
   same way and cuts the runs at per-tile splitters instead of digit
   boundaries; on a CUDA tensor it launches the same kernel's splitter
@@ -100,6 +102,23 @@ def _valid(keys: torch.Tensor, counts_in: Optional[torch.Tensor],
     return sub[None, :] < counts_in.repeat_interleave(q_in, dim=1)
 
 
+def sort_valid_rows(planes: Sequence[torch.Tensor],
+                    values: Sequence[torch.Tensor], valid: torch.Tensor
+                    ) -> Tuple[Tuple[torch.Tensor, ...],
+                               Tuple[torch.Tensor, ...]]:
+    """Each (T, K) row sorted by its key planes with the invalid slots'
+    planes rewritten to all-ones, payloads carried along, stably: the tile
+    sort of the kernels with a validity source.  With payloads an invalid
+    slot sorts after every valid one, a valid all-ones key included (its
+    slot index in the kernels is 0xFFFF, ``csrc/reg_sort.cuh:kPadIndex``):
+    here by a least significant plane of the slot's invalidity."""
+    keys = [torch.where(valid, p, -1) for p in planes]
+    if not values:
+        return sort_rows_lex(keys)
+    sp, sv = sort_rows_lex([*keys, (~valid).to(torch.int32)], values)
+    return sp[:-1], sv
+
+
 def partition_pass_fused_plain(
     planes: Sequence[torch.Tensor],
     values: Sequence[torch.Tensor],
@@ -118,8 +137,7 @@ def partition_pass_fused_plain(
     a run's count hold unspecified words, as in the kernel; ties keep
     their input order (any order is legal)."""
     valid = _valid(planes[0], counts_in, q_in, n)
-    sp, sv = sort_rows_lex([torch.where(valid, p, -1) for p in planes],
-                           values)
+    sp, sv = sort_valid_rows(planes, values, valid)
     n_valid = valid.sum(dim=1, dtype=torch.int32)
     hist = _histogram(extract_bits(sp, lo_bit, width), r)
     start = torch.cumsum(hist, dim=1, dtype=torch.int32) - hist
@@ -179,8 +197,7 @@ def partition_pass_splitter_plain(
     exceeds S, gets count 0 = K + 1.  Returns (flat exchanged runs per
     operand, counts (T, R) int32)."""
     valid = _valid(planes[0], counts_in, q_in, n)
-    sp, sv = sort_rows_lex([torch.where(valid, p, -1) for p in planes],
-                           values)
+    sp, sv = sort_valid_rows(planes, values, valid)
     T, K = sp[0].shape
     dev = sp[0].device
     n_valid = valid.sum(dim=1)
@@ -476,7 +493,10 @@ def partition_pass_fused(
     ``unstable`` payloads take the raw-key branch (K1): each tile is sorted
     by the planes, invalid slots becoming 0xFFFFFFFF in every plane, and
     ``sorted_run`` says the tile already consists of ascending runs of that
-    power-of-two length (the kernel then only merges).  Stable payloads,
+    power-of-two length (the kernel then only merges).  The name is JAX's:
+    the branch is stable within a tile here (equal keys keep their slot
+    order, and an invalid slot sorts after a valid all-ones key), which
+    the engine's stable one-plane route relies on.  Stable payloads,
     a ``digit`` plane or more than 3 planes take the general branch (K1c):
     each tile is partitioned stably by its digit, invalid slots dropped,
     and every operand keeps its input order within a run; ``sorted_run`` is

@@ -5,14 +5,18 @@ PyTorch port of ``tpusort/ops/msd.py``.  The planning part (``PassSpec``,
 JAX module imports jax at module level.
 
 The raw-key path takes full-range keys only (1-3 planes), unstable pairs,
-and stable 32-bit pairs through the composite (key, position) planes; the
-general (digit, idx) path takes the rest: bit-range sorts, keys only or
-with payloads, and stable pairs of multi-plane keys.
+and stable pairs of one-plane keys; the general (digit, idx) path takes
+the rest: bit-range sorts, keys only or with payloads, and stable pairs
+of multi-plane keys.
 
 * each partition pass (``run_passes``) calls the fused partition kernel
   (``kernels.partition.partition_pass_fused``) once: on the raw path K1
   sorts every (T, K) tile by the raw key planes (invalid slots become
   0xFFFFFFFF); on the general path K1c partitions it stably by the digit.
+  With payloads K1 and K2 break ties by slot index and rank invalid slots
+  after every valid one, a valid all-ones key included, so the raw path
+  is stable on the contiguous feed: a pass lays run d of tile j at
+  [seg][d][j], so slot order is input order in every later tile.
   Either cuts R digit runs padded to S and writes them with their payloads
   straight into the digit-major exchanged layout of the next pass;
 * validity is never stored per element: each pass returns a (T, R) counts
@@ -23,10 +27,9 @@ with payloads, and stable pairs of multi-plane keys.
   sorts each segment stably by its remaining bits: a packed (segment,
   remainder, position) word on K3 followed by the collapse K4 where the
   word fits 32 bits, else K2 on the masked planes plus the position;
-* a run that overflows its capacity (count > S), or with raw-key payloads
-  a valid key equal to the all-ones sentinel, is caught on the device: the
-  flag is read on the host once, and the exact reference sort replaces the
-  result;
+* a run that overflows its capacity (count > S) is caught on the device:
+  the flag is read on the host once, and the exact reference sort
+  replaces the result;
 * inputs too small for a plan go to the single-tile path (K3,
   ``ops/small.py``) where it applies, and to the reference sort otherwise.
 
@@ -805,7 +808,7 @@ def sort_windows_msd(
     run), the later passes merge, and the raw leaf (K2, :func:`raw_leaf`)
     writes the dense (n,) result.  Keys only or unstable pairs; with
     payloads the caller checks for valid keys equal to the all-ones
-    sentinel, as on the raw path.  A tile of pass 0 is a slice of one
+    sentinel (the global sort does).  A tile of pass 0 is a slice of one
     window's sorted run, so a window of more than about one tile of keys
     crowds a few digits and overflows, as JAX's does.
 
@@ -868,16 +871,17 @@ def sort_twiddled_msd(
     ``tpusort.ops.msd.sort_twiddled_msd``).  Returns (sorted planes, sorted
     values); the planes come back whole, bits outside the range included.
 
-    Full-range keys only (1-3 planes) and unstable pairs (``stable=False``)
-    run K1 and K2 on the raw key planes.  Stable full-range 32-bit pairs
-    sort the composite (key, position) planes unstably, which is stable by
-    key.  Everything else, bit ranges and stable pairs of multi-plane keys,
-    takes the general path: K1c passes, which keep input order within a
-    digit, then :func:`_leaf_sort`; it is stable, keys only or not.
-    Delegates to the single-tile path or the reference sort below
+    Full-range keys only (1-3 planes), unstable pairs (``stable=False``)
+    and stable pairs of one-plane keys run K1 and K2 on the raw key
+    planes.  With payloads both compare equal keys by slot index and rank
+    an invalid slot after every valid one (a valid all-ones key included),
+    and slot order is input order on the contiguous feed, so the result
+    is the stable order.  Everything else, bit ranges and stable pairs of
+    multi-plane keys, takes the general path: K1c passes, which keep input
+    order within a digit, then :func:`_leaf_sort`; it is stable, keys only
+    or not.  Delegates to the single-tile path or the reference sort below
     ``config.min_n`` or when no plan exists.  Otherwise runs the passes and
-    the leaf; a run that overflowed, or a valid raw-key pair equal to the
-    all-ones sentinel, raises the overflow flag.
+    the leaf; a run that overflowed raises the overflow flag.
 
     ``on_overflow="fallback"`` (the default) reads the flag on the host once
     and, when it is set, takes the exact reference sort, or first the
@@ -898,7 +902,9 @@ def sort_twiddled_msd(
     out in strided tiles (:func:`strided_feed`), so that each tile mirrors
     the whole input: for inputs made of long ascending runs, whose
     contiguous tiles would each fall into a few digits and overflow.  The
-    global sort's finish sorts such inputs (the received runs).
+    global sort's finish sorts such inputs (the received runs).  The
+    strided tiles break input order, so stable pairs with it take the
+    general path.
     """
     if on_overflow not in ("fallback", "flag"):
         raise ValueError(f"on_overflow must be 'fallback' or 'flag', got "
@@ -908,17 +914,10 @@ def sort_twiddled_msd(
     full = begin_bit == 0 and end_bit == total_bits == 32 * nplanes
     n = planes[0].shape[0]
     dev = planes[0].device
-    if stable and values and nplanes == 1 and full:
-        # stable pairs via the composite 64-bit key (key, position): the
-        # position plane is unique, so the unstable 2-plane raw path is
-        # stable by key, and its sentinel pre-check never fires on it
-        gidx = torch.arange(n, dtype=torch.int32, device=dev)
-        res = sort_twiddled_msd(
-            (planes[0], gidx), values, begin_bit=0, end_bit=64,
-            total_bits=64, config=config, stable=False,
-            on_overflow=on_overflow)
-        return ((res[0][0],), *res[1:])
-    raw = full and nplanes <= MAX_PLANES and (not values or not stable)
+    # stable one-plane pairs: K1 and K2 keep slot order, which is input
+    # order on the contiguous feed (not the strided one)
+    raw = full and nplanes <= MAX_PLANES and (
+        not values or not stable or (nplanes == 1 and not strided))
     bits = dict(begin_bit=begin_bit, end_bit=end_bit, total_bits=total_bits)
     kwargs = config.plan_kwargs()
     min_n = kwargs.pop("min_n")
@@ -948,17 +947,8 @@ def sort_twiddled_msd(
         ops, nplanes, n, plan, unstable=raw and bool(values),
         general=not raw, init_chain=init)
     del ops
-    if not raw:
-        outs = _leaf_sort(data, nplanes, ctable, q_fin, plan, n)
-    else:
-        if values:
-            # raw-key pairs: a valid key equal to the invalid-slot sentinel
-            # would tie it and could swap payloads with a dropped pad slot
-            is_max = planes[0] == -1
-            for p in planes[1:]:
-                is_max &= p == -1
-            overflow |= is_max.any()
-        outs = raw_leaf(data, ctable, q_fin, plan, nplanes, n)
+    outs = (raw_leaf(data, ctable, q_fin, plan, nplanes, n) if raw
+            else _leaf_sort(data, nplanes, ctable, q_fin, plan, n))
     del data, ctable                     # free the pass buffers first
     if flag_mode:
         return tuple(outs[:nplanes]), tuple(outs[nplanes:]), overflow
