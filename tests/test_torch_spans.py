@@ -8,10 +8,13 @@ a call gives the same outputs and counts.  The tiered flow runs with a CPU
 config that turns the equi-depth tier on and a lowered
 ``planner.PLANNER_MIN_N``, so that these sizes take it; 2^18 keys with a
 sample of 2^18 make the equi-depth tier sort its sample on the radix
-engine and read that sort's flag, as the 2^28 calls on a card do.
+engine and read that sort's flag, as the 2^28 calls on a card do.  A
+64-bit key or value adds a ``tpusort.planes.split`` and a
+``tpusort.planes.join`` span; a 32-bit call has neither.
 """
 
 import importlib
+import logging
 
 import numpy as np
 import pytest
@@ -273,3 +276,54 @@ def test_nested_entries_nest_their_spans(tiered):
                                       API + "sort"]
     assert [_in_entry(e) for e in apis] == [False, True, False]
     assert _ancestor(apis[1]).name == API + "argsort"
+
+
+def _u64(n: int = 1 << 13) -> torch.Tensor:
+    x = np.random.default_rng(23).integers(0, 2**64, n, dtype=np.uint64)
+    return torch.from_numpy(x.view(np.int64)).view(torch.uint64)
+
+
+PLANES_CALLS = {
+    "u64+i64": lambda: tpusort_torch.sort_pairs(
+        _u64(), torch.arange(1 << 13, dtype=torch.int64)),
+    "u64": lambda: tpusort_torch.sort(_u64()),
+    "u32": lambda: tpusort_torch.sort(_keys("radix", 1 << 13)),
+    "u32+u32": lambda: CALLS["sort_pairs"](_keys("radix", 1 << 13)),
+}
+# the split and join spans of each call: one a 64-bit operand
+PLANES_SPANS = {"u64+i64": 2, "u64": 1, "u32": 0, "u32+u32": 0}
+
+
+@pytest.fixture
+def trace_log():
+    """The logger at TRACE (``TPUSORT_LOG=TRACE``), its messages kept."""
+    seen = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    handler, level = Keep(), tlog.logger.level
+    tlog.logger.addHandler(handler)
+    tlog.set_level("TRACE")
+    yield seen
+    tlog.logger.removeHandler(handler)
+    tlog.set_level(level)
+
+
+@pytest.mark.parametrize("call", sorted(PLANES_SPANS))
+def test_planes_spans_only_where_a_64_bit_operand_is(trace_log, call):
+    """``tpusort.planes.split`` under the entry and ``tpusort.planes.join``
+    under the tier that sorted, once for each 64-bit key or value, logged
+    at TRACE; a 32-bit call has neither."""
+    tapi._TIER_CACHE.clear()
+    _, events, _ = _profiled(PLANES_CALLS[call])
+    want = PLANES_SPANS[call]
+    for name, parent in (("tpusort.planes.split", API + "sort"),
+                         ("tpusort.planes.join", "tpusort.tier.radix")):
+        spans = [e for e in events if e.name == name]
+        assert len(spans) == want
+        assert all(_ancestor(e).name == parent for e in spans)
+        assert not any(e.is_user_annotation for e in spans)
+        assert len([m for m in trace_log if m.startswith(name + ":")]) == \
+            want

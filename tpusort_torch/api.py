@@ -13,9 +13,9 @@ takes the config's ``default_algorithm``, and the radix names in
 ``_TIERED_ALGOS`` run the host tiering below; any other name calls that
 engine once on the twiddled planes.
 
-64-bit keys and values are split into (hi, lo) int32 planes with views on
-the device (``dtypes.split64``) and joined back the same way: the same
-words the JAX package's numpy host boundary makes, without the round trip.
+64-bit keys and values are split into (hi, lo) int32 planes by copies on
+the device (``dtypes.split64``) and joined back by a stack: the same words
+the JAX package's numpy host boundary makes, without the round trip.
 
 ``sort`` and ``sort_planes`` (and ``argsort`` through it) run the JAX
 API's host tiering (``tpusort/api.py:203-486``): a tier chain, radix ->

@@ -12,10 +12,16 @@ Descending order complements the twiddled bits, so every kernel below sorts
 ascending.
 
 A 64-bit key becomes two planes, (hi, lo), plane 0 the most significant
-word, compared lexicographically; the split and the join are views on the
-device.  Each 32-bit plane is carried as a ``torch.int32`` tensor holding
-the bit pattern (PyTorch's CPU ``uint32`` lacks shifts, comparisons and
-``where``).
+word, compared lexicographically; a 64-bit value becomes two words alike.
+The split makes each word a contiguous copy, and the join stacks the two
+back: plain PyTorch copies on the device, inside the host spans
+``tpusort.planes.split`` and ``tpusort.planes.join``.  Each copy's
+elements read and written, from the tensors' sizes, are counted in
+``split_join_bytes`` (``ops.msd.counters()``): 16 bytes a key for each
+split and each join of a 64-bit operand.  No span or count is made where
+no 64-bit operand is.  Each 32-bit plane is carried as a ``torch.int32``
+tensor holding the bit pattern (PyTorch's CPU ``uint32`` lacks shifts,
+comparisons and ``where``).
 Code that needs the unsigned order compares planes widened to int64
 (``x.to(torch.int64) & 0xFFFFFFFF``) or with the sign bit flipped.
 """
@@ -26,6 +32,8 @@ from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 import torch
+
+from tpusort_torch.utils.log import count, span
 
 __all__ = [
     "KeyTraits",
@@ -43,6 +51,8 @@ __all__ = [
 ]
 
 INT32_MIN = -(1 << 31)       # the bit pattern 0x80000000 as an int32
+SPLIT = "tpusort.planes.split"
+JOIN = "tpusort.planes.join"
 
 
 @dataclass(frozen=True)
@@ -110,14 +120,22 @@ def split64(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         empty = torch.empty(0, dtype=torch.int32, device=keys.device)
         return empty, empty.clone()
     words = keys.contiguous().view(torch.int32).reshape(-1, 2)
-    return words[:, 1].contiguous(), words[:, 0].contiguous()
+    with span(SPLIT):
+        hi, lo = words[:, 1].contiguous(), words[:, 0].contiguous()
+    # two strided copies, each reading its words and writing them
+    count("split_join_bytes", 2 * (hi.nbytes + lo.nbytes))
+    return hi, lo
 
 
 def join64(hi: torch.Tensor, lo: torch.Tensor,
            dtype: torch.dtype = torch.uint64) -> torch.Tensor:
     """Inverse of :func:`split64`: a 1-D tensor of the 64-bit ``dtype``."""
-    return torch.stack((lo.view(torch.int32), hi.view(torch.int32)),
-                       dim=1).view(torch.int64).reshape(-1).view(dtype)
+    with span(JOIN):
+        out = torch.stack((lo.view(torch.int32), hi.view(torch.int32)),
+                          dim=1)
+    # one stack, reading both words and writing them interleaved
+    count("split_join_bytes", 2 * out.nbytes)
+    return out.view(torch.int64).reshape(-1).view(dtype)
 
 
 def twiddle_planes_in(

@@ -310,7 +310,8 @@ def plan_msd(
 # ``partition_tiles.launches`` (K8, the per-phase engine's passes), and
 # ``.modes`` by key planes and payload words), which count only where they
 # launch a CUDA kernel; :func:`counters` and :func:`mode_counters` read them.
-# The host reads are counted in ``utils.log.COUNTS``.
+# The host reads and the split and join bytes are counted in
+# ``utils.log.COUNTS``.
 _ROUTES = {"reference_routes": 0, "overflow_fallbacks": 0,
            "radix_tiers": 0, "equidepth_runs": 0, "sample_fallbacks": 0,
            "identity_routes": 0, "exchange_fallbacks": 0}
@@ -350,7 +351,9 @@ def counters() -> dict:
     were; global sorts whose exchange would overflow its capacity, which
     gather and sort every shard instead (once a call); the places where
     the host waited for a device value (``host_reads``, each a
-    ``tpusort.read.*`` span)."""
+    ``tpusort.read.*`` span); the bytes the 64-bit split and join copied
+    (``split_join_bytes``, from the tensors' sizes: ``dtypes.split64``
+    and ``join64``)."""
     return dict({k: fn.launches for k, fn in _KERNELS.items()}, **_ROUTES,
                 **COUNTS)
 

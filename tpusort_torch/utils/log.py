@@ -13,7 +13,8 @@ default WARNING), the same variable the JAX package reads.
 ``tpusort.<layer>...``) for ``torch.profiler`` and, at TRACE, logs its host
 time (:func:`spanned` does so for every call of a function);
 :func:`host_read` marks a place where the host blocks on a device
-value and counts it, read through ``ops.msd.counters()``.
+value and counts it, read through ``ops.msd.counters()``, as
+:func:`count` counts the bytes of the 64-bit split and join.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import os
 import threading
 import time
 
-__all__ = ["logger", "span", "spanned", "host_read", "set_level", "TRACE"]
+__all__ = ["logger", "span", "spanned", "host_read", "count", "set_level",
+           "TRACE"]
 
 TRACE = 5
 logging.addLevelName(TRACE, "TRACE")
@@ -57,9 +59,10 @@ try:
 except ImportError:                                   # an older torch
     _Fast = None
 
-# the host reads since the last reset_counters(); a lock, as the global
-# sort's shards read from threads of their own
-COUNTS = {"host_reads": 0}
+# the host reads, and the bytes the 64-bit split and join copy
+# (``dtypes.py``), since the last reset_counters(); a lock, as the global
+# sort's shards run threads of their own
+COUNTS = {"host_reads": 0, "split_join_bytes": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -115,10 +118,15 @@ def spanned(name: str):
     return wrap
 
 
+def count(key: str, amount: int = 1) -> None:
+    """Add ``amount`` to the counter ``key`` of :data:`COUNTS`."""
+    with _COUNT_LOCK:
+        COUNTS[key] += amount
+
+
 def host_read(site: str):
     """:func:`span` ``tpusort.read.<site>`` around a place where the host
     waits for a device value (a flag, a sample, a count), counted in
     ``host_reads`` on every device."""
-    with _COUNT_LOCK:
-        COUNTS["host_reads"] += 1
+    count("host_reads")
     return span("tpusort.read." + site)
