@@ -11,7 +11,8 @@ non-zero:
 2. K1 (``partition_pass_fused``) keys-only vs its plain PyTorch version at
    the 2^28 plan's shapes: pass 0 with a ragged n, and pass 1 with the
    counts table pass 0 gives;
-3. K2 (``sort_tiles_counts_collapsed``) keys-only vs plain at the leaf;
+3. K2 (``sort_tiles_counts_collapsed``) keys-only vs plain at the leaf
+   (its merge body: one final segment a tile, merged from its runs);
 4. ``tpusort_torch.sort`` of 2^28 uniform uint32 keys: bit-identical to the
    reference sort, one radix tier (the host planner keeps it), one K1
    launch per pass, one K2 launch, no reference route and no fallback;
@@ -82,9 +83,16 @@ non-zero:
     ``unstable_sort_pairs`` of Zipf keys with ``values = arange``, 2^27 u64
     Zipf keys; each must skip the radix tier, run one equi-depth pipeline
     of 3 K1b passes and take no exact fallback (else the counters are
-    printed and the script fails).  Presorted and constant 2^28 keys come
-    back through the identity path with no K1, K1b or K2 launch; and a
-    warm-cache run (uniform, uniform, constant, Zipf) stays exact;
+    printed and the script fails); stable ``sort_pairs`` of the
+    entropy-3 keys likewise.  The leaf inputs (``msd.raw_leaf``'s
+    arguments) of the entropy-3 keys, the entropy-3 pairs and the Zipf
+    pairs go to K2 and its plain version, bit for bit: the merge body at
+    the skew tier's tiles (runs of 640 counted in chunks of q = 128,
+    chained back), timed as the kernels-line rows "K2 ... (skew leaf)"
+    with the merge launches of their call.  Presorted and constant 2^28
+    keys come back through the identity path with no K1, K1b or K2
+    launch; and a warm-cache run (uniform, uniform, constant, Zipf) stays
+    exact;
 20. K5 (``prefix_sum_tiles``) vs its plain version (``torch.cumsum``):
     int32 and uint32, inclusive and exclusive, at 2^28 and 2^28 - 12345,
     values up to 2^20 so the sums wrap, and on a view that starts off a
@@ -209,7 +217,8 @@ non-zero:
     keys cut at their own quantiles, with and without a ``sorted_run``;
 32. K2 (``csrc/bitonic.cu`` on ``csrc/reg_sort.cuh``) and K1c
     (``csrc/partition_general.cu``) at their edges: the ``-Xptxas -v``
-    lines of the 21 instances of ``leaf_collapse_kernel`` and of
+    lines of the 27 instances of ``leaf_collapse_kernel`` (21 of the
+    network body, 6 of the merge body) and of
     ``partition_general_kernel`` (none may spill); K2 vs plain bit for
     bit, key planes and payloads (ties keep their slot order), at K = P
     and P - 128 for every P from 128 to the shared-memory limit, 1-3
@@ -220,8 +229,6 @@ non-zero:
     the counts and every valid slot at K = 128 .. 32768, R = 1, 2, 16, 32
     and 256, S below and above the counts, a digit straddling two planes,
     the digit plane, 16 operands, pass 0 and later passes, ``t_seg`` > 1;
-    then K2 keys on 2^28 valid keys in tiles of K = P = 32768, timed
-    against the path's padded 24,576-slot tiles (the sentinel half);
 33. K8 (``csrc/partition_tiles.cu``, a blocked stable rank of the
     sortkey) and K4 (``csrc/collapse.cu``, an output-driven copy) at their
     edges: the ``-Xptxas -v`` lines of their 4 kernels (none may spill);
@@ -301,7 +308,8 @@ def main() -> None:
     from tpusort_torch.configs import get_config
     from tpusort_torch.kernels import _build
     from tpusort_torch.kernels.bitonic import (
-        sort_tiles, sort_tiles_counts, sort_tiles_counts_collapsed,
+        leaf_merge_geometry, sort_tiles, sort_tiles_counts,
+        sort_tiles_counts_collapsed,
         sort_tiles_counts_collapsed_plain, sort_tiles_counts_plain,
         sort_tiles_masked, sort_tiles_masked_plain, sort_tiles_plain)
     from tpusort_torch.kernels.collapse import (
@@ -617,11 +625,17 @@ def main() -> None:
         keep their slot order in both); returns ((max abs err, kernel
         times, plain times, words, operations, and with 1-2 planes the
         times of ``leaf_library``), the kernel's dense outputs)."""
-        np_ = len(planes)
         data, (ctable, q_fin), overflow = msd.run_passes(
-            [*planes, *values], np_, n, plan, unstable=bool(values))
+            [*planes, *values], len(planes), n, plan, unstable=bool(values))
         check(not bool(overflow), f"K2 {name}: uniform keys overflowed")
-        nt, tile = msd.leaf_tiles(plan, np_, bool(values))
+        return k2_leaf_vs_plain(name, data, ctable, q_fin, plan, len(planes),
+                                n)
+
+    def k2_leaf_vs_plain(name, data, ctable, q_fin, plan, np_, n):
+        """K2 kernel vs plain on the raw leaf's inputs (``msd.raw_leaf``'s
+        arguments) in the raw leaf's tiles, bit for bit; returns as
+        ``k2_vs_plain``."""
+        nt, tile = msd.leaf_tiles(plan, np_, len(data) > np_, q_fin)
         leaf = [o.reshape(nt, tile) for o in data]
         ct = ctable.reshape(nt, tile // q_fin)
         run = plan.passes[-1].s & -plan.passes[-1].s
@@ -766,6 +780,12 @@ def main() -> None:
         torch.cuda.synchronize()
         return out, msd.counters(), msd.mode_counters()
 
+    def k2(modes, nk: int, nv: int) -> int:
+        """K2's launches in a mode on either body (the merge body's carry
+        the tag "merge")."""
+        return modes.get(("K2", nk, nv), 0) + \
+            modes.get(("K2", nk, nv, "merge"), 0)
+
     # kernel mode -> (max_abs_err, kernel times, plain times, words the
     # function must move, its operations, library call times or absent)
     results = {}
@@ -847,7 +867,8 @@ def main() -> None:
     # ---- phase 3: K2 kernel vs plain at the leaf shape ----------------
     keys = random_i32(plan.m1)
     nt, tile = msd.leaf_tiles(plan)
-    check(tile == 24576, f"leaf tile {tile}, expected 24576")
+    # one final segment a tile: K2 merges it from the last pass's runs
+    check(tile == 12288, f"leaf tile {tile}, expected 12288")
     results["K2 keys"], (k_dense,) = k2_vs_plain("keys", [keys], [], plan,
                                                  RAGGED_N)
     want = reference_sort(keys[:RAGGED_N].view(torch.uint32))
@@ -877,7 +898,7 @@ def main() -> None:
           f"main path did not run K1 x{len(main_plan.passes)} + K2 "
           f"without overflow: {main_counts}")
     launches["K1 keys"] = modes.get(("K1", 1, 0), 0)
-    launches["K2 keys"] = modes.get(("K2", 1, 0), 0)
+    launches["K2 keys"] = k2(modes, 1, 0)
     log("phase 4 ok: 2^28 uint32 sort == reference, overflow False, "
         f"K1 x{main_counts['k1_launches']}, K2 x{main_counts['k2_launches']}")
     del out
@@ -1053,10 +1074,12 @@ def main() -> None:
           f"sort_pairs did not run K1 x{len(pairs_main.passes)} + K2 "
           f"without overflow: {pairs_counts}")
     # the key plane alone: no composite (key, position) planes
-    check(modes == {("K1", 1, 1): len(pairs_main.passes), ("K2", 1, 1): 1},
-          f"sort_pairs did not run the one-plane key+value modes: {modes}")
+    check(modes == {("K1", 1, 1): len(pairs_main.passes),
+                    ("K2", 1, 1, "merge"): 1},
+          f"sort_pairs did not run the one-plane key+value modes (K2's "
+          f"merge body): {modes}")
     launches["K1 key+value"] = modes[("K1", 1, 1)]
-    launches["K2 key+value"] = modes[("K2", 1, 1)]
+    launches["K2 key+value"] = k2(modes, 1, 1)
     log("phase 10 ok: 2^28 sort_pairs == stable reference, keys and values, "
         "on the key plane alone")
     del ko, vo, wk, wv
@@ -1074,9 +1097,10 @@ def main() -> None:
           and unstable_counts["overflow_fallbacks"] == 0
           and unstable_counts["reference_routes"] == 0,
           f"unstable pairs did not run the kernels: {unstable_counts}")
-    check(modes == {("K1", 1, 1): len(pairs_main.passes), ("K2", 1, 1): 1},
-          f"unstable pairs did not run the one-plane key+value modes: "
-          f"{modes}")
+    check(modes == {("K1", 1, 1): len(pairs_main.passes),
+                    ("K2", 1, 1, "merge"): 1},
+          f"unstable pairs did not run the one-plane key+value modes (K2's "
+          f"merge body): {modes}")
     log(f"phase 11 ok: 2^28 unstable_sort_pairs: keys exact, values a "
         f"permutation ({unstable_counts})")
     del ko, vo
@@ -1101,7 +1125,7 @@ def main() -> None:
     check(same_bits(got, reference_sort(x64.view(torch.uint64))),
           "uint64 2^27: differs from the reference")
     launches["K1 2 planes"] = modes.get(("K1", 2, 0), 0)
-    launches["K2 2 planes"] = modes.get(("K2", 2, 0), 0)
+    launches["K2 2 planes"] = k2(modes, 2, 0)
     log("phase 12 ok: uint64 keys at 2^27 == reference via the kernels")
     del got
     f64 = x64[:SMALL_N].clone()
@@ -1127,7 +1151,7 @@ def main() -> None:
     check(same_bits(i64[src], ko) and same_bits(i64v[src], vo),
           "int64 pairs: values do not ride with their keys")
     launches["K1 2 planes+2 values"] = modes.get(("K1", 2, 2), 0)
-    launches["K2 2 planes+2 values"] = modes.get(("K2", 2, 2), 0)
+    launches["K2 2 planes+2 values"] = k2(modes, 2, 2)
     log("phase 12 ok: int64 keys with int64 values (unstable) at 2^24")
     del ko, vo, order, src
     a32 = random_i32(SMALL_N)
@@ -1351,7 +1375,7 @@ def main() -> None:
                                                             torch.int64)),
           "stable u64 pairs 2^27: differs from the stable reference")
     launches["K1c 2 planes+2 values"] = modes.get(("K1c", 2, 2), 0)
-    launches["K2 3 planes+4 values"] = modes.get(("K2", 3, 4), 0)
+    launches["K2 3 planes+4 values"] = k2(modes, 3, 4)
     del ko, vo, wk, whi, wlo
     log("phase 16 ok: stable uint64 pairs with int64 values at 2^27 == "
         "stable reference")
@@ -1362,7 +1386,7 @@ def main() -> None:
     check(torch.equal(got, torch.sort(i64, stable=True).indices),
           "int64 argsort differs from torch.sort(stable=True).indices")
     launches["K1c 2 planes+value"] = modes.get(("K1c", 2, 1), 0)
-    launches["K2 3 planes+3 values"] = modes.get(("K2", 3, 3), 0)
+    launches["K2 3 planes+3 values"] = k2(modes, 3, 3)
     log("phase 16 ok: int64 argsort at 2^24 == torch.sort(stable=True)")
     lk, lv = random_i32(SMALL_N), unique_i32(SMALL_N)
     (ko, vo), c, modes = drive(
@@ -1381,10 +1405,11 @@ def main() -> None:
           f"sort_pairs_lsb_in_value did not run K1 and K2: {c}")
     # the one path left on the composite + value modes (phases 7 and 8
     # compare them at the 2^28 pairs plan, where no path runs them now)
-    for kid in ("K1", "K2"):
+    for kid, n_launch in (("K1", modes.get(("K1", 2, 1), 0)),
+                          ("K2", k2(modes, 2, 1))):
         notes[f"{kid} composite+value"] = (
             "no path at this shape: 0 launches; sort_pairs_lsb_in_value at "
-            f"2^24 launches it x{modes.get((kid, 2, 1), 0)}")
+            f"2^24 launches it x{n_launch}")
     del lk, lv, ko, vo, comp, order, src
     log("phase 16 ok: sort_pairs_lsb_in_value (2 bytes) at 2^24 through K1 "
         "and K2")
@@ -1515,6 +1540,46 @@ def main() -> None:
               f"{name}: not one equi-depth run of {passes} K1b passes: {c}")
         return got, modes
 
+    def leaf_args(fn):
+        """(fn's output, the arguments of its largest ``msd.raw_leaf``
+        call: the skew tier's own leaf, not its sample sort's)."""
+        seen, real = [], msd.raw_leaf
+
+        def spy(*args):
+            seen.append(args)
+            return real(*args)
+
+        msd.raw_leaf = spy
+        try:
+            out = fn()
+        finally:
+            msd.raw_leaf = real
+        check(bool(seen), "no msd.raw_leaf call")
+        return out, max(seen, key=lambda a: a[5])
+
+    def skew_leaf_vs_plain(mode, name, args, modes):
+        """K2 kernel vs plain on the skew tier's leaf inputs ``args`` (its
+        runs of S = 640 counted in chunks of 128, chained back by the merge
+        body), bit for bit; a kernels-line row "K2 <mode> (skew leaf)" with
+        the merge body's launches in ``modes``."""
+        data, ctable, q_, plan_, nk, n_ = args
+        nv = len(data) - nk
+        run = plan_.passes[-1].s & -plan_.passes[-1].s
+        tile = msd.leaf_tiles(plan_, nk, nv > 0, q_)[1]
+        check(leaf_merge_geometry(tile, q_, run, nk, nv) is not None,
+              f"K2 {name} (skew leaf): ({tile}, q {q_}, sorted_run {run}) "
+              "does not take the merge body")
+        row = f"K2 {mode} (skew leaf)"
+        results[row], _ = k2_leaf_vs_plain(f"{name} (skew leaf)", data,
+                                           ctable, q_, plan_, nk, n_)
+        launches[row] = modes.get(("K2", nk, nv, "merge"), 0)
+        check(launches[row] >= 1, f"{row}: no merge launch: {modes}")
+        _, tk, tp, words, ops, *lib = results[row]
+        log(f"{row}: kernel {fmt(tk)} vs plain {fmt(tp)}"
+            + (f" vs library {fmt(lib[0])}" if lib else "")
+            + f", bound {bound(words, ops)[0]:.3f} ms, "
+            f"{launches[row]} merge launch(es) in the call")
+
     zu = zk.view(torch.uint32)
     got, modes = through_skew("sort Zipf 1.1 2^28",
                               lambda: tpusort_torch.sort(zu), 3)
@@ -1524,20 +1589,41 @@ def main() -> None:
     log("phase 19 ok: Zipf 1.1 keys at 2^28 took the skew tier, exact")
     e3 = (random_i32(MAIN_N) & random_i32(MAIN_N)
           & random_i32(MAIN_N)).view(torch.uint32)
-    got, _ = through_skew("sort entropy-3 2^28",
-                          lambda: tpusort_torch.sort(e3), 3)
+    (got, e3_leaf), modes = through_skew(
+        "sort entropy-3 2^28", lambda: leaf_args(
+            lambda: tpusort_torch.sort(e3)), 3)
     check(same_bits(got, reference_sort(e3)),
           "entropy-3 2^28: differs from the reference")
-    log("phase 19 ok: entropy-3 keys at 2^28 took the skew tier, exact")
-    (ko, vo), modes = through_skew(
-        "stable sort_pairs Zipf 2^28",
-        lambda: tpusort_torch.sort_pairs(zu, vals), 3)
+    del got
+    skew_leaf_vs_plain("keys", "entropy-3 keys", e3_leaf, modes)
+    del e3_leaf
+    log("phase 19 ok: entropy-3 keys at 2^28 took the skew tier, exact; "
+        "K2 on its leaf inputs == plain")
+    ((ko, vo), e3_leaf), modes = through_skew(
+        "stable sort_pairs entropy-3 2^28", lambda: leaf_args(
+            lambda: tpusort_torch.sort_pairs(e3, vals)), 3)
+    wk, (wv,) = reference_sort(e3, (vals.view(torch.int32),))
+    check(same_bits(ko, wk) and same_bits(vo, wv),
+          "stable entropy-3 pairs 2^28: differs from the stable reference")
+    del ko, vo, wk, wv
+    skew_leaf_vs_plain("composite+value", "stable entropy-3 pairs", e3_leaf,
+                       modes)
+    del e3_leaf
+    log("phase 19 ok: stable entropy-3 pairs at 2^28 took the skew tier, "
+        "exact; K2 on its leaf inputs == plain")
+    ((ko, vo), z_leaf), modes = through_skew(
+        "stable sort_pairs Zipf 2^28", lambda: leaf_args(
+            lambda: tpusort_torch.sort_pairs(zu, vals)), 3)
     wk, (wv,) = reference_sort(zu, (vals.view(torch.int32),))
     check(same_bits(ko, wk) and same_bits(vo, wv),
           "stable Zipf pairs 2^28: differs from the stable reference")
     launches["K1b composite+value"] = modes.get(("K1b", 2, 1), 0)
     del ko, vo, wk, wv
-    log("phase 19 ok: stable Zipf pairs at 2^28, keys and values exact")
+    skew_leaf_vs_plain("composite+value Zipf", "stable Zipf pairs", z_leaf,
+                       modes)
+    del z_leaf
+    log("phase 19 ok: stable Zipf pairs at 2^28, keys and values exact; K2 "
+        "on its leaf inputs == plain")
     (ko, vo), modes = through_skew(
         "unstable_sort_pairs Zipf 2^28",
         lambda: tpusort_torch.unstable_sort_pairs(zu, vals), 3)
@@ -1976,7 +2062,7 @@ def main() -> None:
             if must_run and vals_ is not None:
                 row = f"{k_mode[0]} planes+value"
                 launches[f"K1 {row}"] = modes.get(("K1", *k_mode), 0)
-                launches[f"K2 {row}"] = modes.get(("K2", *k_mode), 0)
+                launches[f"K2 {row}"] = k2(modes, *k_mode)
             del got, ko
         log(f"phase 25 ok: segmented_sort at 2^26, {batch}: keys only, "
             "unstable and stable pairs == the stable reference")
@@ -2868,10 +2954,12 @@ def main() -> None:
             if "spill" in line:
                 spills[fn_name] = [int(w) for w in re.findall(
                     r"(\d+) bytes spill", line)]
-    # bitonic.cu: (planes, payloads, slots a thread) whose slots fit 64
-    # registers, as sort_tiles.cu's validity template; one K1c kernel
+    # bitonic.cu: the network body's (planes, payloads, slots a thread)
+    # whose slots fit 64 registers, as sort_tiles.cu's validity template,
+    # and the merge body's (planes, payloads), its slots fixed by the
+    # planes (csrc/merge_runs.cuh: merge_slots); one K1c kernel
     n_k2 = sum(e * (nk + idx) <= 64 for e in (4, 8, 16, 32)
-               for idx in (0, 1) for nk in (1, 2, 3))
+               for idx in (0, 1) for nk in (1, 2, 3)) + 3 * 2
     n_k2_seen = sum("leaf_collapse_kernel" in k for k in spills)
     check(n_k2_seen == n_k2 and len(spills) == n_k2 + 1,
           f"bitonic.cu / partition_general.cu: {n_k2_seen} K2 instances and "
@@ -2972,21 +3060,6 @@ def main() -> None:
         f"and above the counts, a digit straddling two planes, the digit "
         f"plane, 16 operands, pass 0 and later passes, t_seg 1-4: {n_edge} "
         f"calls")
-
-    # the sentinel half of K2's keys-only tiles: 2^28 valid keys in tiles
-    # of K = P = 32768 (no pad, every slot valid) against the path's
-    # 24,576-slot tiles padded to 32768 (phase 3: "K2 keys")
-    full = random_i32(MAIN_N).reshape(-1, 32768)
-    fcnt = torch.full((full.shape[0], 32768 // 512), 512, dtype=torch.int32,
-                      device=dev)
-    full = lex_chunks([full], [], 512, fcnt)[0][0]
-    (t_full,) = time_alt(lambda: sort_tiles_counts_collapsed(
-        full, fcnt, 512, MAIN_N, sorted_run=512))
-    print(f"time: K2 keys, 2^28 valid keys in {full.shape[0]} tiles of K = "
-          f"P = 32768 (no pad) {fmt(t_full)} vs the path's tiles of 24,576 "
-          f"padded to 32768 {fmt(results['K2 keys'][1])} on {card}",
-          flush=True)
-    del full, fcnt
 
     # ---- phase 33: partition_tiles.cu and collapse.cu at their edges ----
     torch.cuda.empty_cache()

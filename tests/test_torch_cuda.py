@@ -331,7 +331,7 @@ def test_stable_pairs_with_all_ones_keys_at_2p28(gen):
     c, modes = tm.counters(), tm.mode_counters()
     assert c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0
     assert c["equidepth_runs"] == 0
-    assert set(modes) == {("K1", 1, 1), ("K2", 1, 1)}, modes
+    assert set(modes) == {("K1", 1, 1), ("K2", 1, 1, "merge")}, modes
     want = torch.sort(x.to(torch.int64) & 0xFFFFFFFF, stable=True)
     del x
     assert torch.equal(vo.to(torch.int64), want.indices)
@@ -1146,11 +1146,126 @@ def test_leaf_collapse_edges(gen, nk, log_p, pad):
             got = tb.sort_tiles_counts_collapsed(planes + vals, counts, q,
                                                  n_out, sorted_run=run,
                                                  num_keys=nk)
-            assert tm.mode_counters() == {("K2", nk, nv): 1}
+            body = ("merge",) if tb.leaf_merge_geometry(K, q, run, nk, nv) \
+                else ()
+            assert tm.mode_counters() == {("K2", nk, nv, *body): 1}
             want = tb.sort_tiles_counts_collapsed_plain(planes + vals,
                                                         counts, q, n_out, nk)
             for j, (g, w) in enumerate(zip(got, want)):
                 assert torch.equal(g, w), (run, n_out, j)
+
+
+def _merge_cases():
+    """(planes, payloads, K, q, sorted_run): 1-3 planes with 0-2 payload
+    words at 24,576 slots for one plane (two final segments) and 12,288
+    (one, the 2^28 paths' leaf tile), q = 768 with runs of 256, and a
+    small tile."""
+    out = [(nk, nv, 24576 if nk == 1 else 12288, 512, 512)
+           for nk in (1, 2, 3) for nv in (0, 1, 2)]
+    return out + [(1, 1, 12288, 768, 256), (2, 0, 12288, 768, 256),
+                  (3, 1, 2048, 128, 128)]
+
+
+@pytest.mark.parametrize("nk,nv,K,q,run", _merge_cases())
+def test_leaf_collapse_merge_body(gen, nk, nv, K, q, run):
+    """K2's merge body (``csrc/merge_runs.cuh``) against the plain K2, bit
+    for bit, key planes and payloads, over tiles of sorted q-chunks: random
+    counts with empty (0) and full (q) runs; a single non-empty run; every
+    run full (c = K); an empty tile; keys with ties across the runs (slot
+    order kept) and valid all-ones keys ahead of pads; and, in the last
+    tile, full runs whose counts exceed q (read as q; c clamped to K).
+    Then the full tile alone (T = 1)."""
+    geo = tb.leaf_merge_geometry(K, q, run, nk, nv)
+    assert geo is not None
+    T, nq = 6, K // q
+    planes = [_edge_keys(gen, T, K) for _ in range(nk)]
+    vals = [_rand(gen, T, K) for _ in range(nv)]
+    for p in planes:                     # tile 4: 4 values, tied everywhere
+        p[4] = torch.randint(0, 4, (K,), device="cuda", generator=gen) \
+            .to(torch.int32) * 0x10EF0F01
+        p[4, K // 2:K // 2 + 64] = -1
+    counts = torch.randint(0, q + 1, (T, nq), dtype=torch.int32,
+                           device="cuda", generator=gen)
+    counts[0, ::3] = 0
+    counts[0, 1::3] = q
+    counts[1] = 0
+    counts[1, nq // 2] = q - 5                 # a single non-empty run
+    counts[2] = q                              # c = K
+    counts[3] = 0                              # no valid slot
+    _pads_before_ones([p[4:5] for p in planes], counts[4:5], q)
+    counts[5] = q + torch.randint(0, q, (nq,), dtype=torch.int32,
+                                  device="cuda", generator=gen)
+    planes, vals = _lex_chunks(planes, vals, q, counts)
+    for rows in (slice(0, T), slice(2, 3)):
+        cnt = counts[rows].contiguous()
+        ops = [o[rows].contiguous() for o in planes + vals]
+        n_out = int(cnt[:-1].sum()) + K        # the last tile: K slots
+        tm.reset_counters()
+        got = tb.sort_tiles_counts_collapsed(ops, cnt, q, n_out,
+                                             sorted_run=run, num_keys=nk)
+        assert tm.mode_counters() == {("K2", nk, nv, "merge"): 1}
+        want = tb.sort_tiles_counts_collapsed_plain(ops, cnt, q, n_out, nk)
+        for j, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), (rows, j)
+
+
+@pytest.mark.parametrize("nk,nv", [(1, 0), (1, 1), (2, 1)])
+def test_leaf_collapse_merge_body_chained_runs(gen, nk, nv):
+    """K2's merge body at the skew tier's leaf shape against the plain K2,
+    bit for bit: tiles of 15,360 slots whose runs of 640 are sorted and
+    counted in chunks of q = 128 (the counts table of a pass with S =
+    640), so that 120 runs a tile chain back into 24; with ties across
+    the runs in one tile and valid all-ones keys in another."""
+    T, K, S, q = 4, 15360, 640, 128
+    planes = [_edge_keys(gen, T, K) for _ in range(nk)]
+    vals = [_rand(gen, T, K) for _ in range(nv)]
+    for p in planes:                     # tile 1: 4 values, tied everywhere
+        p[1] = torch.randint(0, 4, (K,), device="cuda", generator=gen) \
+            .to(torch.int32) * 0x10EF0F01
+        p[1, ::97] = -1
+    run_counts = torch.randint(0, S + 1, (T, K // S), dtype=torch.int32,
+                               device="cuda", generator=gen)
+    run_counts[2] = S                          # c = K
+    run_counts[3, ::2] = 0
+    planes, vals = _lex_chunks(planes, vals, S, run_counts)
+    counts = tm.counts_table(run_counts.reshape(-1), S)[0].reshape(T, K // q)
+    n_out = int(counts.sum())
+    tm.reset_counters()
+    got = tb.sort_tiles_counts_collapsed(planes + vals, counts, q, n_out,
+                                         sorted_run=q, num_keys=nk)
+    assert tm.mode_counters() == {("K2", nk, nv, "merge"): 1}
+    want = tb.sort_tiles_counts_collapsed_plain(planes + vals, counts, q,
+                                                n_out, nk)
+    for j, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), j
+
+
+def test_merge_body_on_raw_leaf_only(gen):
+    """The raw leaf (keys, stable 32-bit pairs) takes the merge body and
+    the wide leaf (stable 64-bit pairs, after K1c's unsorted runs) the
+    network body: the "merge" tag on the first two and not on the third,
+    and all three exact."""
+    n = 1 << 22
+    x = _rand(gen, n)
+    vals = torch.arange(n, dtype=torch.int32, device="cuda")
+    want = torch.sort(x.to(torch.int64) & 0xFFFFFFFF, stable=True)
+    tm.reset_counters()
+    ko = tpusort_torch.sort(x.view(torch.uint32))
+    assert tm.mode_counters().get(("K2", 1, 0, "merge")) == 1
+    assert torch.equal(ko.view(torch.int32), want.values.to(torch.int32))
+    tm.reset_counters()
+    ko, vo = tpusort_torch.sort_pairs(x.view(torch.uint32), vals)
+    assert tm.mode_counters().get(("K2", 1, 1, "merge")) == 1
+    assert torch.equal(vo.to(torch.int64), want.indices)
+    x64 = torch.randint(-(1 << 62), 1 << 62, (n,), dtype=torch.int64,
+                        device="cuda", generator=gen)
+    ids = torch.arange(n, dtype=torch.int64, device="cuda")
+    tm.reset_counters()
+    ko, vo = tpusort_torch.sort_pairs(x64.view(torch.uint64), ids)
+    k2 = {m: c for m, c in tm.mode_counters().items() if m[0] == "K2"}
+    assert k2 == {("K2", 3, 4): 1}, k2
+    w64 = torch.sort(x64 ^ (-(1 << 63)), stable=True)
+    assert torch.equal(vo, w64.indices)
 
 
 @pytest.mark.parametrize("R,S,nk,nv,lo_bit,q,digit,t_seg", [

@@ -46,12 +46,20 @@ def test_cuda_plan_at_2_28():
     assert [(p.k, p.s) for p in plan.passes] == [
         (16384, 768), (16384, 512), (16384, 512)]
     assert plan.seg == 12288
-    assert tm.leaf_tiles(plan) == (16384, 24576)
-    # one plane with payloads still packs two segments (32,768 slots with
-    # a 2-byte index fit); two or three planes keep one segment a tile
-    assert tm.leaf_tiles(plan, 1, True) == (16384, 24576)
+    # K2 merges each segment from the last pass's runs (its merge body),
+    # one segment a tile, with or without payloads and planes
+    for nplanes in (1, 2, 3):
+        for has_values in (False, True):
+            assert tm.leaf_tiles(plan, nplanes, has_values) == (32768, 12288)
+    # without the merge body (no sorted runs of 128 slots or more) the
+    # network packs two segments of one plane into 32,768 slots, a 2-byte
+    # index too, and keeps one a tile with two or three planes
+    flat = dataclasses.replace(plan, passes=plan.passes[:-1] + (
+        dataclasses.replace(plan.passes[-1], s=64 * 3),))
+    assert tm.leaf_tiles(flat) == (16384, 24576)
+    assert tm.leaf_tiles(flat, 1, True) == (16384, 24576)
     for nplanes in (2, 3):
-        assert tm.leaf_tiles(plan, nplanes, False) == (32768, 12288)
+        assert tm.leaf_tiles(flat, nplanes, False) == (32768, 12288)
 
 
 @pytest.mark.parametrize("end_bit", [64, 96])
@@ -68,8 +76,9 @@ def test_multi_plane_cuda_plans(n, end_bit):
 
 @pytest.fixture(scope="module")
 def small_slice():
-    """The keys-only slice at n=6000 under SMALL (2 passes, one 24,576-key
-    leaf tile pair), through both packages."""
+    """The keys-only slice at n=6000 under SMALL (2 passes, 64 final
+    segments of 768 keys, one a leaf tile: K2 merges each from its runs),
+    through both packages."""
     n = 6000
     x = random_keys(np.random.default_rng(21), n)
     plan = jm.plan_msd(n, 0, 32, **SMALL)
@@ -96,7 +105,7 @@ def small_slice():
 def test_run_passes_counts_chain(small_slice):
     s = small_slice
     assert len(s["plan"].passes) == 2
-    assert s["leaf"] == (2, 24576)
+    assert s["leaf"] == (64, 768)
     assert s["tq"] == s["jq"]
     assert s["tovf"] == s["jovf"] is False
     np.testing.assert_array_equal(s["tct"], s["jct"])

@@ -14,6 +14,11 @@ that THIS makes once.
 
 Cases (all of them by default; name some to run only those):
 
+- ``k2``: K2 (``sort_tiles_counts_collapsed``) on the leaf inputs that
+  THIS tree's ``sort`` and stable ``sort_pairs`` of 2^28 uniform and
+  entropy-3 keys hand ``msd.raw_leaf`` (the benchmark's four 32-bit
+  cells): each tree's ``raw_leaf``, then K2 at each tree's leaf tiles,
+  a traced call's device time beside each;
 - ``k8``: K8 (``partition_tiles``) at the 2^28 per-phase plan's passes 0
   and 1, keys and key + value;
 - ``k1c``: K1c (``partition_pass_fused``, general) at pass 0 of the 2^28
@@ -54,7 +59,7 @@ from pathlib import Path
 import torch
 
 PKG = "tpusort_torch"
-CASES = ("k8", "k1c", "k6", "k4", "walls", "phases")
+CASES = ("k2", "k8", "k1c", "k6", "k4", "walls", "phases")
 REPS = 5
 WALL_REPS = 9            # host walls spread more than CUDA-event times
 BATCH = 20               # calls queued between two events (short calls)
@@ -214,6 +219,88 @@ class Bench:
 def _rand(n: int, gen: torch.Generator) -> torch.Tensor:
     return torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
                          device=gen.device, generator=gen)
+
+
+def _leaf_inputs(this: Tree, call) -> list:
+    """The arguments of every ``msd.raw_leaf`` call ``call`` makes in
+    THIS tree (its public entry runs the passes before the leaf)."""
+    seen = []
+    msd = this.mod("ops.msd")
+    real = msd.raw_leaf
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+
+    msd.raw_leaf = spy
+    try:
+        call()
+    finally:
+        msd.raw_leaf = real
+    return seen
+
+
+def case_k2(b: Bench, gen: torch.Generator) -> None:
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    x = _rand(MAIN_N, gen)
+    e3 = x & _rand(MAIN_N, gen) & _rand(MAIN_N, gen)
+    ids = torch.arange(MAIN_N, dtype=torch.int32, device=gen.device)
+    for name, keys, vals in (("keys uniform", x, None),
+                             ("pairs uniform", x, ids),
+                             ("keys entropy-3", e3, None),
+                             ("pairs entropy-3", e3, ids)):
+        with b.this.active():
+            api = b.this.mod("api")
+            u = keys.view(torch.uint32)
+            call = (lambda: api.sort(u)) if vals is None else \
+                (lambda: api.sort_pairs(u, vals))
+            call()                           # the tier cache, warm
+            # the sort's own leaf (the skew tier's sample sort has one too)
+            args = max(_leaf_inputs(b.this, call), key=lambda a: a[5])
+        data, ctable, q, plan, nk, n = args
+        nv = len(data) - nk
+        run = plan.passes[-1].s & -plan.passes[-1].s
+        b.row(f"raw_leaf {name} 2^28 (each tree's tiles)",
+              lambda tr: lambda: tr.mod("ops.msd").raw_leaf(
+                  data, ctable, q, plan, nk, n))
+        shapes = set()
+        for t in b.trees:
+            with t.active():
+                shapes.add(t.mod("ops.msd").leaf_tiles(plan, nk, nv > 0))
+        for nt, tile in sorted(shapes):
+            tiles = [o.reshape(nt, tile) for o in data]
+            ct = ctable.reshape(nt, tile // q)
+            row = (f"K2 {name} {nk} planes + {nv} values ({nt}, {tile}) q "
+                   f"{q} sorted_run {run}")
+
+            def make(tr):
+                fn = tr.mod("kernels.bitonic").sort_tiles_counts_collapsed
+                return lambda: fn(tiles, ct, q, n, sorted_run=run,
+                                  num_keys=nk)
+
+            b.row(row, make)
+            for t in b.trees:
+                with t.active():
+                    fn = make(t)
+                    fn()
+                    torch.cuda.synchronize()
+                    with torch.profiler.profile(activities=acts) as prof:
+                        fn()
+                        torch.cuda.synchronize()
+                    by_name = b.device_ms_by_name(prof)
+                    modes = t.mod("ops.msd")
+                    modes.reset_counters()
+                    fn()
+                    tags = modes.mode_counters()
+                b.print(f"ab: {row} {t.label}: traced device "
+                        + "; ".join(f"{k[:70]} {ms:.3f}"
+                                    for k, ms in sorted(by_name.items(),
+                                                        key=lambda kv: -kv[1])
+                                    [:1])
+                        + f"; modes {tags}")
+            del tiles, ct
+        del data, ctable, args
+        torch.cuda.empty_cache()
 
 
 def case_k8(b: Bench, gen: torch.Generator) -> None:

@@ -58,9 +58,9 @@ def get_config(key_bits: int, has_values: bool, platform: str) -> SortConfig:
     return SortConfig()
 
 
-# H100: K = 16384 keeps one tile (64 KB) and the packed leaf tile (24,576
-# keys, padded to 32,768 = 128 KB at 2^28) inside a CTA's 227 KB of shared
-# memory.  The TPU rows' K = 65536 (256 KB per tile, 327,680-key leaf
+# H100: K = 16384 keeps one tile (64 KB) and a leaf tile (a 12,288-key
+# segment on K2's merge body; two packed and padded to 32,768 = 128 KB on
+# its network) inside a CTA's 227 KB of shared memory.  The TPU rows' K = 65536 (256 KB per tile, 327,680-key leaf
 # segments) cannot carry over.  s1 and leaf_max stay automatic: at 2^28
 # this plans 3 passes, (K, S) = (16384, 768), (16384, 512), (16384, 512).
 register_config(32, False, "cuda", SortConfig(tile_elems=1 << 14, radix=32,

@@ -52,9 +52,10 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, _I, _I, _PP, _P, _I, _I,
                                    _I, _P, _P],
     # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts, q,
-    # offsets, n_out, T, K, P, sorted_run, threads, slots, smem, stream
+    # offsets, n_out, T, K, P, sorted_run, merge_run, threads, slots, smem,
+    # stream
     "tpusort_leaf_collapse": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _P, _LL,
-                              _I, _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # keys_in, keys_out, vals_in, vals_out, n_vals, T, K, P, threads,
     # slots, smem, stream
     "tpusort_sort_tiles": [_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _P],

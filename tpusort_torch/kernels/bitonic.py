@@ -100,6 +100,72 @@ def tile_sort_geometry(K: int, num_keys: int, n_vals: int) -> TileGeometry:
                         tile_smem_bytes(p, num_keys, n_vals > 0))
 
 
+class MergeGeometry(NamedTuple):
+    """How K2's merge body lays one leaf tile out on a CTA
+    (``csrc/merge_runs.cuh``): the tile's runs of ``run`` slots are merged
+    by ``threads`` threads, each holding up to ``slots`` outputs of a level
+    in registers, over one compact buffer of ``smem_bytes``."""
+    run: int
+    threads: int
+    slots: int
+    smem_bytes: int
+
+
+# csrc/merge_runs.cuh: the shortest run and the most runs a tile it takes;
+# the outputs a merge thread holds in registers for one, two or three key
+# planes (merge_slots: 48 key words at most) and the most threads a tile
+MERGE_MIN_RUN = 128
+MERGE_MAX_RUNS = 256
+MERGE_SLOTS = {1: 32, 2: 24, 3: 16}
+MERGE_THREADS = 768
+
+
+def merge_smem_bytes(K: int, num_keys: int, has_values: bool,
+                     runs: int) -> int:
+    """Dynamic shared memory of K2's merge body: each key plane (and two
+    arrays of slot indices) over K + K / 32 words, a pad word after every
+    32 slots, then the runs' starts and their count."""
+    return (K + K // 32) * (4 * num_keys + (4 if has_values else 0)) \
+        + 4 * (runs + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def leaf_merge_geometry(K: int, q: int, sorted_run: int, num_keys: int,
+                        n_vals: int) -> Optional[MergeGeometry]:
+    """The geometry of K2's merge body for a (T, K) leaf with a counts
+    table of q-slot chunks and the caller's ``sorted_run``, or None where
+    K2 runs its network body.  Pure: it reads only the call's shape.
+
+    The merge runs where the tile arrives as sorted runs (``sorted_run`` >
+    0): runs of the largest power of two dividing both q and
+    ``sorted_run``, each of whose valid prefix ascends, at least
+    ``MERGE_MIN_RUN`` slots and at most ``MERGE_MAX_RUNS`` a tile.  A
+    thread holds ``slots`` outputs of a level, 32, 24 or 16 for one, two
+    or three key planes (``MERGE_SLOTS``: the most whose key words fit its
+    registers), and a tile takes the fewest threads that cover it, at most
+    ``MERGE_THREADS``, so that more tiles share an SM and one tile's loads
+    and stores overlap another's merge (on an H100, at the 2^28 keys leaf,
+    384 threads of 32 slots ran K2 in 2.99 ms where 768 of 16 took 3.68).
+    And the buffer must fit a CTA's shared memory.  So the 2^28 paths'
+    leaves (one final segment a tile, :func:`tpusort_torch.ops.msd.
+    leaf_tiles`: 12,288 slots of 24 runs of 512, one to three planes, a
+    value or not) merge, and ``sorted_run`` 0 (the wide leaf after K1c's
+    unsorted runs) takes the network."""
+    if sorted_run <= 0:
+        return None
+    run = min(sorted_run, q & -q)
+    runs = K // run
+    slots = MERGE_SLOTS[num_keys]
+    threads = -(-K // (slots * 32)) * 32
+    if run < MERGE_MIN_RUN or K % run or runs > MERGE_MAX_RUNS \
+            or K > MAX_TILE or threads > MERGE_THREADS:
+        return None
+    smem = merge_smem_bytes(K, num_keys, n_vals > 0, runs)
+    if smem > SMEM_MAX:
+        return None
+    return MergeGeometry(run, threads, slots, smem)
+
+
 def _check_ops(ops, what: str) -> Tuple[int, int]:
     if not ops or any(o.dtype != torch.int32 or o.dim() != 2 for o in ops):
         raise ValueError(f"{what} operands must be (T, K) int32 "
@@ -141,6 +207,7 @@ def _sort_tiles_counts_collapsed_cuda(
     p = _pow2(K)                           # virtual power-of-two pad
     n_vals = len(ops) - num_keys
     check_fits("sort_tiles_counts_collapsed", p, num_keys, n_vals)
+    merge = leaf_merge_geometry(K, q, sorted_run, num_keys, n_vals)
     if sorted_run and (K % sorted_run or (p - K) % sorted_run):
         sorted_run = 0
     counts = counts.to(torch.int32).contiguous()
@@ -149,16 +216,18 @@ def _sort_tiles_counts_collapsed_cuda(
     offsets = torch.zeros(T + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts.sum(dim=1, dtype=torch.int64), dim=0, out=offsets[1:])
     outs = [torch.empty(n_out, dtype=torch.int32, device=dev) for _ in ops]
-    geo = tile_sort_geometry(K, num_keys, n_vals)
+    geo = merge or tile_sort_geometry(K, num_keys, n_vals)
     err = _build.library().tpusort_leaf_collapse(
         _build.pointers(ops[:num_keys]), _build.pointers(outs[:num_keys]),
         num_keys, _build.pointers(ops[num_keys:]),
         _build.pointers(outs[num_keys:]), n_vals, counts.data_ptr(), q,
-        offsets.data_ptr(), n_out, T, K, p, sorted_run, geo.threads,
-        geo.slots, geo.smem_bytes, torch.cuda.current_stream(dev).cuda_stream,
+        offsets.data_ptr(), n_out, T, K, p, sorted_run,
+        merge.run if merge else 0, geo.threads, geo.slots, geo.smem_bytes,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "sort_tiles_counts_collapsed")
-    _build.count_launch(sort_tiles_counts_collapsed, num_keys, n_vals)
+    _build.count_launch(sort_tiles_counts_collapsed, num_keys, n_vals,
+                        *(("merge",) if merge else ()))
     return outs
 
 

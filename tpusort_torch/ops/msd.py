@@ -52,8 +52,8 @@ import torch
 
 from tpusort_torch.kernels import _build
 from tpusort_torch.kernels.bitonic import (
-    leaf_tile_cap, sort_tiles, sort_tiles_counts, sort_tiles_counts_collapsed,
-    sort_tiles_masked)
+    leaf_merge_geometry, leaf_tile_cap, sort_tiles, sort_tiles_counts,
+    sort_tiles_counts_collapsed, sort_tiles_masked)
 from tpusort_torch.kernels.collapse import collapse_segments
 from tpusort_torch.kernels.partition import (
     MAX_PLANES, _histogram, _partition_pass_general_cuda,
@@ -507,12 +507,21 @@ def next_counts_table(
     return counts_table(exchanged_counts(counts, spec), spec.s)
 
 
-def leaf_tiles(plan: MsdPlan, nplanes: int = 1,
-               has_values: bool = False) -> Tuple[int, int]:
-    """(number, size) of the leaf tiles: whole final segments packed up
-    to 2^15 slots per tile, or fewer where K2 holds more operands (its
-    shared-memory tile cap).  Packing whole segments leaves the dense
-    output unchanged."""
+def leaf_tiles(plan: MsdPlan, nplanes: int = 1, has_values: bool = False,
+               q: Optional[int] = None) -> Tuple[int, int]:
+    """(number, size) of the raw leaf's tiles: one final segment a tile
+    where K2 merges it from the last pass's runs (its merge body), else
+    whole final segments packed up to 2^15 slots per tile, or fewer where
+    K2 holds more operands (its network body's shared-memory tile cap).
+    Packing whole segments leaves the dense output unchanged; a merged
+    tile gains nothing by it (the segments are in order already) and
+    would pay a merge level more.  ``q`` is the counts table's chunk
+    (:func:`counts_table`'s, by default), so that the choice here is the
+    one K2's wrapper makes on the same shape."""
+    run = plan.passes[-1].s & -plan.passes[-1].s
+    if leaf_merge_geometry(plan.seg, run if q is None else q, run, nplanes,
+                           int(has_values)):
+        return plan.n_segments, plan.seg
     cap = min(1 << 15, leaf_tile_cap(nplanes, has_values))
     pack = 1
     while (pack * 2 * plan.seg <= cap
@@ -697,7 +706,7 @@ def raw_leaf(data: Sequence[torch.Tensor], ctable: torch.Tensor, q: int,
     last pass's runs (``nplanes`` key planes then payload words), which
     are ascending in chunks of the largest power of two dividing the last
     S.  Returns the dense (n,) outputs."""
-    nt, tile = leaf_tiles(plan, nplanes, len(data) > nplanes)
+    nt, tile = leaf_tiles(plan, nplanes, len(data) > nplanes, q)
     last_s = plan.passes[-1].s
     return sort_tiles_counts_collapsed(
         [o.reshape(nt, tile) for o in data],
