@@ -19,10 +19,10 @@ non-zero:
 5. int32, float32 descending with NaN, -0.0 and +0.0 planted, and uint32
    with a block of 0xFFFFFFFF (which ties the invalid-slot sentinel), at
    2^24: bit-identical to the reference, through the kernels;
-6. the engine on 2^24 constant keys with the skew route off: the overflow
-   fallback fires, the output is exact; and the engine's own skew route
-   (on by default on a card) sorting runs of 4096 equal keys through the
-   equi-depth engine;
+6. the registered "msd" engine (radix, then exact) on 2^24 constant keys:
+   the overflow fallback fires, the output is exact; and the card's tier
+   chain (``ops.tiers``: radix, equi-depth, exact) sorting runs of 4096
+   equal keys through the equi-depth engine;
 7. K1 with payloads vs plain at the pairs 2^28 plan's pass 0 and pass 1
    shapes, for the composite (key, position) planes + a value and for one
    unique key plane + a value;
@@ -165,7 +165,7 @@ non-zero:
     masked keys plus the gathers, the 2^27 stable uint64 pairs against
     ``torch.sort(stable=True)`` of the flipped keys plus the gathers, the
     Zipf, entropy-3 and presorted 2^28 sorts against the same call forced
-    through radix then exact (the engine, skew tier off) and
+    through radix then exact (the registered "msd" engine) and
     ``torch.sort``, ``sort_batched`` against ``torch.sort(dim=1)`` (plus
     the gather), ``segmented_sort`` of the five batches against
     ``torch.sort(stable=True)`` of the (segment, key) int64 composite plus
@@ -323,7 +323,7 @@ def main() -> None:
     from tpusort_torch.kernels.scanhist import (
         digit_histogram_tiles, digit_histogram_tiles_plain, prefix_sum_tiles,
         prefix_sum_tiles_plain)
-    from tpusort_torch.ops import equidepth, histogram, msd, scan
+    from tpusort_torch.ops import equidepth, histogram, msd, scan, tiers
     from tpusort_torch.kernels.partition import SMEM_MAX, tile_smem_bytes
     from tpusort_torch.ops.reference import sort_rows_lex, sort_twiddled_reference
     from tpusort_torch.utils.datagen import segment_offsets, zipf_keys_torch
@@ -935,23 +935,27 @@ def main() -> None:
     zeros = torch.zeros(SMALL_N, dtype=torch.int32, device=dev)
     bits32 = dict(begin_bit=0, end_bit=32, total_bits=32)
     msd.reset_counters()
-    (got,), _ = msd.sort_twiddled_msd((zeros,), (), config=cfg,
-                                      skew_tier=False, **bits32)
+    (got,), _ = tapi._ENGINES["msd"]((zeros,), (), config=cfg, **bits32)
     c = msd.counters()
     check(c["overflow_fallbacks"] == 1, f"constant keys: no fallback: {c}")
     check(same_bits(got, zeros), "constant keys: output differs")
-    # the engine's own skew route: on a card an overflowed keys-only sort
-    # under 2^28 goes through the equi-depth engine first
+    # the card's tier chain (ops.tiers): an overflowed keys-only sort goes
+    # through the equi-depth engine before the exact sort
     ramp = torch.arange(SMALL_N, dtype=torch.int32, device=dev) >> 12
     msd.reset_counters()
-    (got,), _ = msd.sort_twiddled_msd((ramp,), (), config=cfg, **bits32)
+    (got,), _ = tiers.first_clear([
+        lambda: msd.sort_twiddled_msd((ramp,), (), config=cfg, **bits32),
+        lambda: equidepth.sort_twiddled_equidepth((ramp,), (), config=cfg,
+                                                  **bits32),
+        lambda: (*sort_twiddled_reference((ramp,), (), **bits32), None)],
+        "tier_flag")
     c = msd.counters()
     check(c["equidepth_runs"] == 1 and c["k1b_launches"] >= 2
           and c["overflow_fallbacks"] == 0,
-          f"the engine's skew route did not sort 4096-key runs: {c}")
-    check(same_bits(got, ramp), "skew route: output differs")
-    log("phase 6 ok: constant keys took the engine's exact fallback; the "
-        f"engine's skew route sorted runs of equal keys ({c})")
+          f"the equi-depth tier did not sort 4096-key runs: {c}")
+    check(same_bits(got, ramp), "equi-depth tier: output differs")
+    log("phase 6 ok: constant keys took the exact fallback; the "
+        f"equi-depth tier sorted runs of equal keys ({c})")
     del zeros, got, ramp
 
     # ---- phase 7: K1 with payloads at the pairs plan's shapes ---------
@@ -1962,7 +1966,7 @@ def main() -> None:
     shift = 32 - max((nseg - 1).bit_length(), 1)
     (_, jk), _, jflag = drive(lambda: msd.sort_twiddled_msd(
         (seg_eq << shift, ski), (), begin_bit=0, end_bit=64, total_bits=64,
-        config=scfg, on_overflow="flag", skew_tier=False))[0]
+        config=scfg))[0]
     log(f"segmented_sort as JAX feeds the engine (segment id << {shift}, "
         f"key; input order) at n=2^26, {nseg} equal segments: overflow flag "
         f"{bool(jflag)}, counters {msd.counters()}")
@@ -2418,17 +2422,16 @@ def main() -> None:
           f"+ keys[idx] + values[idx] {fmt(tu64p_times)} "
           f"({U64_N / statistics.median(tu64p_times) / 1e6:.3f} G pairs/s) "
           f"on {card}", flush=True)
-    cfg_noskew = dict(config=cfg, skew_tier=False, **bits32)
     for name, keys in (("Zipf 1.1", zu), ("entropy-3", e3),
                        ("presorted", presorted)):
         ki = keys.view(torch.int32)
         t_tier, t_forced, t_torch = time_alt(
             lambda: tpusort_torch.sort(keys),
-            lambda: msd.sort_twiddled_msd((ki,), (), **cfg_noskew),
+            lambda: tapi._ENGINES["msd"]((ki,), (), config=cfg, **bits32),
             lambda: torch.sort(ki))
         print(f"time: tpusort_torch.sort {name} 2^28 uint32 "
               f"{fmt(t_tier)} ({MAIN_N / statistics.median(t_tier) / 1e6:.3f}"
-              f" G keys/s) vs radix then exact (the engine, skew tier off) "
+              f" G keys/s) vs radix then exact (the registered msd engine) "
               f"{fmt(t_forced)} vs torch.sort of the same keys as int32 "
               f"{fmt(t_torch)} on {card}", flush=True)
     bku = bk.view(torch.uint32).reshape(1 << 17, 2048)

@@ -23,9 +23,11 @@ from oracle import np_sort_oracle
 from tpusort.ops import equidepth as je
 from tpusort.ops import msd as jm
 from tpusort_torch import dtypes as td
-from tpusort_torch.configs import SortConfig, get_config
+from tpusort_torch.configs import get_config
 from tpusort_torch.ops import equidepth as te
 from tpusort_torch.ops import msd as tm
+from tpusort_torch.ops.reference import sort_twiddled_reference
+from tpusort_torch.ops.tiers import first_clear
 from tpusort_torch.utils.datagen import (
     entropy_keys, enumerated_values, random_keys, zipf_keys)
 
@@ -153,14 +155,22 @@ def test_run_pipeline_matches_jax_tiny():
     np.testing.assert_array_equal(_u32(tout), np.sort(x))
 
 
-def _eq_sort(x: np.ndarray, geometry=SMALL, values=(), stable=False,
-             on_overflow="fallback"):
+def _eq_chain(x: np.ndarray, geometry=SMALL, values=(), stable=False):
+    """(traits, [the engine, the exact sort]): the engine's attempts."""
     planes, traits = td.twiddle_in(torch.from_numpy(x))
-    res = te.sort_twiddled_equidepth(
-        planes, tuple(_i32(v) for v in values), begin_bit=0,
-        end_bit=traits.bits, total_bits=traits.bits,
-        plan_kwargs=dict(geometry), stable=stable, on_overflow=on_overflow)
-    return td.twiddle_out(res[0], traits), res[1:]
+    vals = tuple(_i32(v) for v in values)
+    bits = dict(begin_bit=0, end_bit=traits.bits, total_bits=traits.bits)
+    return traits, [
+        lambda: te.sort_twiddled_equidepth(
+            planes, vals, plan_kwargs=dict(geometry), stable=stable, **bits),
+        lambda: (*sort_twiddled_reference(planes, vals, **bits), None)]
+
+
+def _eq_sort(x: np.ndarray, geometry=SMALL, values=(), stable=False):
+    """The engine, then the exact sort where its flag is set."""
+    traits, chain = _eq_chain(x, geometry, values, stable)
+    sp, sv = first_clear(chain, "equidepth_flag")
+    return td.twiddle_out(sp, traits), (sv,)
 
 
 @pytest.mark.parametrize("kind", ["entropy1", "entropy2", "entropy4",
@@ -223,41 +233,42 @@ def test_stable_pairs_composite():
 
 
 def test_flag_mode_and_delegation():
-    """Flag mode returns (planes, values, overflow) and takes no fallback;
-    a size below min_n and a bit range are delegated to the reference
-    sort with the flag clear."""
+    """The engine returns (planes, values, overflow) and takes no
+    fallback; a size below min_n and a bit range are delegated to the
+    reference sort, whose flag is None."""
     n = 2_000
     x = random_keys(np.random.default_rng(63), n)
     planes = (_i32(x),)
     tm.reset_counters()
     sp, sv, ovf = te.sort_twiddled_equidepth(
         planes, (), begin_bit=0, end_bit=32, total_bits=32,
-        plan_kwargs=dict(min_n=1 << 20), on_overflow="flag")
-    assert not bool(ovf) and sv == ()
+        plan_kwargs=dict(min_n=1 << 20))
+    assert ovf is None and sv == ()
     np.testing.assert_array_equal(_u32(sp[0]), np.sort(x))
     sp, _, ovf = te.sort_twiddled_equidepth(
         planes, (), begin_bit=8, end_bit=32, total_bits=32,
-        plan_kwargs=dict(TINY), on_overflow="flag")
-    assert not bool(ovf)
+        plan_kwargs=dict(TINY))
+    assert ovf is None
     assert tm.counters()["reference_routes"] == 2
     assert tm.counters()["equidepth_runs"] == 0
     sp, _, ovf = te.sort_twiddled_equidepth(
         (_i32(np.tile(x, 10)),), (), begin_bit=0, end_bit=32,
-        total_bits=32, plan_kwargs=dict(TINY), on_overflow="flag")
+        total_bits=32, plan_kwargs=dict(TINY))
+    assert ovf.dtype == torch.bool and ovf.dim() == 0
     assert not bool(ovf) and tm.counters()["equidepth_runs"] == 1
     np.testing.assert_array_equal(_u32(sp[0]), np.sort(np.tile(x, 10)))
 
 
 def test_sentinel_keys_with_pairs():
     """Pairs ride unstably past the invalid-slot sentinel, so a block of
-    valid 0xFFFFFFFF keys raises the flag; the fallback mode then returns
-    the exact (stable) reference sort."""
+    valid 0xFFFFFFFF keys raises the flag; the chain's exact sort then
+    returns the (stable) reference order."""
     n = 20_000
     rng = np.random.default_rng(64)
     x = random_keys(rng, n)
     x[5000:5200] = 0xFFFFFFFF
     v = enumerated_values(n)
-    _, (_, ovf) = _eq_sort(x, TINY, values=(v,), on_overflow="flag")
+    *_, ovf = _eq_chain(x, TINY, values=(v,))[1][0]()
     assert bool(ovf)
     tm.reset_counters()
     got, (sv,) = _eq_sort(x, TINY, values=(v,))
@@ -266,23 +277,3 @@ def test_sentinel_keys_with_pairs():
     np.testing.assert_array_equal(got.numpy(), wk)
     np.testing.assert_array_equal(sv[0].numpy().view(np.uint32), wv)
 
-
-def test_msd_skew_tier_route():
-    """The engine's own overflow route (``skew_tier``): constant keys
-    overflow the radix runs, go through the equi-depth pipeline, which
-    absorbs them, and come back exact without the reference sort."""
-    n = 60_000
-    x = np.full(n, 0x1234, np.uint32)
-    cfg = SortConfig(tile_elems=2048, radix=16, s1=256, min_n=4096)
-    tm.reset_counters()
-    (sp,), _ = tm.sort_twiddled_msd((_i32(x),), (), begin_bit=0, end_bit=32,
-                                    total_bits=32, config=cfg,
-                                    skew_tier=True)
-    c = tm.counters()
-    assert c["equidepth_runs"] == 1 and c["overflow_fallbacks"] == 0
-    np.testing.assert_array_equal(_u32(sp), x)
-    # without the route the same call takes the exact fallback
-    tm.reset_counters()
-    tm.sort_twiddled_msd((_i32(x),), (), begin_bit=0, end_bit=32,
-                         total_bits=32, config=cfg)
-    assert tm.counters()["overflow_fallbacks"] == 1

@@ -26,6 +26,9 @@ from tpusort_torch.configs import SortConfig
 from tpusort_torch.ops import msd as tm
 from tpusort_torch.utils.datagen import entropy_keys, random_keys
 
+# the registered engine: radix, then the exact sort where its flag is set
+MSD = tpusort_torch.api._ENGINES["msd"]
+
 N = 3000
 G = dict(k=1024, r=8, s1=256, s=128, leaf_max=1024)
 G_CFG = SortConfig(tile_elems=1024, radix=8, s1=256, leaf_max=1024,
@@ -56,7 +59,7 @@ def _jax_engine(planes, values, begin_bit, end_bit, total_bits):
 
 def _port_engine(planes, values, begin_bit, end_bit, total_bits):
     tm.reset_counters()
-    sp, sv = tm.sort_twiddled_msd(
+    sp, sv = MSD(
         tuple(_i32(p) for p in planes), tuple(_i32(v) for v in values),
         begin_bit=begin_bit, end_bit=end_bit, total_bits=total_bits,
         config=G_CFG)

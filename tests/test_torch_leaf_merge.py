@@ -23,14 +23,18 @@ import numpy as np
 import pytest
 import torch
 
+from tpusort_torch import api as tapi
 from tpusort_torch import dtypes as tdt
 from tpusort_torch.configs import get_config
 from tpusort_torch.kernels import bitonic as tb
 from tpusort_torch.kernels.partition import SMEM_MAX
-from tpusort_torch.ops import equidepth as te
 from tpusort_torch.ops import msd as tm
 from tpusort_torch.ops import segmented as tseg
 from tpusort_torch.utils.datagen import entropy_keys, segment_offsets
+
+# the registered engines: each, then the exact sort where its flag is set
+MSD = tapi._ENGINES["msd"]
+EQUIDEPTH = tapi._ENGINES["msd_equidepth"]
 
 CSRC = Path(tb.__file__).resolve().parent.parent / "csrc"
 
@@ -229,7 +233,7 @@ def _ties(rng, n):
 
 def _msd_keys(rng):
     x = rng.integers(0, 1 << 32, 60_000, dtype=np.uint64).astype(np.uint32)
-    (sp,), _ = tm.sort_twiddled_msd(
+    (sp,), _ = MSD(
         (_i32(x),), (), begin_bit=0, end_bit=32, total_bits=32,
         config=get_config(32, False, "cpu"))
     return np.array_equal(sp.numpy().view(np.uint32), np.sort(x)), None
@@ -238,7 +242,7 @@ def _msd_keys(rng):
 def _msd_u64(rng):
     x = rng.integers(0, 1 << 63, 40_000, dtype=np.int64)
     planes, traits = tdt.twiddle_in(torch.from_numpy(x))
-    sp, _ = tm.sort_twiddled_msd(
+    sp, _ = MSD(
         planes, (), begin_bit=0, end_bit=64, total_bits=64,
         config=get_config(64, False, "cpu"))
     got = tdt.twiddle_out(sp, traits).numpy()
@@ -248,7 +252,7 @@ def _msd_u64(rng):
 def _msd_pairs(rng, stable):
     x = _ties(rng, 60_000)
     v = np.arange(x.size, dtype=np.uint32)
-    (sk,), (sv,) = tm.sort_twiddled_msd(
+    (sk,), (sv,) = MSD(
         (_i32(x),), (_i32(v),), begin_bit=0, end_bit=32, total_bits=32,
         config=get_config(32, True, "cpu"), stable=stable)
     keys = sk.numpy().view(np.uint32)
@@ -262,7 +266,7 @@ def _msd_pairs(rng, stable):
 
 def _equidepth(rng):
     x = entropy_keys(rng, 60_000, 2)
-    (sp,), _ = te.sort_twiddled_equidepth(
+    (sp,), _ = EQUIDEPTH(
         (_i32(x),), (), begin_bit=0, end_bit=32, total_bits=32,
         plan_kwargs=dict(k=2048, r=8, s1=384, s=256, leaf_max=4096,
                          min_n=1, sample_log2=15))
@@ -277,11 +281,13 @@ def _segmented(rng):
     seg = torch.from_numpy(np.searchsorted(offs[1:], np.arange(n),
                                            side="right").astype(np.int32))
     vals = torch.arange(n, dtype=torch.int32)
-    done = tseg._sort_on_engine(np.asarray(offs, np.int64), seg, plane,
-                                [vals], stable=True)
-    assert done is not None
+    tm.reset_counters()
+    _, (sv,) = tseg._sort_on_engine(np.asarray(offs, np.int64), seg, plane,
+                                    [vals], stable=True)
+    c = tm.counters()                # the engine's output, not the exact way
+    assert c["overflow_fallbacks"] == c["reference_routes"] == 0
     order = np.lexsort((np.arange(n), keys, seg.numpy()))
-    return np.array_equal(done[1][0].numpy(), order), None
+    return np.array_equal(sv.numpy(), order), None
 
 
 def _windows(rng):

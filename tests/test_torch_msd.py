@@ -19,6 +19,7 @@ from tpusort_torch.kernels import _build
 from tpusort_torch.kernels.bitonic import sort_tiles_counts_collapsed
 from tpusort_torch.ops import msd as tm
 from tpusort_torch.ops.reference import sort_twiddled_reference
+from tpusort_torch.ops.tiers import first_clear
 from tpusort_torch.utils.datagen import entropy_keys, random_keys
 
 CPU_ROW = dict(k=2048, r=16, s1=256)
@@ -126,9 +127,13 @@ def test_slice_leaf_output(small_slice):
 
 
 def _twiddled_sort(x: np.ndarray, config: SortConfig) -> np.ndarray:
-    (out,), _ = tm.sort_twiddled_msd(
-        (torch.from_numpy(x.view(np.int32)),), begin_bit=0, end_bit=32,
-        total_bits=32, config=config)
+    """The engine, then the exact sort where its flag is set."""
+    planes = (torch.from_numpy(x.view(np.int32)),)
+    bits = dict(begin_bit=0, end_bit=32, total_bits=32)
+    (out,), _ = first_clear(
+        [lambda: tm.sort_twiddled_msd(planes, config=config, **bits),
+         lambda: (*sort_twiddled_reference(planes, (), **bits), None)],
+        "msd_flag")
     return out.numpy().view(np.uint32)
 
 
@@ -159,9 +164,9 @@ def test_engine_matches_jax_engine(level):
 
 @pytest.mark.parametrize("level", [1, 8, 0])
 def test_flag_mode_matches_jax(level):
-    """``on_overflow="flag"`` returns the overflow flag on the device with
-    no fallback taken (the API's tier chain reads it): the same flag as
-    JAX's flag mode, and the same keys where it is clear."""
+    """The engine returns the overflow flag on the device with no
+    fallback taken (its caller's chain reads it): the same flag as JAX's
+    flag mode, and the same keys where it is clear."""
     n = 300_000
     x = entropy_keys(np.random.default_rng(200 + level), n, level)
     (want,), _, jovf = jm.sort_twiddled_msd(
@@ -171,7 +176,7 @@ def test_flag_mode_matches_jax(level):
     tm.reset_counters()
     (got,), vals, ovf = tm.sort_twiddled_msd(
         (torch.from_numpy(x.view(np.int32)),), begin_bit=0, end_bit=32,
-        total_bits=32, on_overflow="flag",
+        total_bits=32,
         config=SortConfig(tile_elems=2048, radix=16, s1=256, min_n=4096))
     assert vals == () and ovf.dtype == torch.bool and ovf.dim() == 0
     assert bool(ovf) == bool(jovf)
@@ -181,10 +186,6 @@ def test_flag_mode_matches_jax(level):
     if not bool(ovf):
         np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                       np.asarray(want))
-    with pytest.raises(ValueError, match="on_overflow"):
-        tm.sort_twiddled_msd((torch.from_numpy(x.view(np.int32)),),
-                             begin_bit=0, end_bit=32, total_bits=32,
-                             on_overflow="cond", config=SortConfig())
 
 
 def test_plan_is_planned_once_per_size():
@@ -262,10 +263,11 @@ def test_single_tile_route_below_min_n(n, nv, stable, k3):
     x = random_keys(rng, n)
     vals = [torch.from_numpy(np.arange(n, dtype=np.int32))] * nv
     tm.reset_counters()
-    (got,), gv = tm.sort_twiddled_msd(
+    (got,), gv, ovf = tm.sort_twiddled_msd(
         (torch.from_numpy(x.view(np.int32)),), vals, begin_bit=0, end_bit=32,
         total_bits=32, stable=stable,
         config=SortConfig(tile_elems=2048, radix=16, s1=256, min_n=4096))
+    assert ovf is None                   # exact: nothing to read
     np.testing.assert_array_equal(got.numpy().view(np.uint32), np.sort(x))
     if nv:
         np.testing.assert_array_equal(x[gv[0].numpy()], np.sort(x))
@@ -290,11 +292,11 @@ def test_composite_pairs_slice_matches_pallas():
     cfg = SortConfig(tile_elems=2048, radix=8, s1=384, leaf_max=2048,
                      min_n=4096)
     tm.reset_counters()
-    (tk,), (tv,) = tm.sort_twiddled_msd(
+    (tk,), (tv,), ovf = tm.sort_twiddled_msd(
         (torch.from_numpy(x.view(np.int32)),),
         (torch.from_numpy(v.view(np.int32)),), begin_bit=0, end_bit=32,
         total_bits=32, config=cfg)
-    assert tm.counters()["overflow_fallbacks"] == 0
+    assert not bool(ovf) and tm.counters()["overflow_fallbacks"] == 0
     np.testing.assert_array_equal(tk.numpy().view(np.uint32), np.asarray(jk))
     np.testing.assert_array_equal(tv.numpy().view(np.uint32), np.asarray(jv))
     perm = np.argsort(x, kind="stable")

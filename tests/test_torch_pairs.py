@@ -25,6 +25,8 @@ from tpusort_torch.utils.datagen import (entropy_keys, enumerated_values,
 N = 300_000
 LEVELS = list(range(1, 12)) + [0]
 CPU_PLAN = dict(k=2048, r=16, s1=256, min_n=4096)
+# the registered engine: radix, then the exact sort where its flag is set
+MSD = tpusort_torch.api._ENGINES["msd"]
 
 
 def _keys(level, dtype, salt=0):
@@ -144,7 +146,7 @@ def test_pairs_match_jax_engine(level):
             total_bits=32, use_pallas=False, plan_kwargs=CPU_PLAN,
             stable=stable, on_overflow="flag")
         tm.reset_counters()
-        (tk,), (tv,) = tm.sort_twiddled_msd(
+        (tk,), (tv,) = MSD(
             (_t(x.view(np.int32)),), (_t(v.view(np.int32)),), begin_bit=0,
             end_bit=32, total_bits=32, stable=stable,
             config=tpusort_torch.get_config(32, True, "cpu"))
@@ -176,7 +178,7 @@ def test_sort64_matches_jax_engine(level):
         total_bits=64, use_pallas=False, plan_kwargs=CPU_PLAN,
         on_overflow="flag")
     tm.reset_counters()
-    (thi, tlo), _ = tm.sort_twiddled_msd(
+    (thi, tlo), _ = MSD(
         (_t(hi.view(np.int32)), _t(lo.view(np.int32))), (), begin_bit=0,
         end_bit=64, total_bits=64,
         config=tpusort_torch.get_config(64, False, "cpu"))

@@ -269,12 +269,10 @@ def _engine(keys, offs, vals=None, *, stable=True, desc=False):
     seg = torch.from_numpy(np.searchsorted(offs[1:], np.arange(n),
                                            side="right").astype(np.int32))
     words = [] if vals is None else [torch.from_numpy(vals).view(torch.int32)]
-    done = tseg._sort_on_engine(np.asarray(offs, np.int64), seg, plane,
-                                words, stable=stable)
-    if done is None:
-        return None
-    out = tdt.twiddle_out((done[0],), traits, descending=desc).numpy()
-    return out, (done[1][0].numpy().view(vals.dtype) if words else None)
+    (kp,), sw = tseg._sort_on_engine(np.asarray(offs, np.int64), seg, plane,
+                                     words, stable=stable)
+    out = tdt.twiddle_out((kp,), traits, descending=desc).numpy()
+    return out, (sw[0].numpy().view(vals.dtype) if words else None)
 
 
 @pytest.mark.parametrize("nseg,equal", [(1, True), (3, True), (4, True),
@@ -295,7 +293,7 @@ def test_engine_route_matches_jax(nseg, equal, mode):
     tm.reset_counters()
     got = _engine(keys, offs, None if mode == "keys" else vals,
                   stable=mode == "stable")
-    assert got is not None and tm.counters()["overflow_fallbacks"] == 0
+    assert tm.counters()["overflow_fallbacks"] == 0
     assert tm.counters()["reference_routes"] == 0
     want = tpusort.segmented_sort(
         jnp.asarray(keys), jnp.asarray(offs),
@@ -329,19 +327,20 @@ def test_engine_route_descending_float_pairs():
 
 def test_engine_route_overflow_is_counted():
     """A large segment of one repeated key, among many small ones: its
-    elements share one place, their run overflows, the helper reports it
-    and counts the fallback; the public call's exact sort is the answer."""
+    elements share one place, their run overflows, the flag is read and
+    the fallback counted, and the exact way answers, as the public call's
+    does."""
     rng = np.random.default_rng(9)
     n = 40000
     keys = rng.integers(0, 2**32, n, dtype=np.uint32)
     keys[:30000] = 0x12345678
     offs = np.concatenate([[0], np.arange(30000, n + 1, 10)]).astype(np.int64)
     tm.reset_counters()
-    assert _engine(keys, offs) is None
+    got, _ = _engine(keys, offs)
     assert tm.counters()["overflow_fallbacks"] == 1
     want = tpusort.segmented_sort(jnp.asarray(keys), jnp.asarray(offs))
-    got = tpusort_torch.segmented_sort(torch.from_numpy(keys), offs)
-    _same(got, want)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    _same(tpusort_torch.segmented_sort(torch.from_numpy(keys), offs), want)
 
 
 def _skewed_batch(case, rng, n):
@@ -365,20 +364,23 @@ def test_engine_gate_sends_skewed_batches_to_the_exact_sort(case,
     """From ``planner.PLANNER_MIN_N`` keys on, a sample of the leading
     plane is checked before the engine runs: these batches overflow it
     (gate off), and with the gate on they are counted as reference routes
-    with no engine run; the public call's output is JAX's."""
+    with no engine run; either way, and in the public call, the output is
+    JAX's."""
     rng = np.random.default_rng(21)
     n = 40000
     keys, offs = _skewed_batch(case, rng, n)
     offs = offs.astype(np.int64)
+    want = tpusort.segmented_sort(jnp.asarray(keys), jnp.asarray(offs))
     tm.reset_counters()
-    assert _engine(keys, offs) is None
+    got, _ = _engine(keys, offs)
     assert tm.counters()["overflow_fallbacks"] == 1
+    np.testing.assert_array_equal(_bits(got), _bits(want))
     monkeypatch.setattr(tseg._planner, "PLANNER_MIN_N", 1 << 12)
     tm.reset_counters()
-    assert _engine(keys, offs) is None
+    got, _ = _engine(keys, offs)
     c = tm.counters()
     assert c["reference_routes"] == 1 and c["overflow_fallbacks"] == 0
-    want = tpusort.segmented_sort(jnp.asarray(keys), jnp.asarray(offs))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
     _same(tpusort_torch.segmented_sort(torch.from_numpy(keys), offs), want)
 
 
@@ -395,8 +397,7 @@ def test_engine_gate_lets_uniform_batches_through(nseg, equal, monkeypatch):
     tm.reset_counters()
     got = _engine(keys, offs, vals)
     c = tm.counters()
-    assert got is not None and c["reference_routes"] == 0 \
-        and c["overflow_fallbacks"] == 0
+    assert c["reference_routes"] == 0 and c["overflow_fallbacks"] == 0
     jk, jv = tpusort.segmented_sort(jnp.asarray(keys), jnp.asarray(offs),
                                     jnp.asarray(vals))
     np.testing.assert_array_equal(got[0], np.asarray(jk))
@@ -418,6 +419,5 @@ def test_jax_feed_overflows_on_the_port_engine(n, nseg):
                           .astype(np.uint32)).view(torch.int32)
     *_, ovf = tm.sort_twiddled_msd(
         (p0, keys), (), begin_bit=0, end_bit=64, total_bits=64,
-        config=get_config(64, False, "cpu"), on_overflow="flag",
-        skew_tier=False)
+        config=get_config(64, False, "cpu"))
     assert bool(ovf)

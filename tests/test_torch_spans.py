@@ -27,6 +27,7 @@ from tpusort_torch import planner as tpl
 from tpusort_torch.configs import SortConfig, get_config, register_config
 from tpusort_torch.ops import msd as tm
 from tpusort_torch.ops import segmented as tseg
+from tpusort_torch.ops import tiers as ttiers
 from tpusort_torch.parallel import InProcessComm, make_global_sort
 from tpusort_torch.utils import log as tlog
 
@@ -206,7 +207,7 @@ def sites(monkeypatch):
         seen.append(site)
         return orig(site)
 
-    for mod in (tapi, tm, tseg, tgs):
+    for mod in (tapi, ttiers, tseg, tgs):
         monkeypatch.setattr(mod, "host_read", spy)
     tm.reset_counters()
     return seen
@@ -219,11 +220,13 @@ def _engine_route():
     rng = np.random.default_rng(5)
     keys = rng.integers(0, 2**32, n, dtype=np.uint32)
     offs = np.linspace(0, n, 65).astype(np.int64)
-    (plane,), _ = tdt.twiddle_in(torch.from_numpy(keys))
+    (plane,), traits = tdt.twiddle_in(torch.from_numpy(keys))
     seg = torch.from_numpy(np.searchsorted(offs[1:], np.arange(n),
                                            side="right").astype(np.int32))
-    assert tseg._sort_on_engine(offs, seg, plane, [], stable=True) \
-        is not None
+    got, _ = tseg._sort_on_engine(offs, seg, plane, [], stable=True)
+    want = np.concatenate([np.sort(keys[a:b])
+                           for a, b in zip(offs[:-1], offs[1:])])
+    np.testing.assert_array_equal(tdt.twiddle_out(got, traits).numpy(), want)
 
 
 def _segmented():

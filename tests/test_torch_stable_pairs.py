@@ -23,6 +23,9 @@ from tpusort_torch.kernels import partition as tp
 from tpusort_torch.ops import msd as tm
 from tpusort_torch.utils.datagen import enumerated_values, random_keys
 
+# the registered engine: radix, then the exact sort where its flag is set
+MSD = tpusort_torch.api._ENGINES["msd"]
+
 
 @dataclasses.dataclass(frozen=True)
 class _Config(SortConfig):
@@ -88,7 +91,7 @@ def _stable_pairs(x, cfg, plan_kwargs):
     (port keys, port values, JAX keys, JAX values, JAX overflow)."""
     v = enumerated_values(x.shape[0])
     tm.reset_counters()
-    (tk,), (tv,) = tm.sort_twiddled_msd(
+    (tk,), (tv,) = MSD(
         (_i32(x),), (_i32(v),), begin_bit=0, end_bit=32, total_bits=32,
         config=cfg)
     assert tm.counters()["overflow_fallbacks"] == 0
@@ -129,7 +132,7 @@ def test_stable_pairs_on_the_strided_feed_take_the_general_path():
     x = _wide_keys("distinct16")
     v = enumerated_values(N_WIDE)
     tm.reset_counters()
-    (tk,), (tv,) = tm.sort_twiddled_msd(
+    (tk,), (tv,) = MSD(
         (_i32(x),), (_i32(v),), begin_bit=0, end_bit=32, total_bits=32,
         config=WIDE, strided=True)
     assert tm.counters()["overflow_fallbacks"] == 0

@@ -25,6 +25,7 @@ from tpusort_torch import api as tapi
 from tpusort_torch import planner as tpl
 from tpusort_torch.configs import SortConfig, get_config, register_config
 from tpusort_torch.ops import msd as tm
+from tpusort_torch.ops import tiers as ttiers
 from tpusort_torch.utils.datagen import (
     entropy_keys, enumerated_values, random_keys, zipf_keys)
 
@@ -292,3 +293,75 @@ def test_tier_chain_default_by_device():
         "radix", "equidepth", "exact")
     assert tapi._tier_chain(SKEW, torch.device("cpu")) == (
         "radix", "equidepth", "exact")
+
+
+class _Flag:
+    """An overflow flag whose host reads are logged."""
+
+    def __init__(self, log, name, value):
+        self.log, self.name, self.value = log, name, value
+
+    def __bool__(self):
+        self.log.append("read " + self.name)
+        return self.value
+
+
+def _attempts(log, flags):
+    """One attempt a flag (True set, False clear, None exact), named a, b,
+    c...; each logs its run and returns its name as its planes."""
+    def attempt(name, value):
+        def run():
+            log.append(name)
+            return (name,), (), (None if value is None
+                                 else _Flag(log, name, value))
+        return run
+    return [attempt("abc"[i], v) for i, v in enumerate(flags)]
+
+
+# (flags, route, first_sync, the log, the winner)
+CHAINS = {
+    "first_clear_wins": ((False, True, None), "overflow_fallbacks", False,
+                         ["a", "read a"], "a"),
+    "last_never_read": ((True, True), "overflow_fallbacks", False,
+                        ["a", "read a", "b"], "b"),
+    "first_sync_before_read": ((True, False, None), "overflow_fallbacks",
+                               True, ["a", "sync", "read a", "b", "read b"],
+                               "b"),
+    "sample_route": ((True, None), "sample_fallbacks", False,
+                     ["a", "read a", "b"], "b"),
+    "exact_first_never_read": ((None, None), "overflow_fallbacks", True,
+                               ["a", "sync"], "a"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHAINS))
+def test_first_clear_runs_the_chain(case, monkeypatch):
+    """``ops.tiers.first_clear``: the first attempt whose flag is clear
+    wins and later attempts never run; the last attempt's flag and a None
+    flag are never read; ``first_sync`` runs after the first dispatch and
+    before its read; each read is a ``host_read`` at the caller's site,
+    and the last attempt, run after a flag, counts the caller's route."""
+    flags, route, sync, want_log, winner = CHAINS[case]
+    log, sites = [], []
+    real = ttiers.host_read
+
+    def spy(site):
+        sites.append(site)
+        return real(site)
+
+    monkeypatch.setattr(ttiers, "host_read", spy)
+    tm.reset_counters()
+    got = ttiers.first_clear(
+        _attempts(log, flags), "chain_flag", route=route,
+        first_sync=(lambda: log.append("sync")) if sync else None)
+    assert got == ((winner,), ())
+    assert log == want_log
+    reads = [e for e in log if e.startswith("read ")]
+    assert sites == ["chain_flag"] * len(reads)
+    c = tm.counters()
+    assert c["host_reads"] == len(reads)
+    fell = winner == "abc"[len(flags) - 1] and len(flags) > 1
+    assert c[route] == int(fell)
+    other = {"overflow_fallbacks": "sample_fallbacks",
+             "sample_fallbacks": "overflow_fallbacks"}[route]
+    assert c[other] == 0

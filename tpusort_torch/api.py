@@ -11,7 +11,8 @@ Engines are looked up by name in a registry (``register_engine``,
 ``available_engines``), as in ``tpusort/api.py:53-134``: ``algorithm="auto"``
 takes the config's ``default_algorithm``, and the radix names in
 ``_TIERED_ALGOS`` run the host tiering below; any other name calls that
-engine once on the twiddled planes.
+engine once on the twiddled planes.  The registered radix and equi-depth
+engines run their engine, then the exact sort where its flag is set.
 
 64-bit keys and values are split into (hi, lo) int32 planes by copies on
 the device (``dtypes.split64``) and joined back by a stack: the same words
@@ -19,16 +20,17 @@ the JAX package's numpy host boundary makes, without the round trip.
 
 ``sort`` and ``sort_planes`` (and ``argsort`` through it) run the JAX
 API's host tiering (``tpusort/api.py:203-486``): a tier chain, radix ->
-equi-depth -> exact, each tier's overflow flag read on the host before the
-next is tried (the equi-depth tier runs where ``SortConfig.skew_tier`` is
-True, or None on a CUDA tensor); and, for full-range sorts of at least
+equi-depth -> exact (the equi-depth tier runs where ``SortConfig.skew_tier``
+is True, or None on a CUDA tensor); and, for full-range sorts of at least
 ``planner.PLANNER_MIN_N`` keys, a strided sample of the twiddled keys that
 the host planner reads to skip a doomed radix tier, or to return an input
 that one device check finds already sorted.  Decisions are cached per
 shape, dtype and config (``_TIER_CACHE``), so a steady workload dispatches
 at once and the sample, queued before the sort, refreshes the cache while
-the sort runs.  JAX's in-graph ``lax.cond`` mode is not ported: the flag
-is always read on the host.
+the sort runs.  The engines only report overflow, as a flag on the device;
+``ops/tiers.py`` owns the fallback: it reads each tier's flag on the host
+before the next tier is tried, here and wherever else an engine runs.
+JAX's in-graph ``lax.cond`` mode is not ported.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from tpusort_torch.ops.equidepth import sort_twiddled_equidepth
 from tpusort_torch.ops.msd import _plan_cached, count_route, sort_twiddled_msd
 from tpusort_torch.ops.reference import sort_twiddled_reference
 from tpusort_torch.ops.small import sort_twiddled_bitonic
+from tpusort_torch.ops.tiers import first_clear
 from tpusort_torch.utils.log import host_read, span, spanned
 
 __all__ = [
@@ -115,15 +118,32 @@ def _resolve_engine(algorithm: str, config: _configs.SortConfig) -> Engine:
     return _ENGINES[algorithm]
 
 
+def _or_exact(engine: Callable, site: str, **fixed) -> Engine:
+    """``engine``, then the exact sort where its overflow flag is set: a
+    registered engine's (planes, values)."""
+    def run(planes, values=(), *, begin_bit, end_bit, total_bits,
+            config=None, **kw):
+        bits = dict(begin_bit=begin_bit, end_bit=end_bit,
+                    total_bits=total_bits)
+        return first_clear(
+            [lambda: engine(planes, values, config=config, **bits,
+                            **{**fixed, **kw}),
+             lambda: (*sort_twiddled_reference(planes, values, **bits),
+                      None)], site)
+    return run
+
+
+_msd_engine = _or_exact(sort_twiddled_msd, "msd_flag")
+_msd_unstable = _or_exact(sort_twiddled_msd, "msd_flag", stable=False)
 # the exact sort; "xla" is JAX's name for the same one
 register_engine("reference", sort_twiddled_reference)
 register_engine("xla", sort_twiddled_reference)
-register_engine("msd", sort_twiddled_msd)
-register_engine("msd_unstable",
-                functools.partial(sort_twiddled_msd, stable=False))
-register_engine("msd_equidepth", sort_twiddled_equidepth)
+register_engine("msd", _msd_engine)
+register_engine("msd_unstable", _msd_unstable)
+register_engine("msd_equidepth",
+                _or_exact(sort_twiddled_equidepth, "equidepth_flag"))
 # the MSD engine is stable, so it stands for CUB's stable LSD sort too
-register_engine("lsd", sort_twiddled_msd)
+register_engine("lsd", _msd_engine)
 # the single-tile path (K3), unstable; larger inputs go to the exact sort
 register_engine("bitonic", sort_twiddled_bitonic)
 
@@ -212,29 +232,16 @@ def _skip_radix_tier(sample: np.ndarray, n: int, total_bits: int,
 def _run_tier_chain(dispatch: Callable, cfg, device: torch.device,
                     skip_radix: bool = False,
                     first_sync: Optional[Callable] = None):
-    """Dispatch the tiers until one reports no overflow (the last always
-    stands).  ``dispatch(tier)`` -> (keys, values, overflow flag on the
-    device).  ``first_sync`` (the cache refresh) runs right after the
-    first dispatch, before its flag is read, so the host planner works
-    while the card sorts."""
+    """The tiers of :func:`_tier_chain` through ``ops.tiers.first_clear``
+    (site ``tier_flag``).  ``dispatch(tier)`` -> (keys, values, overflow
+    flag).  ``first_sync`` (the cache refresh) runs right after the first
+    dispatch, before its flag is read, so the host planner works while
+    the card sorts."""
     tiers = _tier_chain(cfg, device)
     if skip_radix and len(tiers) > 2:
         tiers = tiers[1:]
-    out = None
-    for i, tier in enumerate(tiers):
-        out = None                # free the overflowed tier's output first
-        with span("tpusort.tier." + tier):
-            *out, ovf = dispatch(tier)
-        if first_sync is not None:
-            first_sync()
-            first_sync = None
-        if i == len(tiers) - 1:
-            break
-        with host_read("tier_flag"):
-            overflowed = bool(ovf)
-        if not overflowed:
-            break
-    return out
+    return first_clear([functools.partial(dispatch, t) for t in tiers],
+                       "tier_flag", first_sync=first_sync)
 
 
 def _plan(decide: Callable, sample: "_Sample"):
@@ -287,22 +294,6 @@ def _tiered_flow(ckey: tuple, classify, decide: Callable, cfg,
                            first_sync=refresh)
 
 
-def _dispatch_tier(tier: str, planes, words, bits: dict, stable: bool, cfg):
-    """One tier on twiddled planes and value words: (sorted planes, sorted
-    words, overflow flag or None for the exact tier)."""
-    if tier == "radix":
-        count_route("radix_tiers")
-        return sort_twiddled_msd(planes, words, config=cfg, stable=stable,
-                                 on_overflow="flag", **bits)
-    if tier == "equidepth":
-        return sort_twiddled_equidepth(planes, words, config=cfg,
-                                       stable=stable, on_overflow="flag",
-                                       **bits)
-    count_route("overflow_fallbacks")      # exact after a flagged tier
-    sp, sw = sort_twiddled_reference(planes, words, **bits)
-    return sp, sw, None
-
-
 def _sort_tiered(planes, traits, vt, *, kind: str, begin_bit: int,
                  end_bit: Optional[int], stable: bool, descending: bool,
                  device: torch.device, finish: Callable,
@@ -334,8 +325,19 @@ def _sort_tiered(planes, traits, vt, *, kind: str, begin_bit: int,
     stable = stable and algo != "msd_unstable"
 
     def dispatch(tier):
-        sp, sw, ovf = _dispatch_tier(tier, planes, words, bits, stable, cfg)
-        return finish(sp), _dtypes.join_values(sw, spec), ovf
+        """One tier: (keys, values, overflow flag, None where exact)."""
+        with span("tpusort.tier." + tier):
+            if tier == "radix":
+                count_route("radix_tiers")
+                sp, sw, ovf = sort_twiddled_msd(planes, words, config=cfg,
+                                                stable=stable, **bits)
+            elif tier == "equidepth":
+                sp, sw, ovf = sort_twiddled_equidepth(
+                    planes, words, config=cfg, stable=stable, **bits)
+            else:
+                (sp, sw), ovf = sort_twiddled_reference(planes, words,
+                                                        **bits), None
+            return finish(sp), _dtypes.join_values(sw, spec), ovf
 
     def decide(sample):
         tier = "radix"
@@ -533,7 +535,7 @@ def sort_pairs_lsb_in_value(keys: torch.Tensor, values: torch.Tensor,
     if descending:
         comp = tuple(~p for p in comp)
     cfg = _configs.get_config(64, True, keys.device.type)
-    sp, (sv,) = sort_twiddled_msd(comp, (v,), begin_bit=0, end_bit=64,
-                                  total_bits=64, config=cfg, stable=False)
+    sp, (sv,) = _msd_unstable(comp, (v,), begin_bit=0, end_bit=64,
+                              total_bits=64, config=cfg)
     k_plane = ~sp[0] if descending else sp[0]
     return _dtypes.twiddle_out((k_plane,), traits), sv.view(values.dtype)

@@ -24,8 +24,8 @@ class SortConfig:
     leaf_max: Optional[int] = None # max final segment size (None = auto)
     min_n: int = 1 << 16           # below this the engine delegates
     small_n_threshold: int = 1 << 14  # single-tile path (K3) up to this n
-    # the equi-depth skew tier: in the host tier chain (radix -> equi-depth
-    # -> exact) and the engine's overflow route; None = on for CUDA tensors
+    # the equi-depth skew tier in the host tier chain (radix -> equi-depth
+    # -> exact); None = on for CUDA tensors
     skew_tier: Optional[bool] = None
     skew_sample_log2: Optional[int] = None  # splitter sample size (None = auto)
     default_algorithm: str = "msd" # the engine algorithm="auto" calls

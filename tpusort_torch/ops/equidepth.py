@@ -20,14 +20,15 @@ makes the buckets adaptive instead:
   relief sweep;
 * the last pass's capacity is widened for the sample's quantile noise
   (:func:`_widen_last`), and the leaf is the radix engine's (K2);
-* a cut forced outside its legal range poisons the tile's counts, and the
-  caller takes the exact reference sort.
+* a cut forced outside its legal range poisons the tile's counts and
+  raises the overflow flag.
 
 Keys only and unstable pairs of 1-2 key planes over the full bit range,
 plus stable 32-bit pairs through the composite (key, position) planes;
 everything else is delegated to the reference sort.  Unlike the JAX
 engine, which folds the fallback into the graph with ``lax.cond``, this one
-reads its overflow flag on the host (or returns it, ``on_overflow="flag"``).
+returns its overflow flag on the device and takes no fallback: its callers
+state theirs through ``ops/tiers.py``, which reads the flag.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ from tpusort_torch.configs import get_config
 from tpusort_torch.kernels.partition import partition_pass_fused
 from tpusort_torch.ops import msd as _msd
 from tpusort_torch.ops.reference import sort_twiddled_reference
-from tpusort_torch.utils.log import host_read, span, spanned
+from tpusort_torch.ops.tiers import first_clear
+from tpusort_torch.utils.log import span, spanned
 
 __all__ = ["sort_twiddled_equidepth", "supports"]
 
@@ -117,12 +119,11 @@ def _quantile_table(planes: Sequence[torch.Tensor], n: int, nq: int,
                     sample_log2: Optional[int] = None) -> _EqTable:
     """Equi-depth splitters and tie spans from a strided sample of
     planes[:n] (port of ``tpusort.ops.equidepth._quantile_table``).  A
-    sample of 2^18 or more sorts through the radix engine in flag mode, so
-    no skew route nests, and a skewed sample then takes the exact
-    reference sort (JAX selects in the graph; here the flag is read on the
-    host, and this fallback is counted apart from the call's, as
-    ``sample_fallbacks``); a smaller sample sorts through the reference
-    sort."""
+    sample of 2^18 or more sorts through the radix engine, and a skewed
+    sample then takes the exact reference sort (JAX selects in the graph;
+    here the flag is read on the host, and this fallback is counted apart
+    from the call's, as ``sample_fallbacks``); a smaller sample sorts
+    through the reference sort."""
     if sample_log2 is None:
         target = max(1 << 16, min(_sample_cap(n), n // 8))
     else:
@@ -132,18 +133,13 @@ def _quantile_table(planes: Sequence[torch.Tensor], n: int, nq: int,
     m = samples[0].shape[0]
     bits = 32 * len(planes)
     ref_bits = dict(begin_bit=0, end_bit=bits, total_bits=bits)
+    cfg = get_config(bits, False, samples[0].device.type)
+    chain = [lambda: (*sort_twiddled_reference(samples, (), **ref_bits),
+                      None)]
     if m >= (1 << 18):
-        cfg = get_config(bits, False, samples[0].device.type)
-        sp, _, ovf = _msd.sort_twiddled_msd(
-            samples, (), config=cfg, on_overflow="flag", **ref_bits)
-        with host_read("sample_flag"):
-            skewed = bool(ovf)
-        if skewed:               # a skewed sample: its exact sort instead
-            _msd.count_route("sample_fallbacks")
-            sp, _ = sort_twiddled_reference(samples, (), **ref_bits)
-        samples = sp
-    else:
-        samples, _ = sort_twiddled_reference(samples, (), **ref_bits)
+        chain.insert(0, lambda: _msd.sort_twiddled_msd(
+            samples, (), config=cfg, **ref_bits))
+    samples, _ = first_clear(chain, "sample_flag", route="sample_fallbacks")
     # the ranks are static; int64, as i * m overflows int32 in deep tables
     # (nq 32767 x m 2^23)
     i = np.arange(1, nq + 1, dtype=np.int64)
@@ -279,7 +275,6 @@ def sort_twiddled_equidepth(
     config=None,
     plan_kwargs: Optional[dict] = None,
     stable: bool = False,
-    on_overflow: str = "fallback",
 ):
     """Ascending sort of twiddled int32 planes (plane 0 most significant)
     with int32 payload words through the equi-depth pipeline (port of
@@ -294,52 +289,37 @@ def sort_twiddled_equidepth(
     invalid-slot sentinel raises the overflow flag too, as payloads ride
     unstably past it.
 
-    ``on_overflow="fallback"`` reads the flag on the host and returns
-    (planes, values), from the exact reference sort when it is set;
-    ``"flag"`` returns (planes, values, overflow) with the flag on the
-    device and takes no fallback (the API's tier chain owns it).
+    Returns (planes, values, overflow), as ``ops.msd.sort_twiddled_msd``
+    does: the flag a 0-d bool tensor on the device, or None where the
+    input went to the reference sort.
     """
-    if on_overflow not in ("fallback", "flag"):
-        raise ValueError(f"on_overflow must be 'fallback' or 'flag', got "
-                         f"{on_overflow!r}")
-    flag_mode = on_overflow == "flag"
     n = planes[0].shape[0]
     if plan_kwargs is None and config is not None:
         plan_kwargs = config.plan_kwargs()
         if config.skew_sample_log2 is not None:
             plan_kwargs["sample_log2"] = config.skew_sample_log2
     kwargs, min_n, sample_log2, m_sample, leaf_max = _prepare(n, plan_kwargs)
-    bits = dict(begin_bit=begin_bit, end_bit=end_bit, total_bits=total_bits)
-
-    def _delegate():
-        _msd.count_route("reference_routes")
-        sp, sv = sort_twiddled_reference(planes, values, **bits)
-        if flag_mode:
-            return sp, sv, torch.zeros((), dtype=torch.bool,
-                                       device=planes[0].device)
-        return sp, sv
-
-    if (not supports(len(planes), len(values), begin_bit, end_bit,
-                     total_bits, stable=stable)
-            or n < min_n
-            or any(v.element_size() != 4 for v in values)):
-        return _delegate()
-
-    if stable and values:
-        # the composite (key, position) planes: the position is unique, so
-        # the unstable 2-plane pipeline is stable by key, and the all-ones
-        # sentinel never equals a real (key, position)
-        gidx = torch.arange(n, dtype=torch.int32, device=planes[0].device)
-        res = sort_twiddled_equidepth(
-            (planes[0], gidx), values, begin_bit=0, end_bit=64,
-            total_bits=64, plan_kwargs=plan_kwargs, stable=False,
-            on_overflow=on_overflow)
-        return ((res[0][0],), *res[1:])
-
-    plan = _msd._plan_cached(n, begin_bit, end_bit, "raw",
-                             tuple(sorted(kwargs.items())))
+    plan = None
+    if (supports(len(planes), len(values), begin_bit, end_bit, total_bits,
+                 stable=stable)
+            and n >= min_n and all(v.element_size() == 4 for v in values)):
+        if stable and values:
+            # the composite (key, position) planes: the position is
+            # unique, so the unstable 2-plane pipeline is stable by key,
+            # and the all-ones sentinel never equals a real (key, position)
+            gidx = torch.arange(n, dtype=torch.int32,
+                                device=planes[0].device)
+            sp, sv, ovf = sort_twiddled_equidepth(
+                (planes[0], gidx), values, begin_bit=0, end_bit=64,
+                total_bits=64, plan_kwargs=plan_kwargs, stable=False)
+            return sp[:1], sv, ovf
+        plan = _msd._plan_cached(n, begin_bit, end_bit, "raw",
+                                 tuple(sorted(kwargs.items())))
     if plan is None:
-        return _delegate()
+        _msd.count_route("reference_routes")
+        return (*sort_twiddled_reference(planes, values, begin_bit=begin_bit,
+                                         end_bit=end_bit,
+                                         total_bits=total_bits), None)
     plan = _widen_last(plan, n, m_sample, leaf_max)
     _msd.count_route("equidepth_runs")
     q = _quantile_table(planes, n, plan.passes[0].r ** len(plan.passes) - 1,
@@ -353,12 +333,4 @@ def sort_twiddled_equidepth(
             is_max &= p_ == -1
         overflow |= is_max.any()
     nplanes = len(planes)
-    if flag_mode:
-        return tuple(out[:nplanes]), tuple(out[nplanes:]), overflow
-    with host_read("equidepth_flag"):    # the one host sync of the path
-        overflowed = bool(overflow)
-    if overflowed:
-        del out
-        _msd.count_route("overflow_fallbacks")
-        return sort_twiddled_reference(planes, values, **bits)
-    return tuple(out[:nplanes]), tuple(out[nplanes:])
+    return tuple(out[:nplanes]), tuple(out[nplanes:]), overflow

@@ -27,9 +27,10 @@ of multi-plane keys.
   sorts each segment stably by its remaining bits: a packed (segment,
   remainder, position) word on K3 followed by the collapse K4 where the
   word fits 32 bits, else K2 on the masked planes plus the position;
-* a run that overflows its capacity (count > S) is caught on the device:
-  the flag is read on the host once, and the exact reference sort
-  replaces the result;
+* a run that overflows its capacity (count > S) raises a flag on the
+  device, which :func:`sort_twiddled_msd` returns with its output and
+  never reads: the caller's chain of attempts (``ops/tiers.py``) reads it
+  and takes the next attempt, down to the exact sort;
 * inputs too small for a plan go to the single-tile path (K3,
   ``ops/small.py``) where it applies, and to the reference sort otherwise.
 
@@ -65,7 +66,7 @@ from tpusort_torch.ops.reference import (
     _mask_plane_bits, sort_twiddled_reference)
 from tpusort_torch.ops.small import single_tile_ok, sort_twiddled_bitonic
 from tpusort_torch.parallel.ring import ring_all_to_all
-from tpusort_torch.utils.log import COUNTS, host_read, span, spanned
+from tpusort_torch.utils.log import COUNTS, span, spanned
 
 # ---------------------------------------------------------------------------
 # Geometry planning (verbatim from tpusort/ops/msd.py)
@@ -344,8 +345,8 @@ def counters() -> dict:
     partition passes) launches; reference routes
     (an engine delegating: no plan and no single-tile path, or a shape the
     equi-depth engine does not take); overflow fallbacks (exact sorts after
-    an overflow flag, in an engine, the segmented route, the API's tier
-    chain or a shard's windows finish); the radix tiers the tier chain
+    an overflow flag, each counted by ``ops/tiers.py`` at the end of its
+    caller's chain); the radix tiers the tier chain
     dispatched; the equi-depth pipelines run, and the exact sorts their
     samples took after an overflow; presorted inputs returned as they
     were; global sorts whose exchange would overflow its capacity, which
@@ -859,11 +860,6 @@ def sort_windows_msd(
     return raw_leaf(data, ctable, q, plan, nplanes, n), overflow
 
 
-def _reference(planes, values, bits):
-    count_route("reference_routes")
-    return sort_twiddled_reference(planes, values, **bits)
-
-
 def sort_twiddled_msd(
     planes: Tuple[torch.Tensor, ...],
     values: Sequence[torch.Tensor] = (),
@@ -873,15 +869,18 @@ def sort_twiddled_msd(
     total_bits: int,
     config,
     stable: bool = True,
-    on_overflow: str = "fallback",
-    skew_tier: Optional[bool] = None,
     strided: bool = False,
 ):
     """Ascending sort of twiddled int32 planes (plane 0 most significant)
     by the unsigned value of bits [begin_bit, end_bit), with int32 payload
     words, on the tensors' device (port of
-    ``tpusort.ops.msd.sort_twiddled_msd``).  Returns (sorted planes, sorted
-    values); the planes come back whole, bits outside the range included.
+    ``tpusort.ops.msd.sort_twiddled_msd`` in its ``on_overflow="flag"``
+    mode).  Returns (sorted planes, sorted values, overflow); the planes
+    come back whole, bits outside the range included.  ``overflow`` is a
+    0-d bool tensor on the device, set where a run overflowed its
+    capacity and the output is then not sorted, or None where the input
+    went to an exact sort.  The engine takes no fallback: its callers
+    state theirs through ``ops.tiers``.
 
     Full-range keys only (1-3 planes), unstable pairs (``stable=False``)
     and stable pairs of one-plane keys run K1 and K2 on the raw key
@@ -892,19 +891,7 @@ def sort_twiddled_msd(
     multi-plane keys, takes the general path: K1c passes, which keep input
     order within a digit, then :func:`_leaf_sort`; it is stable, keys only
     or not.  Delegates to the single-tile path or the reference sort below
-    ``config.min_n`` or when no plan exists.  Otherwise runs the passes and
-    the leaf; a run that overflowed raises the overflow flag.
-
-    ``on_overflow="fallback"`` (the default) reads the flag on the host once
-    and, when it is set, takes the exact reference sort, or first the
-    equi-depth engine (``ops.equidepth``) where ``skew_tier`` routes there:
-    keys only, one plane, the full 32-bit range and n < 2^28 (JAX's
-    in-engine skew route, ``tpusort/ops/msd.py:789-818``).  ``skew_tier``
-    None takes ``config.skew_tier``, and None there means on for CUDA
-    tensors.  ``on_overflow="flag"`` returns (planes, values, overflow),
-    the flag a 0-d bool tensor still on the device, and takes no fallback:
-    the API's tier chain reads it.  (The JAX engine's in-graph ``"cond"``
-    mode has no counterpart: the port always reads flags on the host.)
+    ``config.min_n`` or when no plan exists.
 
     Keys-only bit-range sorts take K1c, not JAX's route: the Pallas engine
     sends them to its raw-key branch, which sorts each tile by the whole
@@ -918,14 +905,9 @@ def sort_twiddled_msd(
     strided tiles break input order, so stable pairs with it take the
     general path.
     """
-    if on_overflow not in ("fallback", "flag"):
-        raise ValueError(f"on_overflow must be 'fallback' or 'flag', got "
-                         f"{on_overflow!r}")
-    flag_mode = on_overflow == "flag"
     nplanes = len(planes)
     full = begin_bit == 0 and end_bit == total_bits == 32 * nplanes
     n = planes[0].shape[0]
-    dev = planes[0].device
     # stable one-plane pairs: K1 and K2 keep slot order, which is input
     # order on the contiguous feed (not the strided one)
     raw = full and nplanes <= MAX_PLANES and (
@@ -941,13 +923,12 @@ def sort_twiddled_msd(
             sp, sv = sort_twiddled_bitonic(planes, values, config=config,
                                            **bits)
         else:
-            sp, sv = _reference(planes, values, bits)
-        if flag_mode:
-            return sp, sv, torch.zeros((), dtype=torch.bool, device=dev)
-        return sp, sv
-    # The host reads the overflow flag (JAX's on_overflow="flag" mode), so
-    # no fallback workspace is reserved in advance and the JAX engine's
-    # 2^29 in-graph cap does not apply.
+            count_route("reference_routes")
+            sp, sv = sort_twiddled_reference(planes, values, **bits)
+        return sp, sv, None
+    # The host reads the overflow flag, so no fallback workspace is
+    # reserved in advance and the JAX engine's 2^29 in-graph cap does not
+    # apply.
     init = None
     if strided and raw:
         ops, ctable0 = strided_feed([*planes, *values], n, plan)
@@ -962,23 +943,4 @@ def sort_twiddled_msd(
     outs = (raw_leaf(data, ctable, q_fin, plan, nplanes, n) if raw
             else _leaf_sort(data, nplanes, ctable, q_fin, plan, n))
     del data, ctable                     # free the pass buffers first
-    if flag_mode:
-        return tuple(outs[:nplanes]), tuple(outs[nplanes:]), overflow
-    with host_read("msd_flag"):          # the one host sync of the path
-        overflowed = bool(overflow)
-    if overflowed:
-        del outs
-        if skew_tier is None:
-            skew_tier = config.skew_tier
-        if skew_tier is None:
-            skew_tier = dev.type == "cuda" and not values and nplanes == 1 \
-                and full and n < (1 << 28)
-        if skew_tier and not values:
-            # the equi-depth engine, with its own exact fallback (imported
-            # here: it imports this module)
-            from tpusort_torch.ops.equidepth import sort_twiddled_equidepth
-
-            return sort_twiddled_equidepth(planes, (), config=config, **bits)
-        count_route("overflow_fallbacks")
-        return sort_twiddled_reference(planes, values, **bits)
-    return tuple(outs[:nplanes]), tuple(outs[nplanes:])
+    return tuple(outs[:nplanes]), tuple(outs[nplanes:]), overflow

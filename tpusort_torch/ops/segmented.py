@@ -58,6 +58,7 @@ from tpusort_torch.kernels.partition import MAX_VALUES
 from tpusort_torch.ops import msd as _msd
 from tpusort_torch.ops.reference import (
     _mask_plane_bits, sort_rows_lex, sort_twiddled_reference)
+from tpusort_torch.ops.tiers import first_clear
 from tpusort_torch.utils.log import host_read, spanned
 
 __all__ = ["segmented_sort", "sort_batched"]
@@ -239,22 +240,36 @@ def _looks_doomed(offsets: np.ndarray, key: torch.Tensor, plan) -> bool:
                for c, (w, spec) in zip(heaviest, levels))
 
 
+def _sort_exact(seg_id: torch.Tensor, planes, cmp_planes, words,
+                full_range: bool = True):
+    """The exact way: the stable sort by (segment, comparison planes), the
+    full planes (under a bit window) and the value words carried.
+    Returns (sorted key planes, sorted words, None): an exact attempt."""
+    carry = [] if full_range else list(planes)
+    bits = 32 * (1 + len(cmp_planes))
+    sp, sv = sort_twiddled_reference(
+        (seg_id, *cmp_planes), (*carry, *words), begin_bit=0, end_bit=bits,
+        total_bits=bits)
+    return (sp[1:] if full_range else sv[:len(planes)]), sv[len(carry):], \
+        None
+
+
 def _sort_on_engine(
     offsets: np.ndarray, seg_id: torch.Tensor, key: torch.Tensor,
     words: Sequence[torch.Tensor], *, stable: bool, config=None,
-) -> Optional[Tuple[torch.Tensor, List[torch.Tensor]]]:
+) -> Tuple[Tuple[torch.Tensor], List[torch.Tensor]]:
     """The engine route of :func:`segmented_sort`: one raw-key engine run
     (K1 passes, the K2 leaf) over the (n,) twiddled key plane and value
     words of a batch with these host ``offsets`` and per-element segment
     ids, ascending by the planes (:func:`_spread_plane`, key), and by a
     position plane after them when ``stable`` and there are values.
-    Returns (sorted key plane, sorted words), or None when the caller is to
-    take the exact sort: the sample gate said the runs would overflow
-    (batches of ``planner.PLANNER_MIN_N`` keys and more; counted in
-    ``reference_routes``, nothing launched), or a run did overflow (counted
-    in ``overflow_fallbacks``).  Reads the sample's heaviest buckets and
-    the overflow flag on the host, the two syncs of the route.  ``config`` defaults to the
-    64-bit row of the tensors' device.
+    Returns ((sorted key plane,), sorted words).  The exact way
+    (:func:`_sort_exact`) sorts instead where the sample gate says the
+    runs would overflow (batches of ``planner.PLANNER_MIN_N`` keys and
+    more; counted in ``reference_routes``, nothing launched), and after
+    the engine where a run did overflow (``ops.tiers``, site
+    ``segmented_flag``; counted in ``overflow_fallbacks``).
+    ``config`` defaults to the 64-bit row of the tensors' device.
 
     Pass 0 reads strided tiles (in input order a tile would hold one
     stretch of one segment, so one digit).  The spread plane is never
@@ -272,33 +287,36 @@ def _sort_on_engine(
     plan = _msd._plan_cached(n, 0, total, "raw",
                              tuple(sorted(kwargs.items()))) \
         if n >= min_n else None
+
+    def exact():
+        return _sort_exact(seg_id, (key,), (key,), words)
+
     if (plan is not None and n >= _planner.PLANNER_MIN_N
             and _looks_doomed(offsets, key, plan)):
         _msd.count_route("reference_routes")
-        return None
-    planes = [_spread_plane(offsets, seg_id, key, n), key]
-    if nplanes == 3:
-        planes.append(torch.arange(n, dtype=torch.int32, device=key.device))
-    if plan is None:
-        sp, sv, overflow = _msd.sort_twiddled_msd(
-            tuple(planes), tuple(words), begin_bit=0, end_bit=total,
-            total_bits=total, config=config, stable=False,
-            on_overflow="flag")
-        outs = [*sp, *sv]
-    else:
-        ops, ctable = _msd.strided_feed([*planes, *words], n, plan)
-        del planes
-        data, (ctable, q), overflow = _msd.run_passes(
-            ops, nplanes, n, plan, unstable=bool(words),
-            init_chain=(ctable, 128, None))
-        del ops
-        outs = _msd.raw_leaf(data, ctable, q, plan, nplanes, n)
-    with host_read("segmented_flag"):
-        overflowed = bool(overflow)
-    if overflowed:
-        _msd.count_route("overflow_fallbacks")
-        return None
-    return outs[1], list(outs[nplanes:])
+        return exact()[:2]
+
+    def engine():
+        planes = [_spread_plane(offsets, seg_id, key, n), key]
+        if nplanes == 3:
+            planes.append(torch.arange(n, dtype=torch.int32,
+                                       device=key.device))
+        if plan is None:
+            sp, sv, overflow = _msd.sort_twiddled_msd(
+                tuple(planes), tuple(words), begin_bit=0, end_bit=total,
+                total_bits=total, config=config, stable=False)
+            outs = [*sp, *sv]
+        else:
+            ops, ctable = _msd.strided_feed([*planes, *words], n, plan)
+            del planes
+            data, (ctable, q), overflow = _msd.run_passes(
+                ops, nplanes, n, plan, unstable=bool(words),
+                init_chain=(ctable, 128, None))
+            del ops
+            outs = _msd.raw_leaf(data, ctable, q, plan, nplanes, n)
+        return (outs[1],), list(outs[nplanes:]), overflow
+
+    return first_clear([engine, exact], "segmented_flag")
 
 
 @spanned("tpusort.api.segmented_sort")
@@ -350,16 +368,7 @@ def segmented_sort(
     # the full range, as many value words as K1 and K2 carry
     if (dev.type == "cuda" and traits.planes == 1 and full_range and n
             and len(words) <= MAX_VALUES):
-        done = _sort_on_engine(offsets, seg_id, planes[0], words,
-                               stable=stable)
-        if done is not None:
-            return finish((done[0],), done[1])
-    # the exact way: the stable sort by (segment, comparison planes), the
-    # full planes (under a bit window) and the value words carried
-    carry = [] if full_range else list(planes)
-    sp, sv = sort_twiddled_reference(
-        (seg_id, *cmp_planes), (*carry, *words), begin_bit=0,
-        end_bit=32 * (1 + len(cmp_planes)),
-        total_bits=32 * (1 + len(cmp_planes)))
-    return finish(sp[1:] if full_range else sv[:len(planes)],
-                  sv[len(carry):])
+        return finish(*_sort_on_engine(offsets, seg_id, planes[0], words,
+                                       stable=stable))
+    return finish(*_sort_exact(seg_id, planes, cmp_planes, words,
+                               full_range)[:2])

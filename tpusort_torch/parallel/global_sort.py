@@ -62,6 +62,7 @@ from tpusort_torch import dtypes as _dtypes
 from tpusort_torch.kernels.collapse import collapse_segments
 from tpusort_torch.ops import msd as _msd
 from tpusort_torch.ops.reference import sort_twiddled_reference
+from tpusort_torch.ops.tiers import first_clear
 from tpusort_torch.parallel.comm import InProcessComm, ProcessGroupComm
 from tpusort_torch.utils.log import host_read, spanned
 
@@ -171,13 +172,16 @@ def _destinations_sorted(comm, comp: torch.Tensor,
 def _local_engine_sort(planes, values, total_bits: int,
                        strided: bool = False):
     """The engine's unstable sort of one shard's twiddled planes and
-    payload words (``skew_tier=False``, its own exact fallback);
-    ``strided`` for the finish, whose input is d ascending runs."""
+    payload words, then the exact sort where its flag is set; ``strided``
+    for the finish, whose input is d ascending runs."""
     cfg = _configs.get_config(total_bits, bool(values), planes[0].device.type)
-    return _msd.sort_twiddled_msd(
-        tuple(planes), tuple(values), begin_bit=0, end_bit=total_bits,
-        total_bits=total_bits, config=cfg, stable=False, skew_tier=False,
-        strided=strided)
+    bits = dict(begin_bit=0, end_bit=total_bits, total_bits=total_bits)
+    return first_clear(
+        [lambda: _msd.sort_twiddled_msd(
+            tuple(planes), tuple(values), config=cfg, stable=False,
+            strided=strided, **bits),
+         lambda: (*sort_twiddled_reference(planes, values, **bits), None)],
+        "msd_flag")
 
 
 def _norm_params(spl0: Sequence[int], r: int, d: int) -> Tuple[int, ...]:
@@ -235,16 +239,17 @@ def _finish_windows(recv, seg_counts, norm, *, n_shard, capacity,
             < seg_counts[:, None]
         overflow = overflow | ((kn == -1) & valid).any()
     del kn
-    with host_read("global_flag"):
-        overflowed = bool(overflow)
-    if overflowed:
-        _msd.count_route("overflow_fallbacks")
+
+    def exact():
         compacted = collapse_segments(list(recv), seg_counts, n_shard)
-        sp, sv = sort_twiddled_reference(
+        return (*sort_twiddled_reference(
             compacted[:1], compacted[1:], begin_bit=0, end_bit=32,
-            total_bits=32)
-        return [*sp, *sv]
-    return [_denormalise(outs[0], *norm), *outs[1:]]
+            total_bits=32), None)
+
+    sp, sv = first_clear(
+        [lambda: ((_denormalise(outs[0], *norm),), outs[1:], overflow),
+         exact], "global_flag")
+    return [*sp, *sv]
 
 
 def _global_sort_shard(comm, ops: Sequence[torch.Tensor], *, nplanes: int,
