@@ -208,7 +208,8 @@ non-zero:
     tile and the payloads over the valid prefix;
 31. K1 and K1b (``csrc/partition.cu`` on ``csrc/reg_sort.cuh``) and K5
     (``csrc/scanhist.cu``) at their edges: the ``-Xptxas -v`` lines of the
-    42 instances of ``partition_raw_kernel`` and the 6 kernels of
+    54 instances of ``partition_raw_kernel`` (42 of the network body, 12
+    of the merge body) and the 6 kernels of
     ``scanhist.cu``, K6's two among them (none may spill); K1 vs plain bit for bit on the
     counts and every valid slot, payloads included (ties keep their slot
     order, as in plain), at K = 2^11 .. 2^14 with 1-3 planes, 0, 1, 2 and
@@ -241,7 +242,15 @@ non-zero:
     K4 vs plain with nseg from 1 to 2^16: one segment over many chunks,
     tiny and empty segments, ``n_out`` cutting a segment, sum == ``n_out``,
     16 operands, int64 counts past the segment and below 0, ``n_out`` past
-    the sum.
+    the sum;
+34. K1's and K1b's merge body (``csrc/partition.cu: partition_merged``)
+    on its paths' own inputs: ``sort`` and stable ``sort_pairs`` of 2^28
+    uniform and entropy-3 keys (the benchmark's four 32-bit cells: K1
+    keys, K1 key + value, K1b keys, K1b composite + value), each exact,
+    with one network launch (pass 0) and two in the "merge" mode; then
+    each call's passes 1 and 2 (runs of 256, then 512) kernel vs plain,
+    bit for bit on the counts and every valid slot, and timed in turns
+    with plain (kernels-line rows "K1 <mode> (merge, pass <j>)").
 
 The line before the last is a JSON summary of the kernels: each template
 mode compared, with its launches in the run of the path that drives it at
@@ -265,6 +274,7 @@ import re
 import statistics
 import subprocess
 import time
+from types import SimpleNamespace
 
 MAIN_N = 1 << 28
 RAGGED_N = MAIN_N - 12345
@@ -317,7 +327,8 @@ def main() -> None:
     from tpusort_torch import api as tapi
     from tpusort_torch.kernels.partition import (
         _partition_pass_general_cuda,
-        extract_bits, partition_pass_fused, partition_pass_fused_plain,
+        extract_bits, partition_merge_geometry, partition_pass_fused,
+        partition_pass_fused_plain,
         partition_pass_general_plain, partition_pass_splitter_plain,
         partition_tiles, partition_tiles_plain)
     from tpusort_torch.kernels.scanhist import (
@@ -897,6 +908,10 @@ def main() -> None:
                               k2_launches=1, radix_tiers=1, host_reads=2),
           f"main path did not run K1 x{len(main_plan.passes)} + K2 "
           f"without overflow: {main_counts}")
+    # pass 0 on the network, passes 1 and 2 on the merge body
+    check(modes.get(("K1", 1, 0)) == 1 and modes.get(("K1", 1, 0, "merge"))
+          == len(main_plan.passes) - 1,
+          f"main path: not one network K1 and the rest merged: {modes}")
     launches["K1 keys"] = modes.get(("K1", 1, 0), 0)
     launches["K2 keys"] = k2(modes, 1, 0)
     log("phase 4 ok: 2^28 uint32 sort == reference, overflow False, "
@@ -1078,10 +1093,11 @@ def main() -> None:
           f"sort_pairs did not run K1 x{len(pairs_main.passes)} + K2 "
           f"without overflow: {pairs_counts}")
     # the key plane alone: no composite (key, position) planes
-    check(modes == {("K1", 1, 1): len(pairs_main.passes),
+    check(modes == {("K1", 1, 1): 1,
+                    ("K1", 1, 1, "merge"): len(pairs_main.passes) - 1,
                     ("K2", 1, 1, "merge"): 1},
-          f"sort_pairs did not run the one-plane key+value modes (K2's "
-          f"merge body): {modes}")
+          f"sort_pairs did not run the one-plane key+value modes (K1's "
+          f"and K2's merge bodies after pass 0): {modes}")
     launches["K1 key+value"] = modes[("K1", 1, 1)]
     launches["K2 key+value"] = k2(modes, 1, 1)
     log("phase 10 ok: 2^28 sort_pairs == stable reference, keys and values, "
@@ -1101,10 +1117,11 @@ def main() -> None:
           and unstable_counts["overflow_fallbacks"] == 0
           and unstable_counts["reference_routes"] == 0,
           f"unstable pairs did not run the kernels: {unstable_counts}")
-    check(modes == {("K1", 1, 1): len(pairs_main.passes),
+    check(modes == {("K1", 1, 1): 1,
+                    ("K1", 1, 1, "merge"): len(pairs_main.passes) - 1,
                     ("K2", 1, 1, "merge"): 1},
-          f"unstable pairs did not run the one-plane key+value modes (K2's "
-          f"merge body): {modes}")
+          f"unstable pairs did not run the one-plane key+value modes (K1's "
+          f"and K2's merge bodies after pass 0): {modes}")
     log(f"phase 11 ok: 2^28 unstable_sort_pairs: keys exact, values a "
         f"permutation ({unstable_counts})")
     del ko, vo
@@ -1409,7 +1426,8 @@ def main() -> None:
           f"sort_pairs_lsb_in_value did not run K1 and K2: {c}")
     # the one path left on the composite + value modes (phases 7 and 8
     # compare them at the 2^28 pairs plan, where no path runs them now)
-    for kid, n_launch in (("K1", modes.get(("K1", 2, 1), 0)),
+    for kid, n_launch in (("K1", modes.get(("K1", 2, 1), 0)
+                           + modes.get(("K1", 2, 1, "merge"), 0)),
                           ("K2", k2(modes, 2, 1))):
         notes[f"{kid} composite+value"] = (
             "no path at this shape: 0 launches; sort_pairs_lsb_in_value at "
@@ -2821,10 +2839,11 @@ def main() -> None:
                 spills[fn_name] = [int(w) for w in re.findall(
                     r"(\d+) bytes spill", line)]
     # partition.cu: (planes, payloads, slots a thread) whose slots fit 64
-    # registers, K1 and K1b each; scanhist.cu: K5 x (uint32, float32) x
-    # (aligned, not), and K6 x (register fields, per-warp shared bins)
+    # registers, K1 and K1b each, and the merge body's (planes, payloads),
+    # K1 and K1b each; scanhist.cu: K5 x (uint32, float32) x (aligned,
+    # not), and K6 x (register fields, per-warp shared bins)
     n_k1 = 2 * sum(e * (nk + idx) <= 64 for e in (4, 8, 16, 32)
-                   for idx in (0, 1) for nk in (1, 2, 3))
+                   for idx in (0, 1) for nk in (1, 2, 3)) + 2 * 6
     n_k1_seen = sum("partition_raw_kernel" in k for k in spills)
     n_k6_seen = sum("digit_histogram_kernel" in k for k in spills)
     check(n_k1_seen == n_k1 and n_k6_seen == 2
@@ -3191,6 +3210,125 @@ def main() -> None:
         f"segment over many chunks, tiny and empty segments, n_out cutting "
         f"a segment, sum == n_out, 16 operands, int64 counts clamped in the "
         f"kernel, n_out past the sum (zeros): {n_edge} calls")
+
+    # ---- phase 34: K1's and K1b's merge body on its paths' inputs -------
+    torch.cuda.empty_cache()
+
+    def pass_inputs(fn):
+        """(fn's output, the (planes, values, counts_in, keyword
+        arguments) of each K1 and K1b call with a sorted_run that the
+        engines' partition passes make in it, the sort's own (not the skew
+        tier's sample sort's))."""
+        seen, real = [], msd.partition_pass_fused
+
+        def spy(planes_, values_, cin_, **kw):
+            if kw.get("sorted_run") and planes_[0].numel() >= MAIN_N:
+                seen.append((planes_, values_, cin_, kw))
+            return real(planes_, values_, cin_, **kw)
+
+        msd.partition_pass_fused = equidepth.partition_pass_fused = spy
+        try:
+            out = fn()
+        finally:
+            msd.partition_pass_fused = equidepth.partition_pass_fused = real
+        return out, seen
+
+    xu = random_i32(MAIN_N).view(torch.uint32)
+    eu = (random_i32(MAIN_N) & random_i32(MAIN_N)
+          & random_i32(MAIN_N)).view(torch.uint32)
+    ids = torch.arange(MAIN_N, dtype=torch.int32, device=dev) \
+        .view(torch.uint32)
+    for mode, name, keys_, vals_, kid, nk, nv in (
+            ("keys", "sort 2^28", xu, None, "K1", 1, 0),
+            ("key+value", "sort_pairs 2^28", xu, ids, "K1", 1, 1),
+            ("keys", "sort entropy-3 2^28", eu, None, "K1b", 1, 0),
+            ("composite+value", "sort_pairs entropy-3 2^28", eu, ids, "K1b",
+             2, 1)):
+        tapi._TIER_CACHE.clear()       # classify this input, cold
+        call = (lambda: tpusort_torch.sort(keys_)) if vals_ is None else \
+            (lambda: tpusort_torch.sort_pairs(keys_, vals_))
+        (out, seen), c, modes = drive(lambda: pass_inputs(call))
+        if vals_ is None:
+            check(same_bits(out, reference_sort(keys_)),
+                  f"phase 34: {name} differs from the reference")
+        else:
+            wk, (wv,) = reference_sort(keys_, (vals_.view(torch.int32),))
+            check(same_bits(out[0], wk) and same_bits(out[1], wv),
+                  f"phase 34: {name}: keys or values differ from the "
+                  "stable reference")
+            del wk, wv
+        del out
+        check(c["overflow_fallbacks"] == 0
+              and c["equidepth_runs"] == int(kid == "K1b"),
+              f"phase 34: {name} did not take its tier cleanly: {c}")
+        k1_modes = {m: v for m, v in modes.items() if m[0] == kid}
+        check(k1_modes == {(kid, nk, nv): 1, (kid, nk, nv, "merge"): 2}
+              and len(seen) == 2,
+              f"phase 34: {name}: not one network {kid} and two merged: "
+              f"{k1_modes} ({len(seen)} passes with a sorted run)")
+        for j in (1, 2):
+            # each pass's inputs dropped after its check: at 2^28 a pass of
+            # composite + value holds 4.8 GB, and plain takes several times
+            # that
+            pl, va, cin, kw = seen.pop(0)
+            torch.cuda.empty_cache()
+            T, K = pl[0].shape
+            keep = ("q_in", "n", "r", "s", "t_seg")
+            if kid == "K1b":
+                pkw = dict({k: kw.get(k) for k in keep},
+                           splitters=kw["splitters"],
+                           splitter_fracs=kw["splitter_fracs"])
+                plain_fn = partition_pass_splitter_plain
+            else:
+                pkw = dict({k: kw.get(k) for k in keep}, lo_bit=kw["lo_bit"],
+                           width=kw["width"])
+                plain_fn = partition_pass_fused_plain
+            geo = partition_merge_geometry(K, kw["q_in"], kw["sorted_run"],
+                                           nk, nv)
+            check(geo is not None, f"phase 34: {name} pass {j}: no merge "
+                  f"geometry for ({K}, q {kw['q_in']}, sorted_run "
+                  f"{kw['sorted_run']})")
+
+            def kernel(pl=pl, va=va, cin=cin, kw=kw):
+                return partition_pass_fused(pl, va, cin, **kw)
+
+            def plain(pl=pl, va=va, cin=cin, pkw=pkw, fn=plain_fn):
+                return fn(pl, va, cin, **pkw)
+
+            msd.reset_counters()
+            k_out, k_cnt = kernel()
+            check(msd.mode_counters() == {(kid, nk, nv, "merge"): 1},
+                  f"phase 34: {name} pass {j}: {msd.mode_counters()}")
+            p_out, p_cnt = plain()
+            spec = SimpleNamespace(s=kw["s"], r=kw["r"], t_seg=kw["t_seg"],
+                                   n_seg=T // kw["t_seg"])
+            check(torch.equal(k_cnt, p_cnt),
+                  f"phase 34: {kid} {name} pass {j}: counts differ")
+            m = valid_slots(k_cnt, spec)
+            err = 0
+            for a, b_ in zip(k_out, p_out):
+                check(same_bits(a[m], b_[m]),
+                      f"phase 34: {kid} {name} pass {j}: slots differ")
+                err = max(err, max_abs_err(a[m], b_[m]))
+            n_ops = len(pl) + len(va)
+            row = f"{kid} {mode} (merge, pass {j})"
+            del k_out, p_out, m
+            tk, tp = time_alt(kernel, plain)
+            nvalid = int(k_cnt.sum())
+            results[row] = (err, tk, tp,
+                            2 * nvalid * n_ops + cin.numel() + T * kw["r"],
+                            nvalid * log2(K))
+            launches[row] = modes.get((kid, nk, nv, "merge"), 0)
+            log(f"{row}: ({T}, {K}) q {kw['q_in']} run {geo.run}, "
+                f"{geo.threads} threads: kernel {fmt(tk)} vs plain "
+                f"{fmt(tp)}, bound {bound(*results[row][3:5])[0]:.3f} ms")
+            del k_cnt, p_cnt, pl, va, cin, kw, pkw, kernel, plain
+        torch.cuda.empty_cache()
+    del xu, eu, ids
+    log("phase 34 ok: K1's and K1b's merge body == plain bit for bit on "
+        "passes 1 and 2 of the 2^28 keys, pairs, entropy-3 keys and "
+        "entropy-3 pairs calls, each call exact with one network launch and "
+        "two merged")
 
     for name, (err, tk, tp, words, ops, *lib) in results.items():
         extra = f" vs library {fmt(lib[0])}" if lib else ""

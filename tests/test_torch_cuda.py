@@ -315,8 +315,9 @@ def test_pair_and_64bit_sorts_on_card(gen, call):
 def test_stable_pairs_with_all_ones_keys_at_2p28(gen):
     """Stable ``sort_pairs`` of 2^28 uniform keys with a block of 16
     0xFFFFFFFF keys and one in every 1,000,003, values 0..n-1: the key
-    plane alone through K1 and K2 (no position plane), no fallback, and
-    keys and values equal to ``torch.sort(stable=True)``.  (Equal keys
+    plane alone through K1 (pass 0 on the network, the rest on the merge
+    body) and K2 (no position plane), no fallback, and keys and values
+    equal to ``torch.sort(stable=True)``.  (Equal keys
     share a run, so a block must fit beside the uniform keys of its digit
     in a last-pass run, about 341 of 512; and a stride that the planner's
     sample stride of 4,096 divides puts every all-ones key in the sample,
@@ -331,7 +332,8 @@ def test_stable_pairs_with_all_ones_keys_at_2p28(gen):
     c, modes = tm.counters(), tm.mode_counters()
     assert c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0
     assert c["equidepth_runs"] == 0
-    assert set(modes) == {("K1", 1, 1), ("K2", 1, 1, "merge")}, modes
+    assert set(modes) == {("K1", 1, 1), ("K1", 1, 1, "merge"),
+                          ("K2", 1, 1, "merge")}, modes
     want = torch.sort(x.to(torch.int64) & 0xFFFFFFFF, stable=True)
     del x
     assert torch.equal(vo.to(torch.int64), want.indices)
@@ -870,6 +872,134 @@ def test_partition_k1b_zipf_edges(gen, K, nk, nv):
         m = _valid_slots(counts, R, S, 2)
         for g, w in zip(got, want):
             assert torch.equal(g[m], w[m]), run
+
+
+# K1's and K1b's merge body (csrc/partition.cu: partition_merged): the
+# 2^28 plans' passes 1 and 2 (K = 16,384, R = 32, S = 512, counts tables of
+# q = 256 and 512), T cut down; (planes, payloads): keys, key + value,
+# composite + value, 2 planes
+MERGE_MODES = [(1, 0), (1, 1), (2, 1), (2, 0)]
+MERGE_PASSES = [(256, 256), (512, 512)]
+
+
+def _merge_pass_inputs(gen, nk, nv, q):
+    """Eight tiles of a later pass, each q-chunk's valid prefix sorted (what
+    an earlier pass leaves): tile 0 random counts with empty and full
+    chunks; 1 no valid slot; 2 every chunk full; 3 one non-empty chunk; 4
+    pads ahead of a chunk of valid all-ones keys; 5 counts over q (read as
+    q); 6-7 random.  Keys of 16 distinct words with a block of all-ones
+    (ties within and across the chunks: digits and cut ranges hold far
+    more than S keys), unique ones in tiles 6-7; a second plane random."""
+    T, K = 8, 16384
+    nq = K // q
+    planes = [_edge_keys(gen, T, K)] + [_rand(gen, T, K)
+                                        for _ in range(nk - 1)]
+    planes[0][6:] = _unique(gen, 2, K)
+    vals = [_rand(gen, T, K) for _ in range(nv)]
+    cin = torch.randint(0, q + 1, (T, nq), dtype=torch.int32, device="cuda",
+                        generator=gen)
+    cin[0, ::3] = 0
+    cin[0, 1::3] = q
+    cin[1] = 0
+    cin[2] = q
+    cin[3] = 0
+    cin[3, nq // 3] = q - 7
+    _pads_before_ones([pl[4:5] for pl in planes], cin[4:5], q)
+    cin[5] = q + torch.randint(0, q, (nq,), dtype=torch.int32, device="cuda",
+                               generator=gen)
+    planes, vals = _lex_chunks(planes, vals, q, cin)
+    return planes, vals, cin
+
+
+@pytest.mark.parametrize("q,run", MERGE_PASSES)
+@pytest.mark.parametrize("nk,nv", MERGE_MODES)
+def test_partition_merge_body(gen, nk, nv, q, run):
+    """K1's merge body against the plain K1, bit for bit on the counts and
+    every valid slot of every operand, on the edge tiles of
+    :func:`_merge_pass_inputs` (empty runs and tiles, runs over S, valid
+    all-ones keys beside pads): one launch in the "merge" mode."""
+    R, S, t_seg = 32, 512, 2
+    assert tp.partition_merge_geometry(16384, q, run, nk, nv) is not None
+    planes, vals, cin = _merge_pass_inputs(gen, nk, nv, q)
+    kw = dict(r=R, s=S, lo_bit=32 * nk - 5, width=5, q_in=q, n=None,
+              t_seg=t_seg)
+    tm.reset_counters()
+    got, counts = tp.partition_pass_fused(planes, vals, cin, sorted_run=run,
+                                          unstable=True, **kw)
+    assert tm.mode_counters() == {("K1", nk, nv, "merge"): 1}
+    want, pcounts = tp.partition_pass_fused_plain(planes, vals, cin, **kw)
+    assert torch.equal(counts, pcounts)
+    assert int(counts.max()) > S             # runs over S were cut at S
+    m = _valid_slots(counts, R, S, t_seg)
+    for j, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g[m], w[m]), j
+
+
+@pytest.mark.parametrize("q,run", MERGE_PASSES)
+@pytest.mark.parametrize("nk,nv", MERGE_MODES[:3])
+def test_partition_splitter_merge_body(gen, nk, nv, q, run):
+    """K1b's merge body against the plain K1b, bit for bit on the counts
+    and every valid slot: splitters drawn from each tile's own tied keys
+    (cuts inside tie ranges), random tie fractions, an all-ones splitter
+    in tile 0 (its rank counts the network's sentinels), and tile 7
+    poisoned (every key below its first splitter: count 0 = K + 1, run 0
+    cut at S)."""
+    R, S, t_seg, K = 32, 512, 2, 16384
+    planes, vals, cin = _merge_pass_inputs(gen, nk, nv, q)
+    planes[0][7] &= 0x0FFFFFFF
+    planes, vals = _lex_chunks(planes, vals, q, cin)
+    words, f = _splitters(gen, planes, R, None)
+    for w in words:
+        w[0, -1] = -1                         # the all-ones splitter
+        w[7] = 0x7FFFFFFF
+    kw = dict(q_in=q, n=None, r=R, s=S, t_seg=t_seg)
+    tm.reset_counters()
+    got, counts = tp.partition_pass_fused(
+        planes, vals, cin, sorted_run=run, unstable=True, splitters=words,
+        splitter_fracs=f, lo_bit=0, width=1, **kw)
+    assert tm.mode_counters() == {("K1b", nk, nv, "merge"): 1}
+    want, pcounts = tp.partition_pass_splitter_plain(
+        planes, vals, cin, splitters=words, splitter_fracs=f, **kw)
+    assert torch.equal(counts, pcounts)
+    assert int(counts[7, 0]) == K + 1
+    m = _valid_slots(counts, R, S, t_seg)
+    for j, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g[m], w[m]), j
+
+
+@pytest.mark.parametrize("route", ["keys", "pairs", "skew_keys",
+                                   "skew_pairs"])
+def test_partition_merge_body_end_to_end(gen, route):
+    """The routes through K1 and K1b on the card, against
+    torch.sort(stable=True): the radix tier at 2^22 (two passes, the
+    second merged) and the skew tier on entropy-3 keys at 2^24, the
+    planner's floor (keys: two K1b passes; stable pairs, composite +
+    value: three); every pass after the first in the "merge" mode."""
+    skew = route.startswith("skew")
+    n = 1 << (24 if skew else 22)
+    x = _rand(gen, n)
+    if skew:
+        x = x & _rand(gen, n) & _rand(gen, n)
+    ids = torch.arange(n, dtype=torch.int32, device="cuda")
+    want = torch.sort(x.to(torch.int64) & 0xFFFFFFFF, stable=True)
+    tm.reset_counters()
+    if route.endswith("pairs"):
+        ko, vo = tpusort_torch.sort_pairs(x.view(torch.uint32), ids)
+        assert torch.equal(vo.to(torch.int64), want.indices)
+    else:
+        ko = tpusort_torch.sort(x.view(torch.uint32))
+    assert torch.equal(ko.view(torch.int32), want.values.to(torch.int32))
+    c = tm.counters()
+    assert c["overflow_fallbacks"] == 0, c
+    k1 = {m: v for m, v in tm.mode_counters().items()
+          if m[0] == ("K1b" if skew else "K1")}
+    mode = {"keys": (1, 0), "pairs": (1, 1), "skew_keys": (1, 0),
+            "skew_pairs": (2, 1)}[route]
+    passes = 3 if route == "skew_pairs" else 2
+    if skew:
+        assert c["equidepth_runs"] == 1, c
+    assert k1 == {("K1b" if skew else "K1", *mode): 1,
+                  ("K1b" if skew else "K1", *mode, "merge"): passes - 1}, k1
 
 
 @pytest.mark.parametrize("n", [0, 1, 5, 1000, (1 << 20) + 4321])

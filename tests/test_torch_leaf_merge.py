@@ -1,6 +1,7 @@
 """K2's two bodies on the CPU: the wrapper's choice between the merge body
 (``csrc/merge_runs.cuh``) and the network body, and the precondition the
-merge body rests on.
+merge body rests on, for K2 and for K1's and K1b's merge body (the choice
+of theirs is in ``test_torch_partition_merge.py``).
 
 The choice, :func:`tpusort_torch.kernels.bitonic.leaf_merge_geometry`, is
 a pure function of the call's shape (K, q, sorted_run, key planes, payload
@@ -27,7 +28,9 @@ from tpusort_torch import api as tapi
 from tpusort_torch import dtypes as tdt
 from tpusort_torch.configs import get_config
 from tpusort_torch.kernels import bitonic as tb
+from tpusort_torch.kernels import partition as tp
 from tpusort_torch.kernels.partition import SMEM_MAX
+from tpusort_torch.ops import equidepth as teq
 from tpusort_torch.ops import msd as tm
 from tpusort_torch.ops import segmented as tseg
 from tpusort_torch.utils.datagen import entropy_keys, segment_offsets
@@ -231,16 +234,16 @@ def _ties(rng, n):
     return pool[rng.integers(0, pool.size, n)].astype(np.uint32)
 
 
-def _msd_keys(rng):
-    x = rng.integers(0, 1 << 32, 60_000, dtype=np.uint64).astype(np.uint32)
+def _msd_keys(rng, n=60_000):
+    x = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
     (sp,), _ = MSD(
         (_i32(x),), (), begin_bit=0, end_bit=32, total_bits=32,
         config=get_config(32, False, "cpu"))
     return np.array_equal(sp.numpy().view(np.uint32), np.sort(x)), None
 
 
-def _msd_u64(rng):
-    x = rng.integers(0, 1 << 63, 40_000, dtype=np.int64)
+def _msd_u64(rng, n=40_000):
+    x = rng.integers(0, 1 << 63, n, dtype=np.int64)
     planes, traits = tdt.twiddle_in(torch.from_numpy(x))
     sp, _ = MSD(
         planes, (), begin_bit=0, end_bit=64, total_bits=64,
@@ -249,8 +252,8 @@ def _msd_u64(rng):
     return np.array_equal(got, np.sort(x)), None
 
 
-def _msd_pairs(rng, stable):
-    x = _ties(rng, 60_000)
+def _msd_pairs(rng, stable, n=60_000):
+    x = _ties(rng, n)
     v = np.arange(x.size, dtype=np.uint32)
     (sk,), (sv,) = MSD(
         (_i32(x),), (_i32(v),), begin_bit=0, end_bit=32, total_bits=32,
@@ -273,8 +276,7 @@ def _equidepth(rng):
     return np.array_equal(sp.numpy().view(np.uint32), np.sort(x)), None
 
 
-def _segmented(rng):
-    n = 20_000
+def _segmented(rng, n=20_000):
     keys = _ties(rng, n)
     offs = segment_offsets(rng, n, 40)
     (plane,), _ = tdt.twiddle_in(torch.from_numpy(keys))
@@ -290,9 +292,8 @@ def _segmented(rng):
     return np.array_equal(sv.numpy(), order), None
 
 
-def _windows(rng):
-    d, window = 8, 2048
-    counts = rng.integers(700, 1025, d).astype(np.int32)
+def _windows(rng, d=8, window=2048, lo=700):
+    counts = rng.integers(lo, window // 2 + 1, d).astype(np.int32)
     keys = np.full((d, window), 0xDEADBEEF, np.uint32)
     for w, c in enumerate(counts):
         keys[w, :c] = np.sort(rng.integers(0, 1 << 32, c, dtype=np.uint64)
@@ -312,8 +313,8 @@ def _windows(rng):
 CALLERS = {
     "msd_keys": _msd_keys,
     "msd_u64_keys": _msd_u64,
-    "msd_stable_pairs": lambda rng: _msd_pairs(rng, True),
-    "msd_unstable_pairs": lambda rng: _msd_pairs(rng, False),
+    "msd_stable_pairs": lambda rng, **kw: _msd_pairs(rng, True, **kw),
+    "msd_unstable_pairs": lambda rng, **kw: _msd_pairs(rng, False, **kw),
     "equidepth": _equidepth,
     "segmented": _segmented,
     "windows": _windows,
@@ -333,3 +334,51 @@ def test_sorted_run_callers_hand_k2_ascending_runs(monkeypatch, caller):
     assert runs, f"{caller} handed K2 no sorted runs"
     for ops, counts, q, sorted_run, num_keys in runs:
         _check_runs(ops, counts, q, sorted_run, num_keys, stable_word)
+
+
+# ---- K1 and K1b: the same precondition for their merge body -------------
+
+# sizes at which each caller runs a second partition pass on the CPU
+# geometry (K1 merges from pass 1 on; the equi-depth plan already has two)
+K1_SIZES = {"msd_keys": dict(n=300_000), "msd_u64_keys": dict(n=300_000),
+            "msd_stable_pairs": dict(n=300_000),
+            "msd_unstable_pairs": dict(n=300_000),
+            "segmented": dict(n=300_000),
+            "windows": dict(d=128, window=4096, lo=1500)}
+
+
+def _spy_k1(monkeypatch):
+    """Record every K1 and K1b call of the engines' partition passes
+    (``ops.msd.run_passes``, the equi-depth pipeline) on a shape whose
+    sorted runs the merge body takes."""
+    calls = []
+    real = tp.partition_pass_fused
+
+    def spy(planes, values, counts_in, **kw):
+        if counts_in is not None and not kw.get("general") and \
+                tp.partition_merge_geometry(planes[0].shape[1], kw["q_in"],
+                                            kw.get("sorted_run"),
+                                            len(planes), len(values)):
+            calls.append(([p.clone() for p in planes], counts_in.clone(),
+                          kw["q_in"], kw["sorted_run"]))
+        return real(planes, values, counts_in, **kw)
+
+    monkeypatch.setattr(tm, "partition_pass_fused", spy)
+    monkeypatch.setattr(teq, "partition_pass_fused", spy)
+    return calls
+
+
+@pytest.mark.parametrize("caller", sorted(CALLERS))
+def test_sorted_run_callers_hand_k1_ascending_runs(monkeypatch, caller):
+    """Each caller that passes K1 or K1b a sorted_run runs on the plain
+    kernels with K1 spied on, at a size that gives it a second pass: its
+    output is exact, it called K1 on a shape the merge body takes
+    (``partition_merge_geometry``), and every merge run it handed over
+    ascends over its valid prefix."""
+    calls = _spy_k1(monkeypatch)
+    ok, _ = CALLERS[caller](np.random.default_rng(2300),
+                            **K1_SIZES.get(caller, {}))
+    assert ok
+    assert calls, f"{caller} handed K1 no runs the merge body takes"
+    for planes, counts, q, sorted_run in calls:
+        _check_runs(planes, counts, q, sorted_run, len(planes))

@@ -14,6 +14,11 @@ that THIS makes once.
 
 Cases (all of them by default; name some to run only those):
 
+- ``k1``: K1 and K1b (``partition_pass_fused``) on the inputs of every
+  pass after the first (passes 1 and 2, which arrive as sorted runs) that
+  THIS tree's ``sort`` and stable ``sort_pairs`` of 2^28 uniform and
+  entropy-3 keys make (the benchmark's four 32-bit cells), a traced
+  call's device time and each tree's mode tags beside each;
 - ``k2``: K2 (``sort_tiles_counts_collapsed``) on the leaf inputs that
   THIS tree's ``sort`` and stable ``sort_pairs`` of 2^28 uniform and
   entropy-3 keys hand ``msd.raw_leaf`` (the benchmark's four 32-bit
@@ -59,7 +64,7 @@ from pathlib import Path
 import torch
 
 PKG = "tpusort_torch"
-CASES = ("k2", "k8", "k1c", "k6", "k4", "walls", "phases")
+CASES = ("k1", "k2", "k8", "k1c", "k6", "k4", "walls", "phases")
 REPS = 5
 WALL_REPS = 9            # host walls spread more than CUDA-event times
 BATCH = 20               # calls queued between two events (short calls)
@@ -238,6 +243,88 @@ def _leaf_inputs(this: Tree, call) -> list:
     finally:
         msd.raw_leaf = real
     return seen
+
+
+def _pass_inputs(this: Tree, call) -> list:
+    """(planes, values, counts_in, keyword arguments) of every K1 and K1b
+    call with a ``sorted_run`` that ``call`` makes in THIS tree through
+    the engines' partition passes (``ops.msd.run_passes``, the equi-depth
+    pipeline)."""
+    seen = []
+    mods = [this.mod("ops.msd"), this.mod("ops.equidepth")]
+    real = mods[0].partition_pass_fused
+
+    def spy(planes, values, counts_in, **kw):
+        if kw.get("sorted_run"):
+            seen.append((planes, values, counts_in, kw))
+        return real(planes, values, counts_in, **kw)
+
+    for m in mods:
+        m.partition_pass_fused = spy
+    try:
+        call()
+    finally:
+        for m in mods:
+            m.partition_pass_fused = real
+    return seen
+
+
+def _device_row(b: Bench, row: str, make) -> None:
+    """Each tree's traced device ms of one call (its largest kernel) and
+    the mode tags of its launches."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for t in b.trees:
+        with t.active():
+            fn = make(t)
+            fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                fn()
+                torch.cuda.synchronize()
+            by_name = b.device_ms_by_name(prof)
+            modes = t.mod("ops.msd")
+            modes.reset_counters()
+            fn()
+            tags = modes.mode_counters()
+        b.print(f"ab: {row} {t.label}: traced device "
+                + "; ".join(f"{k[:70]} {ms:.3f}"
+                            for k, ms in sorted(by_name.items(),
+                                                key=lambda kv: -kv[1])[:1])
+                + f"; modes {tags}")
+
+
+def case_k1(b: Bench, gen: torch.Generator) -> None:
+    x = _rand(MAIN_N, gen)
+    e3 = x & _rand(MAIN_N, gen) & _rand(MAIN_N, gen)
+    ids = torch.arange(MAIN_N, dtype=torch.int32, device=gen.device)
+    for name, keys, vals in (("keys uniform", x, None),
+                             ("pairs uniform", x, ids),
+                             ("keys entropy-3", e3, None),
+                             ("pairs entropy-3", e3, ids)):
+        with b.this.active():
+            api = b.this.mod("api")
+            u = keys.view(torch.uint32)
+            call = (lambda: api.sort(u)) if vals is None else \
+                (lambda: api.sort_pairs(u, vals))
+            call()                           # the tier cache, warm
+            # the sort's own passes (not the skew tier's sample sort)
+            seen = [a for a in _pass_inputs(b.this, call)
+                    if a[0][0].numel() >= MAIN_N]
+        for j, (planes, values, cin, kw) in enumerate(seen, start=1):
+            T, K = planes[0].shape
+            what = "K1b" if kw.get("splitters") is not None else "K1"
+            row = (f"{what} {name} pass {j} {len(planes)} planes + "
+                   f"{len(values)} values ({T}, {K}) q {kw['q_in']} "
+                   f"sorted_run {kw['sorted_run']} S {kw['s']}")
+
+            def make(tr, planes=planes, values=values, cin=cin, kw=kw):
+                fn = tr.mod("kernels.partition").partition_pass_fused
+                return lambda: fn(planes, values, cin, **kw)
+
+            b.row(row, make)
+            _device_row(b, row, make)
+        del seen
+        torch.cuda.empty_cache()
 
 
 def case_k2(b: Bench, gen: torch.Generator) -> None:

@@ -166,16 +166,8 @@ extern "C" int tpusort_leaf_collapse(
     return (int)cudaErrorInvalidValue;
   }
   if (merge_run > 0) {
-    const int runs = K / merge_run;
-    const size_t bytes =
-        (size_t)merge_word(K) * (4 * n_planes + (n_vals > 0 ? 4 : 0)) +
-        (size_t)(runs + 2) * 4;
-    if ((merge_run & (merge_run - 1)) || merge_run < kMergeMinRun ||
-        K % merge_run || q % merge_run || runs > kMergeMaxRuns ||
-        K > 32768 || slots != merge_slots(n_planes) || threads < 32 ||
-        threads % 32 || threads > kMergeThreads ||
-        (long long)threads * slots < K || (size_t)smem != bytes ||
-        smem > kMaxSmem) {
+    if (!merge_geometry_ok(K, q, merge_run, n_planes, n_vals > 0, threads,
+                           slots, (size_t)smem, 0)) {
       return (int)cudaErrorInvalidValue;
     }
     if (T == 0) return (int)cudaSuccess;

@@ -1,6 +1,9 @@
-// The merge body of K2 (csrc/bitonic.cu): a leaf tile that arrives as
-// sorted runs is merged over the runs' valid prefixes, where the network
-// body sorts the whole tile padded to a power of two.
+// The merge body of K2 (csrc/bitonic.cu), and of K1 and K1b
+// (csrc/partition.cu: partition_merged): a tile that arrives as sorted
+// runs is merged over the runs' valid prefixes, where the network body
+// sorts the whole tile padded to a power of two.  Steps 1-3 below are
+// merge_tile, which both kernels run; step 4 is K2's (K1 histograms or
+// cuts the merged slots and emits its runs from them).
 //
 // A CTA owns one tile of K slots, cut into runs = K / L runs of L slots (L
 // the wrapper's merge run: a power of two of at least 128 dividing the
@@ -404,6 +407,55 @@ __device__ MergeTile<NK, IDX> merge_levels(MergeTile<NK, IDX> t, int runs,
   return t;
 }
 
+// Steps 1-3 for one tile of K slots at the planes src[p] + first, in runs
+// of L = 2^log_l: run j's valid prefix is count(j) = cnt[jL / q] - jL % q
+// clamped to [0, L] (cnt: the tile's row of the (T, K / q) counts; L
+// divides q, so one entry a run).  Sets *nv to the tile's valid slots and
+// returns the merged tile: sorted slot s < nv at merge_word(s) of each
+// plane, its input slot at idx.  Ends synchronised.  K2's merge body
+// (merge_leaf) and K1's and K1b's (csrc/partition.cu) run it.
+template <int E, int NK, bool IDX>
+__device__ MergeTile<NK, IDX> merge_tile(uint32_t* smem,
+                                         const uint32_t* const* src,
+                                         size_t first, const int32_t* cnt,
+                                         int q, int K, int log_l, int* nv) {
+  const MergeTile<NK, IDX> loaded(smem, K);
+  const int runs = K >> log_l;
+  const int L = 1 << log_l;
+  const int n = load_runs<E>(loaded, src, first, K, log_l, runs, [=](int j) {
+    const int i = j << log_l;
+    const int v = cnt[i / q] - i % q;
+    return v < 0 ? 0 : (v > L ? L : v);
+  });
+  *nv = n;
+  return merge_levels<E>(loaded, chain_runs(loaded, runs, n), n, K);
+}
+
+// Host side: true if (merge_run, threads, slots, smem) is a merge geometry
+// for tiles of K slots with a counts table of q-slot chunks
+// (kernels/bitonic.py:leaf_merge_geometry): runs of a power of two from
+// kMergeMinRun dividing q and K, at most kMergeMaxRuns of them, the
+// planes' merge_slots, the fewest warps that cover K at most
+// kMergeThreads threads, and smem the buffer's bytes, beside `extra`
+// bytes of static shared memory within a CTA.
+inline bool merge_geometry_ok(int K, int q, int merge_run, int n_planes,
+                              bool has_values, int threads, int slots,
+                              size_t smem, size_t extra) {
+  if (merge_run <= 0 || (merge_run & (merge_run - 1)) ||
+      merge_run < kMergeMinRun || q <= 0 || K <= 0 || K > 32768 ||
+      K % merge_run || q % merge_run || K / merge_run > kMergeMaxRuns ||
+      n_planes < 1 || n_planes > 3) {
+    return false;
+  }
+  const size_t bytes =
+      (size_t)merge_word(K) * (4 * n_planes + (has_values ? 4 : 0)) +
+      (size_t)(K / merge_run + 2) * 4;
+  return slots == merge_slots(n_planes) && threads >= 32 &&
+         threads % 32 == 0 && threads <= kMergeThreads &&
+         (long long)threads * slots >= K && smem == bytes &&
+         smem + extra <= (size_t)kMaxSmem;
+}
+
 // The merge body for one tile: steps 1-3, the c dense slots of every
 // operand to out + dst.  cnt: the tile's row of the (T, K / q) counts;
 // chunks: 1 (threads * E >= K), a launch argument, so that the payloads'
@@ -413,17 +465,9 @@ __device__ void merge_leaf(uint32_t* smem, const Planes& planes,
                            const Values& vals, const int32_t* cnt, int q,
                            int K, int log_l, int chunks, size_t first,
                            size_t dst, int c) {
-  const MergeTile<NK, IDX> loaded(smem, K);
-  const int runs = K >> log_l;
-  const int L = 1 << log_l;
-  const int nv = load_runs<E>(loaded, planes.in, first, K, log_l, runs,
-                              [=](int j) {
-    const int i = j << log_l;          // L divides q: one entry a run
-    const int v = cnt[i / q] - i % q;
-    return v < 0 ? 0 : (v > L ? L : v);
-  });
+  int nv;
   const MergeTile<NK, IDX> t =
-      merge_levels<E>(loaded, chain_runs(loaded, runs, nv), nv, K);
+      merge_tile<E, NK, IDX>(smem, planes.in, first, cnt, q, K, log_l, &nv);
   for (int i = nv + (int)threadIdx.x; i < c; i += blockDim.x) {
     uint32_t v[NK];
 #pragma unroll

@@ -5,10 +5,15 @@
 // Replaces the raw-key branch of the Pallas kernel _fused_kernel behind
 // tpusort/kernels/partition.py:partition_pass_fused, with and without its
 // splitter mode.  One CTA owns one K-element tile (K = 16384 on the main
-// path), laid out as the row tile sorts lay a row out
-// (kernels/bitonic.py:tile_sort_geometry: threads x E slots a thread x
-// chunks = K; 512 x 32 for one plane at 16,384):
+// path).  The kernel has two bodies, one __global__ (a template flag), and
+// the wrapper picks one from the call's shape alone
+// (kernels/partition.py:partition_merge_geometry):
 //
+// * the network body, where the tile does not arrive as sorted runs under
+//   a counts table (pass 0, the strided feed's pass 0, the emit-only mode)
+//   or the merge does not fit (3 planes at 16,384 slots), laid out as the
+//   row tile sorts lay a row out (kernels/bitonic.py:tile_sort_geometry:
+//   threads x E slots a thread x chunks = K; 512 x 32 for one plane):
 //   1. load the tile's key planes (reg_sort.cuh:load_row, 16-byte loads)
 //      into shared memory; a slot is valid iff its global index < n
 //      (pass 0) or slot % q_in < counts_in[t, slot / q_in] (later passes);
@@ -25,42 +30,69 @@
 //      the tile's order is the stable one (the contract allows any order
 //      of ties; the plain version is stable too, so payloads equal it even
 //      on tied keys);
+// * the merge body (partition_merged), where a later pass's tile arrives
+//   as the previous pass's sorted runs (sorted_run > 0 with a counts
+//   table): steps 1 and 2 become K2's merge (merge_runs.cuh: merge_tile):
+//   each run's valid prefix alone loaded into a compact buffer, runs that
+//   continue each other chained, and pairwise merges by merge path, the
+//   slot index under the last plane; no sentinel enters, and the nv
+//   merged slots are the network's first nv slots, bit for bit.
+//
+// Both then:
 //   3. K1: histogram the digit bits [lo_bit, lo_bit + width) of the sorted
 //      tile, counted across the planes (plane 0 the most significant 32
 //      bits), with warp-aggregated shared atomics (sorted input gives ~one
 //      atomic per warp step); start[d] = #(digit < d), count[d] = start[d+1]
-//      - start[d] and, for the top digit, n_valid - start[R-1].
+//      - start[d] and, for the top digit, n_valid - start[R-1].  The merge
+//      body counts its nv slots and adds the network's K - nv sentinels to
+//      the all-ones digit.
 //      K1b (splitter_cuts): run d holds the keys between splitters d and
 //      d+1, so the sorted tile's runs are contiguous and only the R-1 cut
 //      points are chosen, as the Pallas kernel chooses them (bit for bit:
-//      the engine compares counts exactly);
+//      the engine compares counts exactly); its ranks count the sentinels
+//      as the Pallas kernel does, which the merge body adds to an
+//      all-ones splitter's rank;
 //   4. write run d of tile t = seg * t_seg + j to
 //      out[((seg * R + d) * t_seg + j) * S + [0, min(count, S))], the
 //      digit-major layout of the next pass (the fused exchange): every key
 //      plane from the sorted tile, then each payload word, its tile staged
 //      in shared memory over plane 0 (reg_sort.cuh:stage_row) and gathered
 //      from there by the slot index; write the unclamped counts to
-//      counts_out[t, :].  Slots past a run's count are left unwritten.
+//      counts_out[t, :].  Slots past a run's count are left unwritten.  The
+//      network walks the R x S run slots; the merge body walks its nv
+//      slots, each to its run's place (the R x S walk where the runs do
+//      not lie end to end: a poisoned K1b tile).
 //
 // Everything that reads the sorted tile (the histogram, K1b's binary
-// searches, the emission) reads slot s at its swizzled word swz(s).
+// searches, the emission) reads slot s at its swizzled word swz(s) on the
+// network body, at merge_word(s) on the merge body.
 //
 // Bound: a pass reads the operands once and writes 1.5x (S = 1.5 K / R) or
-// 1x of them, so at HBM speed it is memory-bound; the sort network (105
-// steps for a full 16384 sort, 69 for a merge from 256-runs, 10 and 1 of
-// them in shared memory) and the scattered emission are what it runs into
-// first.  K1b's cut points add two binary searches per boundary and one
-// thread's O(R) walk, next to nothing.  Shared memory: 64 KB a key plane
-// plus 32 KB of slot index at K = 16384, so 3 planes with payloads (224 KB)
-// is the largest mode; K1b reads its splitters from global memory and
-// keeps its cut points in the histogram's arrays, so it needs no more.
+// 1x of them, so at HBM speed it is memory-bound (0.642 ms for 2^28 keys,
+// 1.283 for key + value, 1.924 for 2 planes + value).  The network body
+// runs into its sort network (105 steps for a full 16384 sort, 69 for a
+// merge from 256-runs, 10 and 1 of them in shared memory) over the padded
+// tile and the scattered emission over R x S slots first: on an H100 at
+// 2^28 pass 0 takes 5.2 ms for keys, 12.2 for key + value, and passes 1-2
+// (1.5x padded) 6.5-6.9 and 13.6-14.7.  The merge body reads and sorts
+// only the valid slots and walks only them: passes 1-2 take 3.8-4.0 ms
+// for keys (6x the bound), 8.2-8.4 for key + value and 10.6-10.9 for 2
+// planes + value on K1b, where its buffer (135 KB and 203 KB) leaves one
+// CTA an SM.  K1b's cut points add two binary searches per boundary and
+// one thread's O(R) walk, next to nothing.  Shared memory: the network
+// body 64 KB a key plane plus 32 KB of slot index at K = 16384, so 3
+// planes with payloads (224 KB) is its largest mode; the merge body (K +
+// K / 32) * (4 * planes + 4 if payloads) bytes and the runs' starts; K1b
+// reads its splitters from global memory and keeps its cut points in the
+// histogram's arrays, so it needs no more.
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
 
-#include "reg_sort.cuh"
+#include "merge_runs.cuh"
 #include "operands.cuh"
+#include "reg_sort.cuh"
 
 namespace tpusort {
 
@@ -69,11 +101,10 @@ constexpr int kMaxRadix = 256;
 // it out
 constexpr int kStaticSmem = 2064;
 
-// Bits [lo, lo + width) of the sorted slot s's NK-plane key, width <= 8.
-template <int NK, bool IDX>
-__device__ inline int digit_of(const RegTile<NK, IDX>& t, int s, int lo,
-                               int width) {
-  const int w = swz(s);
+// Bits [lo, lo + width) of the sorted slot s's NK-plane key, width <= 8;
+// key(p, s) is plane p's word of sorted slot s.
+template <int NK, class Key>
+__device__ inline int digit_of(Key key, int s, int lo, int width) {
   uint32_t d = 0;
 #pragma unroll
   for (int p = 0; p < NK; ++p) {
@@ -82,7 +113,7 @@ __device__ inline int digit_of(const RegTile<NK, IDX>& t, int s, int lo,
     const int ov_hi = min(lo + width, base + 32);
     if (ov_hi > ov_lo) {
       const uint32_t m = (1u << (ov_hi - ov_lo)) - 1u;
-      d |= ((t.key[p][w] >> (ov_lo - base)) & m) << (ov_lo - lo);
+      d |= ((key(p, s) >> (ov_lo - base)) & m) << (ov_lo - lo);
     }
   }
   return (int)d;
@@ -95,21 +126,19 @@ struct Splitters {
   const uint32_t* frac;
 };
 
-// #slots of the sorted tile whose key is below s (or_equal: at most s),
-// lexicographically over the planes, counted over all K slots, invalid
-// sentinels included (as the Pallas kernel counts them).
-template <int NK, bool IDX>
-__device__ inline int rank_of(const RegTile<NK, IDX>& t, int K,
-                              const uint32_t* s, bool or_equal) {
-  int lo = 0, hi = K;
+// #slots among the n sorted slots whose key is below s (or_equal: at most
+// s), lexicographically over the planes; key(p, s) as in digit_of.
+template <int NK, class Key>
+__device__ inline int rank_of(Key key, int n, const uint32_t* s,
+                              bool or_equal) {
+  int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    const int w = swz(mid);
     int c = 0;
 #pragma unroll
     for (int p = 0; p < NK; ++p) {
       if (c == 0) {
-        const uint32_t x = t.key[p][w];
+        const uint32_t x = key(p, mid);
         c = (x > s[p]) - (x < s[p]);
       }
     }
@@ -131,19 +160,28 @@ __device__ inline int rank_of(const RegTile<NK, IDX>& t, int K,
 // sweep then raises cuts within b_d so the top run fits S.  A cut forced
 // outside its legal range, or a top run over S, poisons count 0 to K + 1.
 // On return start[d] holds run d's first slot and count[d] its length
-// (unclamped).  The binary searches take one thread per boundary; the walk
-// is sequential, on thread 0.  Ends with __syncthreads().
-template <int NK, bool IDX>
-__device__ void splitter_cuts(const RegTile<NK, IDX>& tile,
-                              const Splitters& spl, int t, int K, int R,
-                              int S, int n_valid, int* count, int* start) {
+// (unclamped).  The ranks count over all K slots, invalid sentinels
+// included, as the Pallas kernel counts them: key(p, s) gives the first n
+// sorted slots (n = K on the network body; n = n_valid on the merge body,
+// which holds no sentinel, so an all-ones splitter's b_d adds the K - n
+// sentinels, all-ones in every plane, that the network's count holds).
+// The binary searches take one thread per boundary; the walk is
+// sequential, on thread 0.  Ends with __syncthreads().
+template <int NK, class Key>
+__device__ void splitter_cuts(Key key, int n, const Splitters& spl, int t,
+                              int K, int R, int S, int n_valid, int* count,
+                              int* start) {
   const size_t row = (size_t)t * (R - 1);
   for (int d = threadIdx.x + 1; d < R; d += blockDim.x) {
     uint32_t s[NK];
+    bool ones = true;
 #pragma unroll
-    for (int p = 0; p < NK; ++p) s[p] = spl.word[p][row + d - 1];
-    count[d] = rank_of(tile, K, s, false);  // a_d, then the cut
-    start[d] = rank_of(tile, K, s, true);   // b_d
+    for (int p = 0; p < NK; ++p) {
+      s[p] = spl.word[p][row + d - 1];
+      ones = ones && s[p] == kSentinel;
+    }
+    count[d] = rank_of<NK>(key, n, s, false);            // a_d, then the cut
+    start[d] = rank_of<NK>(key, n, s, true) + (ones ? K - n : 0);   // b_d
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -199,16 +237,141 @@ __device__ __forceinline__ void emit_runs(uint32_t* __restrict__ out,
   }
 }
 
-// The most threads an instance takes: the row sorts' limit, and with
-// payloads at most 512 (the emission holds more state than a row sort; the
-// geometry never gives a tile with payloads more threads).
-__host__ __device__ constexpr int partition_threads(int nk, bool idx, int e) {
-  return idx && max_threads(nk, idx, e) > kThreads / 2 ? kThreads / 2
-                                                        : max_threads(nk, idx, e);
+// K1's counts from the digit histogram hist[0, R) of the sorted tile:
+// start[d] = #(digit < d), count[d] = hist[d] and, for the top digit,
+// n_valid - start[R-1]; the counts go to row and stay in hist.  Starts and
+// ends with __syncthreads().
+__device__ void digit_counts(int* hist, int* start, int R, int n_valid,
+                             int32_t* row) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int d = 0; d < R; ++d) {
+      start[d] = acc;
+      acc += hist[d];
+    }
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < R; d += blockDim.x) {
+    const int c = d < R - 1 ? hist[d] : n_valid - start[R - 1];
+    row[d] = c;
+    hist[d] = c;  // each thread rewrites only its own digit
+  }
+  __syncthreads();
 }
 
-template <int NK, bool IDX, bool SPL, int E>
-__global__ void __launch_bounds__(partition_threads(NK, IDX, E))
+// The merge body (steps 1-2 of merge_runs.cuh: merge_tile in place of
+// load_row and the network): tile t's runs of 2^log_l slots, each a sorted
+// valid prefix under counts_in, merged into nv slots with no sentinel
+// among them; then steps 3 and 4 over those nv slots, with the outputs of
+// the network body bit for bit (the same (key, slot) order; K1's counts
+// and K1b's cuts as the network, with its K - nv sentinels, gives them).
+// Where the runs lie end to end over [0, nv) (every tile but a poisoned
+// one, or one whose sentinels have a digit below the top one), each
+// thread walks the merged slots i = tid, tid + threads, ... with a cursor
+// d on the run that holds i, and slot i goes to its run's place when i -
+// start[d] < S; else the R x S walk of the network body, slots past nv
+// all-ones as its sentinels are.
+template <int E, int NK, bool IDX, bool SPL>
+__device__ void partition_merged(uint32_t* smem, const Planes& planes,
+                                 const Values& vals, const Splitters& spl,
+                                 const int32_t* counts_in, int q_in, int K,
+                                 int log_l, int R, int S, int lo_bit,
+                                 int width, int t_seg, int chunks,
+                                 int32_t* counts_out, int* hist, int* start) {
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const size_t first = (size_t)t * K;
+  int nv;
+  const MergeTile<NK, IDX> m = merge_tile<E, NK, IDX>(
+      smem, planes.in, first, counts_in + (size_t)t * (K / q_in), q_in, K,
+      log_l, &nv);
+  const auto key = [&](int p, int s) { return m.key[p][merge_word(s)]; };
+  int32_t* row = counts_out + (size_t)t * R;
+  if constexpr (SPL) {
+    splitter_cuts<NK>(key, nv, spl, t, K, R, S, nv, hist, start);
+    for (int d = tid; d < R; d += nt) row[d] = hist[d];
+  } else {
+    for (int b = 0; b < nv; b += nt) {   // whole warps, for __match_any_sync
+      const int i = b + tid;
+      const int d = i < nv ? digit_of<NK>(key, i, lo_bit, width) : -1;
+      const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
+      if (d >= 0 && (tid & 31) == __ffs(peers) - 1) {
+        atomicAdd(&hist[d], __popc(peers));
+      }
+    }
+    // the network's sentinels: all-ones, so the top digit of the bits
+    if (tid == 0 && nv < K) atomicAdd(&hist[(1 << width) - 1], K - nv);
+    digit_counts(hist, start, R, nv, row);
+  }
+  bool gap = false;
+  for (int d = tid; d < R; d += nt) {
+    const int end = d + 1 < R ? start[d + 1] : nv;
+    gap |= hist[d] < 0 || start[d] + hist[d] != end;
+  }
+  const bool tidy = !__syncthreads_or(gap);
+
+  const int seg = t / t_seg;
+  const int j = t - seg * t_seg;
+  const auto walk = [&](auto put) {      // put(slot, its place in out)
+    int d = 0;
+    for (int i = tid; i < nv; i += nt) {
+      while (d + 1 < R && start[d + 1] <= i) ++d;
+      const int o = i - start[d];
+      if (o < S) put(i, ((size_t)(seg * R + d) * t_seg + j) * S + o);
+    }
+  };
+  if (tidy) {
+    walk([&](int i, size_t at) {
+      const int w = merge_word(i);
+#pragma unroll
+      for (int p = 0; p < NK; ++p) planes.out[p][at] = m.key[p][w];
+    });
+  } else {
+#pragma unroll
+    for (int p = 0; p < NK; ++p) {
+      const uint32_t* kp = m.key[p];
+      emit_runs(planes.out[p], hist, start, R, S, seg, t_seg, j, [=](int s) {
+        return s < nv ? kp[merge_word(s)] : kSentinel;
+      });
+    }
+  }
+  if constexpr (IDX) {
+    uint32_t* buf = m.key[0];
+    const uint16_t* idx = m.idx;
+    for (int v = 0; v < vals.count; ++v) {
+      __syncthreads();           // plane 0's reads (or the last word's)
+      stage_row<E>(buf, vals.in[v] + first, K, chunks);
+      __syncthreads();
+      uint32_t* out = vals.out[v];
+      if (tidy) {
+        walk([&](int i, size_t at) { out[at] = buf[idx[merge_word(i)]]; });
+      } else {
+        emit_runs(out, hist, start, R, S, seg, t_seg, j, [=](int s) {
+          return buf[s < nv ? idx[merge_word(s)] : K - 1];
+        });
+      }
+    }
+  }
+}
+
+// The most threads an instance takes: the row sorts' limit, and with
+// payloads at most 512 (the emission holds more state than a row sort; the
+// geometry never gives a tile with payloads more threads); the merge
+// body's, kMergeThreads.
+__host__ __device__ constexpr int partition_threads(int nk, bool idx, int e,
+                                                    bool merge) {
+  return merge ? kMergeThreads
+         : idx && max_threads(nk, idx, e) > kThreads / 2
+             ? kThreads / 2
+             : max_threads(nk, idx, e);
+}
+
+// MERGE: the merge body (log_run the merge run's log2, E merge_slots(NK));
+// else the network body (log_run the sorted run's log2, 0 for none).
+template <int NK, bool IDX, bool SPL, int E, bool MERGE>
+__global__ void __launch_bounds__(partition_threads(NK, IDX, E, MERGE))
 partition_raw_kernel(Planes planes, Values vals, Splitters spl,
                      const int32_t* __restrict__ counts_in, int q_in,
                      long long n, int K, int log_k, int R, int S, int lo_bit,
@@ -218,7 +381,6 @@ partition_raw_kernel(Planes planes, Values vals, Splitters spl,
   __shared__ int hist[kMaxRadix];
   __shared__ int start[kMaxRadix];
   __shared__ int n_valid;
-  const RegTile<NK, IDX> tile(smem, K);
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -226,88 +388,87 @@ partition_raw_kernel(Planes planes, Values vals, Splitters spl,
   if (tid == 0) n_valid = 0;
   __syncthreads();
 
-  const size_t first = (size_t)t * K;
-  int mine = 0;
-  if (counts_in != nullptr) {
-    const int32_t* cin = counts_in + (size_t)t * (K / q_in);
-    load_row<E>(tile, planes.in, first, K, chunks, [&](int i) {
-      const bool v = (i % q_in) < cin[i / q_in];
-      mine += v;
-      return v;
-    });
+  if constexpr (MERGE) {
+    partition_merged<E, NK, IDX, SPL>(smem, planes, vals, spl, counts_in,
+                                      q_in, K, log_run, R, S, lo_bit, width,
+                                      t_seg, chunks, counts_out, hist, start);
   } else {
-    load_row<E>(tile, planes.in, first, K, chunks, [&](int i) {
-      const bool v = (long long)(first + i) < n;
-      mine += v;
-      return v;
-    });
-  }
-  mine = __reduce_add_sync(0xFFFFFFFFu, mine);
-  if ((tid & 31) == 0) atomicAdd(&n_valid, mine);
-  __syncthreads();
-
-  reg_block_sort<E>(tile, log_k, log_run, chunks);
-
-  if constexpr (SPL) {
-    splitter_cuts(tile, spl, t, K, R, S, n_valid, hist, start);
-    for (int d = tid; d < R; d += blockDim.x) {
-      counts_out[(size_t)t * R + d] = hist[d];
+    const RegTile<NK, IDX> tile(smem, K);
+    const size_t first = (size_t)t * K;
+    int mine = 0;
+    if (counts_in != nullptr) {
+      const int32_t* cin = counts_in + (size_t)t * (K / q_in);
+      load_row<E>(tile, planes.in, first, K, chunks, [&](int i) {
+        const bool v = (i % q_in) < cin[i / q_in];
+        mine += v;
+        return v;
+      });
+    } else {
+      load_row<E>(tile, planes.in, first, K, chunks, [&](int i) {
+        const bool v = (long long)(first + i) < n;
+        mine += v;
+        return v;
+      });
     }
-  } else {
-    for (int i = tid; i < K; i += blockDim.x) {
-      const int d = digit_of(tile, i, lo_bit, width);
-      const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-      if ((tid & 31) == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
-    }
+    mine = __reduce_add_sync(0xFFFFFFFFu, mine);
+    if ((tid & 31) == 0) atomicAdd(&n_valid, mine);
     __syncthreads();
-    if (tid == 0) {
-      int acc = 0;
-      for (int d = 0; d < R; ++d) {
-        start[d] = acc;
-        acc += hist[d];
+
+    reg_block_sort<E>(tile, log_k, log_run, chunks);
+
+    const auto key = [&](int p, int s) { return tile.key[p][swz(s)]; };
+    int32_t* row = counts_out + (size_t)t * R;
+    if constexpr (SPL) {
+      splitter_cuts<NK>(key, K, spl, t, K, R, S, n_valid, hist, start);
+      for (int d = tid; d < R; d += blockDim.x) row[d] = hist[d];
+    } else {
+      for (int i = tid; i < K; i += blockDim.x) {
+        const int d = digit_of<NK>(key, i, lo_bit, width);
+        const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
+        if ((tid & 31) == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
       }
+      digit_counts(hist, start, R, n_valid, row);
     }
-    __syncthreads();
-    for (int d = tid; d < R; d += blockDim.x) {
-      const int c = d < R - 1 ? hist[d] : n_valid - start[R - 1];
-      counts_out[(size_t)t * R + d] = c;
-      hist[d] = c;  // each thread rewrites only its own digit
-    }
-    __syncthreads();
-  }
 
-  const int seg = t / t_seg;
-  const int j = t - seg * t_seg;
+    const int seg = t / t_seg;
+    const int j = t - seg * t_seg;
 #pragma unroll
-  for (int p = 0; p < NK; ++p) {
-    const uint32_t* key = tile.key[p];
-    emit_runs(planes.out[p], hist, start, R, S, seg, t_seg, j,
-              [=](int s) { return key[swz(s)]; });
-  }
-  if constexpr (IDX) {
-    uint32_t* buf = tile.key[0];
-    const uint16_t* idx = tile.idx;
-    for (int v = 0; v < vals.count; ++v) {
-      __syncthreads();           // plane 0's reads (or the last word's)
-      stage_row<E>(buf, vals.in[v] + first, K, chunks);
-      __syncthreads();
-      emit_runs(vals.out[v], hist, start, R, S, seg, t_seg, j,
-                [=](int s) { return buf[idx[swz(s)]]; });
+    for (int p = 0; p < NK; ++p) {
+      const uint32_t* kp = tile.key[p];
+      emit_runs(planes.out[p], hist, start, R, S, seg, t_seg, j,
+                [=](int s) { return kp[swz(s)]; });
+    }
+    if constexpr (IDX) {
+      uint32_t* buf = tile.key[0];
+      const uint16_t* idx = tile.idx;
+      for (int v = 0; v < vals.count; ++v) {
+        __syncthreads();           // plane 0's reads (or the last word's)
+        stage_row<E>(buf, vals.in[v] + first, K, chunks);
+        __syncthreads();
+        emit_runs(vals.out[v], hist, start, R, S, seg, t_seg, j,
+                  [=](int s) { return buf[idx[swz(s)]]; });
+      }
     }
   }
 }
 
 // The dynamic shared memory an instance is allowed, once per device: its
 // tile at the largest K (a power of two up to 32768) that fits a CTA beside
-// the static arrays, which is every tile the wrapper's check_fits takes.
-template <int NK, bool IDX>
+// the static arrays, which is every tile the wrapper's check_fits takes;
+// the merge body's buffer at 32768 slots, or all a CTA has beside them.
+template <int NK, bool IDX, bool MERGE>
 constexpr int partition_smem_cap() {
+  if (MERGE) {
+    const size_t b = MergeTile<NK, IDX>::bytes(32768, kMergeMaxRuns);
+    return b + kStaticSmem < (size_t)kMaxSmem ? (int)b
+                                              : kMaxSmem - kStaticSmem;
+  }
   int k = 32768;
   while (RegTile<NK, IDX>::bytes(k) + kStaticSmem > (size_t)kMaxSmem) k /= 2;
   return (int)RegTile<NK, IDX>::bytes(k);
 }
 
-template <int NK, bool IDX, bool SPL, int E>
+template <int NK, bool IDX, bool SPL, int E, bool MERGE>
 int launch_partition(const Planes& planes, const Values& vals,
                      const Splitters& spl, const int32_t* counts_in, int q_in,
                      long long n, int T, int K, int R, int S, int lo_bit,
@@ -316,30 +477,48 @@ int launch_partition(const Planes& planes, const Values& vals,
                      cudaStream_t stream) {
   const int log_k = 31 - __builtin_clz(K);
   static std::atomic<bool> smem_set[kMaxDevices];
-  cudaError_t err =
-      allow_smem_once((const void*)partition_raw_kernel<NK, IDX, SPL, E>,
-                      partition_smem_cap<NK, IDX>(), smem_set);
+  cudaError_t err = allow_smem_once(
+      (const void*)partition_raw_kernel<NK, IDX, SPL, E, MERGE>,
+      partition_smem_cap<NK, IDX, MERGE>(), smem_set);
   if (err != cudaSuccess) return (int)err;
-  partition_raw_kernel<NK, IDX, SPL, E><<<T, threads, smem, stream>>>(
+  partition_raw_kernel<NK, IDX, SPL, E, MERGE><<<T, threads, smem, stream>>>(
       planes, vals, spl, counts_in, q_in, n, K, log_k, R, S, lo_bit, width,
       t_seg, log_run, chunks, counts_out);
   return (int)cudaGetLastError();
 }
 
 // Host side: the instance for (n_planes, has values, slots a thread) with
-// SPL, launched at (threads, chunks, smem); cudaErrorInvalidValue for a
-// geometry no instance was built for.
+// SPL, launched at (threads, chunks, smem): the merge body where merge_run
+// > 0 (a geometry of merge_geometry_ok, with counts_in), else the network
+// body; cudaErrorInvalidValue for a geometry no instance was built for.
 template <bool SPL>
 int dispatch_partition(const Planes& planes, const Values& vals,
                        const Splitters& spl, int n_planes,
                        const int32_t* counts_in, int q_in, long long n,
                        int T, int K, int R, int S, int lo_bit, int width,
-                       int t_seg, int sorted_run, int threads, int slots,
-                       size_t smem, int32_t* counts_out,
+                       int t_seg, int sorted_run, int merge_run, int threads,
+                       int slots, size_t smem, int32_t* counts_out,
                        cudaStream_t stream) {
+  if (R < 1 || R > kMaxRadix || (K & (K - 1)) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (merge_run > 0) {
+    if (counts_in == nullptr ||
+        !merge_geometry_ok(K, q_in, merge_run, n_planes, vals.count > 0,
+                           threads, slots, smem, kStaticSmem)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int log_l = 31 - __builtin_clz(merge_run);
+    return dispatch_mode(n_planes, vals.count > 0, [&](auto nk, auto idx) {
+      constexpr int kNk = decltype(nk)::value;
+      return launch_partition<kNk, decltype(idx)::value, SPL,
+                              merge_slots(kNk), true>(
+          planes, vals, spl, counts_in, q_in, n, T, K, R, S, lo_bit, width,
+          t_seg, log_l, threads, 1, smem, counts_out, stream);
+    });
+  }
   int chunks = 0;
-  if (R < 1 || R > kMaxRadix || (K & (K - 1)) != 0 ||
-      !reg_geometry_ok(K, threads, slots, smem,
+  if (!reg_geometry_ok(K, threads, slots, smem,
                        (size_t)K * (4 * n_planes + (vals.count > 0 ? 2 : 0)),
                        &chunks)) {
     return (int)cudaErrorInvalidValue;
@@ -353,10 +532,10 @@ int dispatch_partition(const Planes& planes, const Values& vals,
       if constexpr (!fits_registers(kNk, kIdx, kE)) {
         return (int)cudaErrorInvalidValue;
       } else {
-        if (threads > partition_threads(kNk, kIdx, kE)) {
+        if (threads > partition_threads(kNk, kIdx, kE, false)) {
           return (int)cudaErrorInvalidValue;
         }
-        return launch_partition<kNk, kIdx, SPL, kE>(
+        return launch_partition<kNk, kIdx, SPL, kE, false>(
             planes, vals, spl, counts_in, q_in, n, T, K, R, S, lo_bit, width,
             t_seg, log_run, threads, chunks, smem, counts_out, stream);
       }
@@ -367,16 +546,19 @@ int dispatch_partition(const Planes& planes, const Values& vals,
 }  // namespace tpusort
 
 // keys_in/keys_out: n_planes (1-3) device pointers each; vals_in/vals_out:
-// n_vals (0-8) device pointers each.  K a power of two; threads, slots (E)
-// and smem the geometry of kernels/bitonic.py:tile_sort_geometry(K,
-// n_planes, n_vals).  Returns a cudaError_t (cudaErrorInvalidValue for a
-// geometry no instance was built for).
+// n_vals (0-8) device pointers each.  K a power of two.  merge_run 0 runs
+// the network body, with threads, slots (E) and smem the geometry of
+// kernels/bitonic.py:tile_sort_geometry(K, n_planes, n_vals); merge_run >
+// 0 the merge body on runs of merge_run slots, with the geometry of
+// kernels/partition.py:partition_merge_geometry (merge_geometry_ok).
+// Returns a cudaError_t (cudaErrorInvalidValue for a geometry no instance
+// was built for).
 extern "C" int tpusort_partition_raw(
     const void* const* keys_in, void* const* keys_out, int n_planes,
     const void* const* vals_in, void* const* vals_out, int n_vals,
     const void* counts_in, int q_in, long long n, int T, int K, int R, int S,
-    int lo_bit, int width, int t_seg, int sorted_run, int threads, int slots,
-    int smem, void* counts_out, void* stream) {
+    int lo_bit, int width, int t_seg, int sorted_run, int merge_run,
+    int threads, int slots, int smem, void* counts_out, void* stream) {
   using namespace tpusort;
   Planes planes;
   Values vals;
@@ -386,8 +568,8 @@ extern "C" int tpusort_partition_raw(
   }
   return dispatch_partition<false>(
       planes, vals, Splitters{}, n_planes, (const int32_t*)counts_in, q_in, n,
-      T, K, R, S, lo_bit, width, t_seg, sorted_run, threads, slots,
-      (size_t)smem, (int32_t*)counts_out, (cudaStream_t)stream);
+      T, K, R, S, lo_bit, width, t_seg, sorted_run, merge_run, threads,
+      slots, (size_t)smem, (int32_t*)counts_out, (cudaStream_t)stream);
 }
 
 // K1b: as tpusort_partition_raw, with the runs cut at splitters (n_planes
@@ -397,7 +579,7 @@ extern "C" int tpusort_partition_splitter(
     const void* const* keys_in, void* const* keys_out, int n_planes,
     const void* const* vals_in, void* const* vals_out, int n_vals,
     const void* counts_in, int q_in, long long n, int T, int K, int R, int S,
-    int t_seg, int sorted_run, const void* const* splitters,
+    int t_seg, int sorted_run, int merge_run, const void* const* splitters,
     const void* fracs, int threads, int slots, int smem, void* counts_out,
     void* stream) {
   using namespace tpusort;
@@ -415,8 +597,8 @@ extern "C" int tpusort_partition_splitter(
   spl.frac = static_cast<const uint32_t*>(fracs);
   return dispatch_partition<true>(
       planes, vals, spl, n_planes, (const int32_t*)counts_in, q_in, n, T, K,
-      R, S, 0, 1, t_seg, sorted_run, threads, slots, (size_t)smem,
-      (int32_t*)counts_out, (cudaStream_t)stream);
+      R, S, 0, 1, t_seg, sorted_run, merge_run, threads, slots,
+      (size_t)smem, (int32_t*)counts_out, (cudaStream_t)stream);
 }
 
 extern "C" const char* tpusort_error_string(int err) {

@@ -5,11 +5,14 @@ PyTorch port of ``tpusort/kernels/partition.py:partition_pass_fused``:
 
 * the raw-key branch (K1) sorts each tile by 1-3 key planes, with payload
   words riding along; on a CUDA tensor it launches
-  ``csrc/partition.cu`` (the register network of ``csrc/reg_sort.cuh``
-  per tile, laid out by ``kernels/bitonic.py:tile_sort_geometry``).  With
+  ``csrc/partition.cu``: the register network of ``csrc/reg_sort.cuh``
+  per tile, laid out by ``kernels/bitonic.py:tile_sort_geometry``, or,
+  where the tile arrives as sorted runs under a counts table (passes 1
+  and 2), K2's merge of the runs' valid prefixes
+  (:func:`partition_merge_geometry`, ``csrc/merge_runs.cuh``).  With
   payloads equal keys keep their slot order, by a slot index under the
   last plane, and invalid slots sort after every valid one: the tile's
-  order is the stable one, in both versions;
+  order is the stable one, in both versions and both bodies;
 * its splitter mode (K1b, the equi-depth skew tier) sorts each tile the
   same way and cuts the runs at per-tile splitters instead of digit
   boundaries; on a CUDA tensor it launches the same kernel's splitter
@@ -36,6 +39,7 @@ kernels against.
 from __future__ import annotations
 
 import collections
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -51,7 +55,9 @@ MAX_VALUES = 8         # payload words per launch
 MAX_OPERANDS = 16      # planes + payload words of a K1c or K4 launch
 MAX_RUNS = 128         # K8's runs a tile: the Pallas kernel's one lane row
 SMEM_MAX = 232_448     # dynamic + static shared memory of one CTA (sm_90)
-_K1_STATIC_SMEM = (2 * MAX_RADIX + 1) * 4
+# K1's static shared memory (two arrays of MAX_RADIX ints and a count) as
+# ptxas lays it out (csrc/partition.cu: kStaticSmem)
+K1_STATIC_SMEM = 2064
 
 
 def tile_smem_bytes(slots: int, num_keys: int, has_values: bool) -> int:
@@ -292,11 +298,44 @@ def partition_pass_general_plain(
 
 
 def _raw_geometry(K: int, num_keys: int, n_vals: int):
-    """K1's and K1b's layout of a K-slot tile on its CTA: the row tile
-    sorts' (``kernels/bitonic.py:tile_sort_geometry``), which imports this
-    module, hence the import here."""
+    """K1's and K1b's layout of a K-slot tile on its CTA for the network
+    body: the row tile sorts' (``kernels/bitonic.py:tile_sort_geometry``),
+    which imports this module, hence the import here."""
     from tpusort_torch.kernels.bitonic import tile_sort_geometry
     return tile_sort_geometry(K, num_keys, n_vals)
+
+
+@functools.lru_cache(maxsize=None)
+def partition_merge_geometry(K: int, q_in: Optional[int],
+                             sorted_run: Optional[int], num_keys: int,
+                             n_vals: int):
+    """The geometry of K1's and K1b's merge body for (T, K) tiles with a
+    counts table of ``q_in``-slot chunks and the caller's ``sorted_run``
+    (``kernels/bitonic.MergeGeometry``), or None where they run the
+    network body.  Pure: it reads only the call's shape, so every caller
+    gets the same body on the same shape.
+
+    The merge body (``csrc/partition.cu: partition_merged`` on K2's
+    ``csrc/merge_runs.cuh``) loads each run's valid prefix alone and
+    merges the runs, where the network sorts the whole padded tile.  It
+    runs where the tile arrives as sorted runs under a counts table (a
+    later pass: ``sorted_run`` > 0 and ``q_in``) that are not the whole
+    tile (``sorted_run`` = K only emits, on the network body), on the
+    geometry of K2's merge (:func:`kernels.bitonic.leaf_merge_geometry`:
+    runs of L = min(sorted_run, q_in & -q_in) >= 128 slots, at most 256 a
+    tile, the fewest threads that cover K at the planes' merge slots, at
+    most 768), with the buffer beside K1's static arrays within a CTA.
+    So at 2^28 passes 1 and 2 (K = 16,384, runs of 256 then 512) merge
+    for keys, key + value and 2 planes + value (704 threads, about 205 KB),
+    and pass 0, emit-only and 3 planes (1,024 threads at 16 slots) take
+    the network."""
+    if not q_in or not sorted_run or sorted_run >= K:
+        return None
+    from tpusort_torch.kernels.bitonic import leaf_merge_geometry
+    geo = leaf_merge_geometry(K, q_in, sorted_run, num_keys, n_vals)
+    if geo is None or geo.smem_bytes + K1_STATIC_SMEM > SMEM_MAX:
+        return None
+    return geo
 
 
 def _partition_pass_cuda(
@@ -315,7 +354,7 @@ def _partition_pass_cuda(
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     T, K = planes[0].shape
     check_fits("partition_pass_fused", K, len(planes), len(values),
-               _K1_STATIC_SMEM)
+               K1_STATIC_SMEM)
     if r > MAX_RADIX:
         raise ValueError(f"R={r} exceeds the kernel's {MAX_RADIX} digits")
     if counts_in is not None:
@@ -325,19 +364,23 @@ def _partition_pass_cuda(
             for _ in range(len(planes) + len(values))]
     counts = torch.empty(T, r, dtype=torch.int32, device=dev)
     np_ = len(planes)
-    geo = _raw_geometry(K, np_, len(values))
+    merge = partition_merge_geometry(K, q_in if counts_in is not None
+                                     else None, sorted_run, np_, len(values))
+    geo = merge or _raw_geometry(K, np_, len(values))
     err = _build.library().tpusort_partition_raw(
         _build.pointers(planes), _build.pointers(outs[:np_]), np_,
         _build.pointers(values), _build.pointers(outs[np_:]), len(values),
         None if counts_in is None else counts_in.data_ptr(),
         q_in or 0, -1 if n is None else n, T, K, r, s, lo_bit, width,
-        t_seg, sorted_run or 0, geo.threads, geo.slots, geo.smem_bytes,
-        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        t_seg, sorted_run or 0, merge.run if merge else 0, geo.threads,
+        geo.slots, geo.smem_bytes, counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "partition_pass_fused")
     # a tile that is one sorted run skips the network: K1 only emits
     _build.count_launch(partition_pass_fused, np_, len(values),
-                        *(("emit-only",) if sorted_run == K else ()))
+                        *(("emit-only",) if sorted_run == K else
+                          ("merge",) if merge else ()))
     return outs, counts
 
 
@@ -357,7 +400,7 @@ def _partition_pass_splitter_cuda(
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     T, K = planes[0].shape
     check_fits("partition_pass_fused (splitters)", K, len(planes),
-               len(values), _K1_STATIC_SMEM)
+               len(values), K1_STATIC_SMEM)
     if r > MAX_RADIX:
         raise ValueError(f"R={r} exceeds the kernel's {MAX_RADIX} runs")
     if counts_in is not None:
@@ -367,18 +410,22 @@ def _partition_pass_splitter_cuda(
             for _ in range(len(planes) + len(values))]
     counts = torch.empty(T, r, dtype=torch.int32, device=dev)
     np_ = len(planes)
-    geo = _raw_geometry(K, np_, len(values))
+    merge = partition_merge_geometry(K, q_in if counts_in is not None
+                                     else None, sorted_run, np_, len(values))
+    geo = merge or _raw_geometry(K, np_, len(values))
     err = _build.library().tpusort_partition_splitter(
         _build.pointers(planes), _build.pointers(outs[:np_]), np_,
         _build.pointers(values), _build.pointers(outs[np_:]), len(values),
         None if counts_in is None else counts_in.data_ptr(),
         q_in or 0, -1 if n is None else n, T, K, r, s, t_seg,
-        sorted_run or 0, _build.pointers(splitters),
-        splitter_fracs.data_ptr(), geo.threads, geo.slots, geo.smem_bytes,
-        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        sorted_run or 0, merge.run if merge else 0,
+        _build.pointers(splitters), splitter_fracs.data_ptr(), geo.threads,
+        geo.slots, geo.smem_bytes, counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "partition_pass_fused (splitters)")
-    _build.count_launch(_partition_pass_splitter_cuda, np_, len(values))
+    _build.count_launch(_partition_pass_splitter_cuda, np_, len(values),
+                        *(("merge",) if merge else ()))
     return outs, counts
 
 

@@ -366,7 +366,9 @@ def mode_counters() -> dict:
     counts its key planes and value words; K4 compares no keys, so its mode
     is (0, operand words); K5's and K7's are (0, 1), K6's (1, 0) and K8's
     (1, data operands).  K1's emit-only launches (tiles that are one sorted
-    run, the windows finish's pass 0) carry the tag "emit-only"."""
+    run, the windows finish's pass 0) carry the tag "emit-only"; K1's, K1b's
+    and K2's merge-body launches (tiles that arrive as sorted runs, merged
+    from their valid prefixes) the tag "merge"."""
     return {("K" + k[1:k.index("_")], *mode): c
             for k, fn in _KERNELS.items()
             for mode, c in fn.modes.items() if c}
