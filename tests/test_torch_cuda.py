@@ -341,6 +341,33 @@ def test_stable_pairs_with_all_ones_keys_at_2p28(gen):
                        want.values.to(torch.int32))
 
 
+def test_u64_keys_at_2p27_on_the_two_plane_merge_route(gen):
+    """``sort`` of 2^27 uniform uint64 keys, the call of the benchmark's
+    cell ``keys64.uniform``: bit-identical to the benchmark's plain
+    reference; the radix tier with no fallback; K1's pass 0 on the network
+    body and passes 1-2 on the merge body, and K2 on the merge body, all
+    on two key planes with no payload; ``merge_bytes`` moved by 8 B for
+    each key and operand word of those three launches."""
+    from portbench import reference
+
+    n = 1 << 27
+    keys = torch.stack([_rand(gen, n), _rand(gen, n)], 1).view(
+        torch.int64)[:, 0].view(torch.uint64)
+    tm.reset_counters()
+    got = tpusort_torch.sort(keys)
+    c, modes = tm.counters(), tm.mode_counters()
+    assert (c["radix_tiers"], c["overflow_fallbacks"], c["reference_routes"],
+            c["equidepth_runs"]) == (1, 0, 0, 0), c
+    assert modes == {("K1", 2, 0): 1, ("K1", 2, 0, "merge"): 2,
+                     ("K2", 2, 0, "merge"): 1}, modes
+    words = sum((m[1] + m[2]) * k for m, k in modes.items()
+                if m[-1] == "merge")
+    assert c["merge_bytes"] == 8 * n * words == 48 * n, c
+    assert c["split_join_bytes"] == 32 * n
+    want = reference.stable_sort(keys)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
 @pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.float32])
 @pytest.mark.parametrize("descending", [False, True])
 def test_sort_on_card(gen, dtype, descending):

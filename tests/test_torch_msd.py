@@ -223,7 +223,7 @@ def test_reference_route_below_min_n():
                                  radix_tiers=0, equidepth_runs=0,
                                  sample_fallbacks=0, identity_routes=0,
                                  exchange_fallbacks=0, host_reads=0,
-                                 split_join_bytes=0)
+                                 split_join_bytes=0, merge_bytes=0)
 
 
 def test_mode_counters():

@@ -111,9 +111,10 @@ def _twiddle32_out(t: torch.Tensor, traits: KeyTraits) -> torch.Tensor:
 
 
 def split64(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) int32 bit-pattern planes of a 1-D 64-bit tensor, by views:
-    the same words as ``tpusort.dtypes.split64_host``, without a trip
-    through the host (little-endian: word 1 of each element is hi)."""
+    """(hi, lo) int32 bit-pattern planes of a 1-D 64-bit tensor, as two
+    contiguous copies of the strided words of its int32 view: the same
+    words as ``tpusort.dtypes.split64_host``, without a trip through the
+    host (little-endian: word 1 of each element is hi)."""
     if keys.element_size() != 8:
         raise ValueError(f"split64 expects a 64-bit dtype, got {keys.dtype}")
     if keys.numel() == 0:         # an empty tensor's stride may not view

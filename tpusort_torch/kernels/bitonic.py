@@ -27,6 +27,7 @@ from tpusort_torch.kernels import _build
 from tpusort_torch.kernels.partition import (
     MAX_TILE, SMEM_MAX, _valid, check_fits, sort_valid_rows, tile_smem_bytes)
 from tpusort_torch.ops.reference import sort_rows_lex
+from tpusort_torch.utils.log import count
 
 LANES = 128
 
@@ -228,6 +229,8 @@ def _sort_tiles_counts_collapsed_cuda(
     _build.check(err, "sort_tiles_counts_collapsed")
     _build.count_launch(sort_tiles_counts_collapsed, num_keys, n_vals,
                         *(("merge",) if merge else ()))
+    if merge:
+        count("merge_bytes", 8 * n_out * len(ops))
     return outs
 
 

@@ -47,6 +47,7 @@ import torch
 from tpusort_torch.dtypes import INT32_MIN
 from tpusort_torch.kernels import _build
 from tpusort_torch.ops.reference import sort_rows_lex
+from tpusort_torch.utils.log import count
 
 MAX_TILE = 1 << 15     # the slot index is 16-bit; 128 KB a key plane
 MAX_RADIX = 256        # the kernel's shared-memory histogram
@@ -381,6 +382,8 @@ def _partition_pass_cuda(
     _build.count_launch(partition_pass_fused, np_, len(values),
                         *(("emit-only",) if sorted_run == K else
                           ("merge",) if merge else ()))
+    if merge and n is not None:
+        count("merge_bytes", 8 * n * (np_ + len(values)))
     return outs, counts
 
 
@@ -426,6 +429,8 @@ def _partition_pass_splitter_cuda(
     _build.check(err, "partition_pass_fused (splitters)")
     _build.count_launch(_partition_pass_splitter_cuda, np_, len(values),
                         *(("merge",) if merge else ()))
+    if merge and n is not None:
+        count("merge_bytes", 8 * n * (np_ + len(values)))
     return outs, counts
 
 
@@ -527,7 +532,10 @@ def partition_pass_fused(
 
     Validity comes from ``counts_in`` ((T, K // q_in) int32: subrun i of
     ``q_in`` slots holds counts_in[t, i] valid slots as a prefix), or, for
-    pass 0 (``counts_in`` None), from the global slot index vs ``n``.  The
+    pass 0 (``counts_in`` None), from the global slot index vs ``n``.  A
+    merge-body launch counts its bytes at ``n`` valid keys (8 B a key and
+    operand word, ``merge_bytes`` in ``utils.log.COUNTS``), so the callers
+    give ``n`` to every pass; a launch without it is not counted.  The
     digit is bits [lo_bit, lo_bit + width) of the whole multi-plane key, or
     the caller's ``digit`` plane ((T, K) int32, values below ``r``).  With
     ``t_seg`` (tiles per digit segment) run d of tile (seg, j) goes to

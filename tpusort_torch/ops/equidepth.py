@@ -234,8 +234,8 @@ def _run_pipeline(
             spl, frac = _pass_splitters(q, p, j, r, spec.t_seg)
             ops, counts = partition_pass_fused(
                 tiled[:nplanes], tiled[nplanes:],
-                ctable.reshape(t, spec.k // qg), q_in=qg, r=spec.r, s=spec.s,
-                lo_bit=spec.lo_bit, width=spec.width,
+                ctable.reshape(t, spec.k // qg), q_in=qg, n=n, r=spec.r,
+                s=spec.s, lo_bit=spec.lo_bit, width=spec.width,
                 sorted_run=None if prev_s is None else prev_s & -prev_s,
                 t_seg=spec.t_seg, splitters=spl, splitter_fracs=frac,
                 unstable=True)

@@ -311,8 +311,8 @@ def plan_msd(
 # ``partition_tiles.launches`` (K8, the per-phase engine's passes), and
 # ``.modes`` by key planes and payload words), which count only where they
 # launch a CUDA kernel; :func:`counters` and :func:`mode_counters` read them.
-# The host reads and the split and join bytes are counted in
-# ``utils.log.COUNTS``.
+# The host reads and the bytes of the split and join and of the merge
+# bodies are counted in ``utils.log.COUNTS``.
 _ROUTES = {"reference_routes": 0, "overflow_fallbacks": 0,
            "radix_tiers": 0, "equidepth_runs": 0, "sample_fallbacks": 0,
            "identity_routes": 0, "exchange_fallbacks": 0}
@@ -354,7 +354,9 @@ def counters() -> dict:
     the host waited for a device value (``host_reads``, each a
     ``tpusort.read.*`` span); the bytes the 64-bit split and join copied
     (``split_join_bytes``, from the tensors' sizes: ``dtypes.split64``
-    and ``join64``)."""
+    and ``join64``); the bytes K1's, K1b's and K2's merge-body launches
+    read and write (``merge_bytes``: 8 B a valid key and operand word, the
+    key planes plus payload words, from the launch's arguments)."""
     return dict({k: fn.launches for k, fn in _KERNELS.items()}, **_ROUTES,
                 **COUNTS)
 
@@ -423,7 +425,7 @@ def run_passes(
             ops, counts = partition_pass_fused(
                 tiled[:nplanes], tiled[nplanes:], cin, q_in=q, r=spec.r,
                 s=spec.s, lo_bit=spec.lo_bit, width=spec.width,
-                n=(n if ctable is None else None), sorted_run=prev_run,
+                n=n, sorted_run=prev_run,
                 unstable=unstable, t_seg=spec.t_seg, general=general,
             )
             prev_run = spec.s & -spec.s

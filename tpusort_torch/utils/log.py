@@ -14,7 +14,8 @@ default WARNING), the same variable the JAX package reads.
 time (:func:`spanned` does so for every call of a function);
 :func:`host_read` marks a place where the host blocks on a device
 value and counts it, read through ``ops.msd.counters()``, as
-:func:`count` counts the bytes of the 64-bit split and join.
+:func:`count` counts the bytes of the 64-bit split and join and of the
+merge-body launches.
 """
 
 from __future__ import annotations
@@ -59,10 +60,12 @@ try:
 except ImportError:                                   # an older torch
     _Fast = None
 
-# the host reads, and the bytes the 64-bit split and join copy
-# (``dtypes.py``), since the last reset_counters(); a lock, as the global
-# sort's shards run threads of their own
-COUNTS = {"host_reads": 0, "split_join_bytes": 0}
+# the host reads, the bytes the 64-bit split and join copy (``dtypes.py``)
+# and the bytes K1's, K1b's and K2's merge-body launches read and write
+# (``kernels/partition.py``, ``kernels/bitonic.py``), since the last
+# reset_counters(); a lock, as the global sort's shards run threads of
+# their own
+COUNTS = {"host_reads": 0, "split_join_bytes": 0, "merge_bytes": 0}
 _COUNT_LOCK = threading.Lock()
 
 
