@@ -15,7 +15,8 @@ non-zero:
    (its merge body: one final segment a tile, merged from its runs);
 4. ``tpusort_torch.sort`` of 2^28 uniform uint32 keys: bit-identical to the
    reference sort, one radix tier (the host planner keeps it), one K1
-   launch per pass, one K2 launch, no reference route and no fallback;
+   launch per pass (pass 0 on the runs body, the rest on the merge body),
+   one K2 launch, no reference route and no fallback;
 5. int32, float32 descending with NaN, -0.0 and +0.0 planted, and uint32
    with a block of 0xFFFFFFFF (which ties the invalid-slot sentinel), at
    2^24: bit-identical to the reference, through the kernels;
@@ -208,11 +209,13 @@ non-zero:
     tile and the payloads over the valid prefix;
 31. K1 and K1b (``csrc/partition.cu`` on ``csrc/reg_sort.cuh``) and K5
     (``csrc/scanhist.cu``) at their edges: the ``-Xptxas -v`` lines of the
-    54 instances of ``partition_raw_kernel`` (42 of the network body, 12
-    of the merge body) and the 6 kernels of
-    ``scanhist.cu``, K6's two among them (none may spill); K1 vs plain bit for bit on the
-    counts and every valid slot, payloads included (ties keep their slot
-    order, as in plain), at K = 2^11 .. 2^14 with 1-3 planes, 0, 1, 2 and
+    62 instances of ``partition_raw_kernel`` (42 of the network body, 12
+    of the merge body, 8 of the runs body) and the 6 kernels of
+    ``scanhist.cu``, K6's two among them (none may spill, counting the
+    lines of the functions an instance calls out of line too); K1 vs plain
+    bit for bit on the counts and every valid slot, payloads included (ties
+    keep their slot order, as in plain), at K = 2^9 .. 2^14 (one warp run
+    a tile in the runs body at 512 and 1,024) with 1-3 planes, 0, 1, 2 and
     8 payloads and every ``sorted_run`` from none through 128 .. K, on
     keys with ties and a block of 0xFFFFFFFF; K1b vs plain on Zipf 1.1
     keys cut at their own quantiles, with and without a ``sorted_run``;
@@ -243,14 +246,22 @@ non-zero:
     tiny and empty segments, ``n_out`` cutting a segment, sum == ``n_out``,
     16 operands, int64 counts past the segment and below 0, ``n_out`` past
     the sum;
-34. K1's and K1b's merge body (``csrc/partition.cu: partition_merged``)
-    on its paths' own inputs: ``sort`` and stable ``sort_pairs`` of 2^28
-    uniform and entropy-3 keys (the benchmark's four 32-bit cells: K1
-    keys, K1 key + value, K1b keys, K1b composite + value), each exact,
-    with one network launch (pass 0) and two in the "merge" mode; then
-    each call's passes 1 and 2 (runs of 256, then 512) kernel vs plain,
-    bit for bit on the counts and every valid slot, and timed in turns
-    with plain (kernels-line rows "K1 <mode> (merge, pass <j>)").
+34. K1's and K1b's merge body (``csrc/partition.cu: partition_sorted``
+    after ``merge_runs.cuh: merge_tile``) on its paths' own inputs:
+    ``sort`` and stable ``sort_pairs`` of 2^28 uniform and entropy-3 keys
+    and ``sort`` of 2^27 uniform uint64 keys (the benchmark's five K1 and
+    K1b cells: K1 keys, K1 key + value, K1b keys, K1b composite + value,
+    K1 2 planes), each exact, with one launch in the "runs" mode (pass 0)
+    and two in the "merge" mode; then each call's passes 1 and 2 (runs of
+    256, then 512) kernel vs plain, bit for bit on the counts and every
+    valid slot, and timed in turns with plain (kernels-line rows "K1
+    <mode> (merge, pass <j>)");
+35. K1's and K1b's runs body (``csrc/partition.cu: sort_runs``) on the
+    same five calls' pass 0 (K = 16,384 tiles, S 768; K1b on the skew
+    tier's strided feed, q 128), in the loop of phase 34: kernel vs plain
+    bit for bit on the counts and every valid slot, one launch in the
+    "runs" mode, timed in turns with plain (kernels-line rows "K1 <mode>
+    (runs, pass 0)").
 
 The line before the last is a JSON summary of the kernels: each template
 mode compared, with its launches in the run of the path that drives it at
@@ -296,6 +307,28 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+def ptxas_spills(log_path, match, src_of) -> dict:
+    """[spill store bytes, spill load bytes] of each kernel in the build log
+    at ``log_path`` whose name ``match`` accepts, summed over every
+    ``spill`` line of its entry: ptxas prints one for the kernel and one
+    for each function it calls out of line, so the last line alone may be
+    a callee's.  Prints each line, ``src_of(name)`` naming the source."""
+    spills, fn_name = {}, None
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn_name = line.split("'")[1]
+        elif fn_name and match(fn_name) \
+                and ("spill" in line or "registers" in line):
+            print(f"  ptxas {src_of(fn_name)} {fn_name}: {line.strip()}",
+                  flush=True)
+            if "spill" in line:
+                st, ld = (int(w) for w in re.findall(r"(\d+) bytes spill",
+                                                     line))
+                was = spills.get(fn_name, [0, 0])
+                spills[fn_name] = [was[0] + st, was[1] + ld]
+    return spills
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -328,8 +361,8 @@ def main() -> None:
     from tpusort_torch.kernels.partition import (
         _partition_pass_general_cuda,
         extract_bits, partition_merge_geometry, partition_pass_fused,
-        partition_pass_fused_plain,
-        partition_pass_general_plain, partition_pass_splitter_plain,
+        partition_pass_fused_plain, partition_pass_general_plain,
+        partition_pass_splitter_plain, partition_runs_geometry,
         partition_tiles, partition_tiles_plain)
     from tpusort_torch.kernels.scanhist import (
         digit_histogram_tiles, digit_histogram_tiles_plain, prefix_sum_tiles,
@@ -797,6 +830,12 @@ def main() -> None:
         return modes.get(("K2", nk, nv), 0) + \
             modes.get(("K2", nk, nv, "merge"), 0)
 
+    def pass0(modes, kid: str, nk: int, nv: int) -> int:
+        """K1's or K1b's pass-0 launches in a mode, on the body its shape
+        takes: the runs body (tag "runs") or the network (no tag)."""
+        return modes.get((kid, nk, nv), 0) + \
+            modes.get((kid, nk, nv, "runs"), 0)
+
     # kernel mode -> (max_abs_err, kernel times, plain times, words the
     # function must move, its operations, library call times or absent)
     results = {}
@@ -903,16 +942,18 @@ def main() -> None:
           and out.device == x.device, "main path: wrong dtype/shape/device")
     check(same_bits(out, reference_sort(x)),
           "main path: 2^28 sort differs from the reference")
-    # host reads: the planner's sample and the tier's flag
+    # host reads: the planner's sample and the tier's flag; merge bytes:
+    # 8 a key for each merge launch (K1's passes 1-2 and K2), one word each
     check(main_counts == dict(quiet, k1_launches=len(main_plan.passes),
-                              k2_launches=1, radix_tiers=1, host_reads=2),
+                              k2_launches=1, radix_tiers=1, host_reads=2,
+                              merge_bytes=8 * MAIN_N * len(main_plan.passes)),
           f"main path did not run K1 x{len(main_plan.passes)} + K2 "
           f"without overflow: {main_counts}")
-    # pass 0 on the network, passes 1 and 2 on the merge body
-    check(modes.get(("K1", 1, 0)) == 1 and modes.get(("K1", 1, 0, "merge"))
-          == len(main_plan.passes) - 1,
-          f"main path: not one network K1 and the rest merged: {modes}")
-    launches["K1 keys"] = modes.get(("K1", 1, 0), 0)
+    # pass 0 on the runs body, passes 1 and 2 on the merge body
+    check(modes.get(("K1", 1, 0, "runs")) == 1
+          and modes.get(("K1", 1, 0, "merge")) == len(main_plan.passes) - 1,
+          f"main path: not one runs-body K1 and the rest merged: {modes}")
+    launches["K1 keys"] = pass0(modes, "K1", 1, 0)
     launches["K2 keys"] = k2(modes, 1, 0)
     log("phase 4 ok: 2^28 uint32 sort == reference, overflow False, "
         f"K1 x{main_counts['k1_launches']}, K2 x{main_counts['k2_launches']}")
@@ -1089,16 +1130,18 @@ def main() -> None:
           and same_bits(ko, wk) and same_bits(vo, wv),
           "sort_pairs 2^28: keys or values differ from the stable reference")
     check(pairs_counts == dict(quiet, k1_launches=len(pairs_main.passes),
-                               k2_launches=1, radix_tiers=1, host_reads=2),
+                               k2_launches=1, radix_tiers=1, host_reads=2,
+                               merge_bytes=16 * MAIN_N
+                               * len(pairs_main.passes)),
           f"sort_pairs did not run K1 x{len(pairs_main.passes)} + K2 "
           f"without overflow: {pairs_counts}")
     # the key plane alone: no composite (key, position) planes
-    check(modes == {("K1", 1, 1): 1,
+    check(modes == {("K1", 1, 1, "runs"): 1,
                     ("K1", 1, 1, "merge"): len(pairs_main.passes) - 1,
                     ("K2", 1, 1, "merge"): 1},
           f"sort_pairs did not run the one-plane key+value modes (K1's "
-          f"and K2's merge bodies after pass 0): {modes}")
-    launches["K1 key+value"] = modes[("K1", 1, 1)]
+          f"runs body, then K1's and K2's merge bodies): {modes}")
+    launches["K1 key+value"] = pass0(modes, "K1", 1, 1)
     launches["K2 key+value"] = k2(modes, 1, 1)
     log("phase 10 ok: 2^28 sort_pairs == stable reference, keys and values, "
         "on the key plane alone")
@@ -1117,11 +1160,11 @@ def main() -> None:
           and unstable_counts["overflow_fallbacks"] == 0
           and unstable_counts["reference_routes"] == 0,
           f"unstable pairs did not run the kernels: {unstable_counts}")
-    check(modes == {("K1", 1, 1): 1,
+    check(modes == {("K1", 1, 1, "runs"): 1,
                     ("K1", 1, 1, "merge"): len(pairs_main.passes) - 1,
                     ("K2", 1, 1, "merge"): 1},
           f"unstable pairs did not run the one-plane key+value modes (K1's "
-          f"and K2's merge bodies after pass 0): {modes}")
+          f"runs body, then K1's and K2's merge bodies): {modes}")
     log(f"phase 11 ok: 2^28 unstable_sort_pairs: keys exact, values a "
         f"permutation ({unstable_counts})")
     del ko, vo
@@ -1145,7 +1188,7 @@ def main() -> None:
         "uint64 2^27", lambda: tpusort_torch.sort(x64.view(torch.uint64)))
     check(same_bits(got, reference_sort(x64.view(torch.uint64))),
           "uint64 2^27: differs from the reference")
-    launches["K1 2 planes"] = modes.get(("K1", 2, 0), 0)
+    launches["K1 2 planes"] = pass0(modes, "K1", 2, 0)
     launches["K2 2 planes"] = k2(modes, 2, 0)
     log("phase 12 ok: uint64 keys at 2^27 == reference via the kernels")
     del got
@@ -1171,7 +1214,7 @@ def main() -> None:
     src = order[torch.searchsorted(i64v[order], vo)]
     check(same_bits(i64[src], ko) and same_bits(i64v[src], vo),
           "int64 pairs: values do not ride with their keys")
-    launches["K1 2 planes+2 values"] = modes.get(("K1", 2, 2), 0)
+    launches["K1 2 planes+2 values"] = pass0(modes, "K1", 2, 2)
     launches["K2 2 planes+2 values"] = k2(modes, 2, 2)
     log("phase 12 ok: int64 keys with int64 values (unstable) at 2^24")
     del ko, vo, order, src
@@ -1426,7 +1469,7 @@ def main() -> None:
           f"sort_pairs_lsb_in_value did not run K1 and K2: {c}")
     # the one path left on the composite + value modes (phases 7 and 8
     # compare them at the 2^28 pairs plan, where no path runs them now)
-    for kid, n_launch in (("K1", modes.get(("K1", 2, 1), 0)
+    for kid, n_launch in (("K1", pass0(modes, "K1", 2, 1)
                            + modes.get(("K1", 2, 1, "merge"), 0)),
                           ("K2", k2(modes, 2, 1))):
         notes[f"{kid} composite+value"] = (
@@ -1607,7 +1650,7 @@ def main() -> None:
                               lambda: tpusort_torch.sort(zu), 3)
     check(same_bits(got, reference_sort(zu)),
           "Zipf 2^28: differs from the reference")
-    launches["K1b keys"] = modes.get(("K1b", 1, 0), 0)
+    launches["K1b keys"] = pass0(modes, "K1b", 1, 0)
     log("phase 19 ok: Zipf 1.1 keys at 2^28 took the skew tier, exact")
     e3 = (random_i32(MAIN_N) & random_i32(MAIN_N)
           & random_i32(MAIN_N)).view(torch.uint32)
@@ -1639,7 +1682,7 @@ def main() -> None:
     wk, (wv,) = reference_sort(zu, (vals.view(torch.int32),))
     check(same_bits(ko, wk) and same_bits(vo, wv),
           "stable Zipf pairs 2^28: differs from the stable reference")
-    launches["K1b composite+value"] = modes.get(("K1b", 2, 1), 0)
+    launches["K1b composite+value"] = pass0(modes, "K1b", 2, 1)
     del ko, vo, wk, wv
     skew_leaf_vs_plain("composite+value Zipf", "stable Zipf pairs", z_leaf,
                        modes)
@@ -1654,7 +1697,7 @@ def main() -> None:
           and same_bits(torch.sort(vo.view(torch.int32)).values,
                         vals.view(torch.int32)),
           "unstable Zipf pairs: values are not a permutation of their keys")
-    launches["K1b key+value"] = modes.get(("K1b", 1, 1), 0)
+    launches["K1b key+value"] = pass0(modes, "K1b", 1, 1)
     del ko, vo
     log("phase 19 ok: unstable Zipf pairs at 2^28")
     z64u = z64.view(torch.uint64)
@@ -1662,7 +1705,7 @@ def main() -> None:
                               lambda: tpusort_torch.sort(z64u), 3)
     check(same_bits(got, reference_sort(z64u)),
           "u64 Zipf 2^27: differs from the reference")
-    launches["K1b 2 planes"] = modes.get(("K1b", 2, 0), 0)
+    launches["K1b 2 planes"] = pass0(modes, "K1b", 2, 0)
     del got, z64, z64u
     log("phase 19 ok: u64 Zipf keys at 2^27 took the skew tier, exact")
     presorted = reference_sort(x)
@@ -2083,7 +2126,7 @@ def main() -> None:
                       "permutation riding with their keys")
             if must_run and vals_ is not None:
                 row = f"{k_mode[0]} planes+value"
-                launches[f"K1 {row}"] = modes.get(("K1", *k_mode), 0)
+                launches[f"K1 {row}"] = pass0(modes, "K1", *k_mode)
                 launches[f"K2 {row}"] = k2(modes, *k_mode)
             del got, ko
         log(f"phase 25 ok: segmented_sort at 2^26, {batch}: keys only, "
@@ -2695,18 +2738,10 @@ def main() -> None:
 
     # ---- phase 30: K3, K9 and K10 vs plain at the edge shapes -----------
     torch.cuda.empty_cache()
-    instances, fn_name = {}, None
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            fn_name = line.split("'")[1]
-        elif fn_name and ("sort_tiles_kernel" in fn_name
-                          or "sort_tiles_valid_kernel" in fn_name) \
-                and ("spill" in line or "registers" in line):
-            print(f"  ptxas sort_tiles.cu {fn_name}: {line.strip()}",
-                  flush=True)
-            if "spill" in line:
-                instances[fn_name] = [int(w) for w in re.findall(
-                    r"(\d+) bytes spill", line)]
+    instances = ptxas_spills(
+        _build.BUILD_DIR / "build.log",
+        lambda f: "sort_tiles_kernel" in f or "sort_tiles_valid_kernel" in f,
+        lambda f: "sort_tiles.cu")
     # every (planes, payloads, slots a thread) whose slots fit 64 registers
     # (csrc/reg_sort.cuh: fits_registers): K3 has one plane, K9/K10 1-3
     n_inst = sum(e * (nk + idx) <= 64 for e in (4, 8, 16, 32)
@@ -2824,26 +2859,19 @@ def main() -> None:
 
     # ---- phase 31: partition.cu and scanhist.cu at their edges ----------
     torch.cuda.empty_cache()
-    spills, fn_name = {}, None
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            fn_name = line.split("'")[1]
-        elif fn_name and any(k in fn_name for k in (
-                "partition_raw_kernel", "scan_lookback_kernel",
-                "digit_histogram_kernel")) \
-                and ("spill" in line or "registers" in line):
-            src = "partition.cu" if "partition_raw" in fn_name \
-                else "scanhist.cu"
-            print(f"  ptxas {src} {fn_name}: {line.strip()}", flush=True)
-            if "spill" in line:
-                spills[fn_name] = [int(w) for w in re.findall(
-                    r"(\d+) bytes spill", line)]
+    spills = ptxas_spills(
+        _build.BUILD_DIR / "build.log",
+        lambda f: any(k in f for k in ("partition_raw_kernel",
+                                       "scan_lookback_kernel",
+                                       "digit_histogram_kernel")),
+        lambda f: "partition.cu" if "partition_raw" in f else "scanhist.cu")
     # partition.cu: (planes, payloads, slots a thread) whose slots fit 64
-    # registers, K1 and K1b each, and the merge body's (planes, payloads),
-    # K1 and K1b each; scanhist.cu: K5 x (uint32, float32) x (aligned,
-    # not), and K6 x (register fields, per-warp shared bins)
+    # registers, K1 and K1b each, the merge body's (planes, payloads), K1
+    # and K1b each, and the runs body's (1-2 planes, payloads), K1 and K1b
+    # each; scanhist.cu: K5 x (uint32, float32) x (aligned, not), and K6 x
+    # (register fields, per-warp shared bins)
     n_k1 = 2 * sum(e * (nk + idx) <= 64 for e in (4, 8, 16, 32)
-                   for idx in (0, 1) for nk in (1, 2, 3)) + 2 * 6
+                   for idx in (0, 1) for nk in (1, 2, 3)) + 2 * 6 + 2 * 4
     n_k1_seen = sum("partition_raw_kernel" in k for k in spills)
     n_k6_seen = sum("digit_histogram_kernel" in k for k in spills)
     check(n_k1_seen == n_k1 and n_k6_seen == 2
@@ -2891,7 +2919,7 @@ def main() -> None:
               f"phase 31: {what}: valid slots differ")
 
     n_edge, e_t, e_r = 0, 4, 16
-    for lk in range(11, 15):
+    for lk in range(9, 15):
         k = 1 << lk
         e_s = max(128, (3 * k // (2 * e_r)) // 128 * 128)
         for nk in (1, 2, 3):
@@ -2919,11 +2947,11 @@ def main() -> None:
                     n_edge += 1
     log(f"phase 31 ok: no spill in the {n_k1} instances of partition.cu "
         f"nor the 6 of scanhist.cu; K1 == plain bit for bit (payloads "
-        f"too: ties keep their slot order) at K = 2^11 .. 2^14, 1-3 planes, "
+        f"too: ties keep their slot order) at K = 2^9 .. 2^14, 1-3 planes, "
         f"0, 1, 2 and 8 payloads, every sorted_run, tied keys with a block "
         f"of 0xFFFFFFFF: {n_edge} calls")
     n_edge = 0
-    for lk in range(11, 15):
+    for lk in range(9, 15):
         k = 1 << lk
         e_s = max(128, (3 * k // (2 * e_r)) // 128 * 128)
         for nk in (1, 2):
@@ -2958,24 +2986,17 @@ def main() -> None:
                                   cin, run, kw, spl=(words_, f_))
                     n_edge += 1
     log(f"phase 31 ok: K1b == plain on Zipf 1.1 keys cut at their "
-        f"quantiles, K = 2^11 .. 2^14, 1-2 planes, 0 and 1 payloads, with "
+        f"quantiles, K = 2^9 .. 2^14, 1-2 planes, 0 and 1 payloads, with "
         f"and without a sorted_run: {n_edge} calls")
 
     # ---- phase 32: bitonic.cu and partition_general.cu at their edges ----
     torch.cuda.empty_cache()
-    spills, fn_name = {}, None
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            fn_name = line.split("'")[1]
-        elif fn_name and ("leaf_collapse_kernel" in fn_name
-                          or "partition_general_kernel" in fn_name) \
-                and ("spill" in line or "registers" in line):
-            src = "bitonic.cu" if "leaf_collapse" in fn_name \
-                else "partition_general.cu"
-            print(f"  ptxas {src} {fn_name}: {line.strip()}", flush=True)
-            if "spill" in line:
-                spills[fn_name] = [int(w) for w in re.findall(
-                    r"(\d+) bytes spill", line)]
+    spills = ptxas_spills(
+        _build.BUILD_DIR / "build.log",
+        lambda f: ("leaf_collapse_kernel" in f
+                   or "partition_general_kernel" in f),
+        lambda f: "bitonic.cu" if "leaf_collapse" in f
+        else "partition_general.cu")
     # bitonic.cu: the network body's (planes, payloads, slots a thread)
     # whose slots fit 64 registers, as sort_tiles.cu's validity template,
     # and the merge body's (planes, payloads), its slots fixed by the
@@ -3085,20 +3106,12 @@ def main() -> None:
 
     # ---- phase 33: partition_tiles.cu and collapse.cu at their edges ----
     torch.cuda.empty_cache()
-    spills, fn_name = {}, None
     ours = re.compile(r"\d(partition_tiles_kernel|collapse_kernel|"
                       r"collapse_offsets_kernel)")
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            fn_name = line.split("'")[1]
-        elif fn_name and ours.search(fn_name) \
-                and ("spill" in line or "registers" in line):
-            src = "partition_tiles.cu" if "partition_tiles" in fn_name \
-                else "collapse.cu"
-            print(f"  ptxas {src} {fn_name}: {line.strip()}", flush=True)
-            if "spill" in line:
-                spills[fn_name] = [int(w) for w in re.findall(
-                    r"(\d+) bytes spill", line)]
+    spills = ptxas_spills(
+        _build.BUILD_DIR / "build.log", ours.search,
+        lambda f: "partition_tiles.cu" if "partition_tiles" in f
+        else "collapse.cu")
     # K8; K4 and its offsets kernel for int32 and for int64 counts
     check(len(spills) == 4,
           f"partition_tiles.cu / collapse.cu: {sorted(spills)} in the build "
@@ -3211,18 +3224,19 @@ def main() -> None:
         f"a segment, sum == n_out, 16 operands, int64 counts clamped in the "
         f"kernel, n_out past the sum (zeros): {n_edge} calls")
 
-    # ---- phase 34: K1's and K1b's merge body on its paths' inputs -------
+    # ---- phases 34-35: K1's and K1b's merge and runs bodies on their ----
+    # ---- paths' inputs ---------------------------------------------------
     torch.cuda.empty_cache()
 
-    def pass_inputs(fn):
+    def pass_inputs(fn, n_):
         """(fn's output, the (planes, values, counts_in, keyword
-        arguments) of each K1 and K1b call with a sorted_run that the
-        engines' partition passes make in it, the sort's own (not the skew
-        tier's sample sort's))."""
+        arguments) of each K1 and K1b call that the engines' partition
+        passes make in it, the sort's own (not the skew tier's sample
+        sort's))."""
         seen, real = [], msd.partition_pass_fused
 
         def spy(planes_, values_, cin_, **kw):
-            if kw.get("sorted_run") and planes_[0].numel() >= MAIN_N:
+            if planes_[0].numel() >= n_:
                 seen.append((planes_, values_, cin_, kw))
             return real(planes_, values_, cin_, **kw)
 
@@ -3238,16 +3252,20 @@ def main() -> None:
           & random_i32(MAIN_N)).view(torch.uint32)
     ids = torch.arange(MAIN_N, dtype=torch.int32, device=dev) \
         .view(torch.uint32)
+    u64k = torch.stack([random_i32(U64_N), random_i32(U64_N)], 1) \
+        .view(torch.int64)[:, 0].view(torch.uint64)
     for mode, name, keys_, vals_, kid, nk, nv in (
             ("keys", "sort 2^28", xu, None, "K1", 1, 0),
             ("key+value", "sort_pairs 2^28", xu, ids, "K1", 1, 1),
             ("keys", "sort entropy-3 2^28", eu, None, "K1b", 1, 0),
             ("composite+value", "sort_pairs entropy-3 2^28", eu, ids, "K1b",
-             2, 1)):
+             2, 1),
+            ("2 planes", "sort u64 2^27", u64k, None, "K1", 2, 0)):
         tapi._TIER_CACHE.clear()       # classify this input, cold
         call = (lambda: tpusort_torch.sort(keys_)) if vals_ is None else \
             (lambda: tpusort_torch.sort_pairs(keys_, vals_))
-        (out, seen), c, modes = drive(lambda: pass_inputs(call))
+        (out, seen), c, modes = drive(
+            lambda: pass_inputs(call, keys_.numel()))
         if vals_ is None:
             check(same_bits(out, reference_sort(keys_)),
                   f"phase 34: {name} differs from the reference")
@@ -3262,11 +3280,11 @@ def main() -> None:
               and c["equidepth_runs"] == int(kid == "K1b"),
               f"phase 34: {name} did not take its tier cleanly: {c}")
         k1_modes = {m: v for m, v in modes.items() if m[0] == kid}
-        check(k1_modes == {(kid, nk, nv): 1, (kid, nk, nv, "merge"): 2}
-              and len(seen) == 2,
-              f"phase 34: {name}: not one network {kid} and two merged: "
-              f"{k1_modes} ({len(seen)} passes with a sorted run)")
-        for j in (1, 2):
+        check(k1_modes == {(kid, nk, nv, "runs"): 1,
+                           (kid, nk, nv, "merge"): 2} and len(seen) == 3,
+              f"phase 34: {name}: not one {kid} on the runs body and two "
+              f"merged: {k1_modes} ({len(seen)} passes)")
+        for j in (0, 1, 2):
             # each pass's inputs dropped after its check: at 2^28 a pass of
             # composite + value holds 4.8 GB, and plain takes several times
             # that
@@ -3283,11 +3301,14 @@ def main() -> None:
                 pkw = dict({k: kw.get(k) for k in keep}, lo_bit=kw["lo_bit"],
                            width=kw["width"])
                 plain_fn = partition_pass_fused_plain
-            geo = partition_merge_geometry(K, kw["q_in"], kw["sorted_run"],
-                                           nk, nv)
-            check(geo is not None, f"phase 34: {name} pass {j}: no merge "
-                  f"geometry for ({K}, q {kw['q_in']}, sorted_run "
-                  f"{kw['sorted_run']})")
+            body = "runs" if j == 0 else "merge"
+            phase = 35 if j == 0 else 34
+            geo = partition_runs_geometry(K, kw.get("sorted_run"), nk, nv) \
+                if j == 0 else partition_merge_geometry(
+                    K, kw["q_in"], kw["sorted_run"], nk, nv)
+            check(geo is not None, f"phase {phase}: {name} pass {j}: no "
+                  f"{body} geometry for ({K}, q {kw.get('q_in')}, "
+                  f"sorted_run {kw.get('sorted_run')})")
 
             def kernel(pl=pl, va=va, cin=cin, kw=kw):
                 return partition_pass_fused(pl, va, cin, **kw)
@@ -3297,38 +3318,41 @@ def main() -> None:
 
             msd.reset_counters()
             k_out, k_cnt = kernel()
-            check(msd.mode_counters() == {(kid, nk, nv, "merge"): 1},
-                  f"phase 34: {name} pass {j}: {msd.mode_counters()}")
+            check(msd.mode_counters() == {(kid, nk, nv, body): 1},
+                  f"phase {phase}: {name} pass {j}: {msd.mode_counters()}")
             p_out, p_cnt = plain()
             spec = SimpleNamespace(s=kw["s"], r=kw["r"], t_seg=kw["t_seg"],
                                    n_seg=T // kw["t_seg"])
             check(torch.equal(k_cnt, p_cnt),
-                  f"phase 34: {kid} {name} pass {j}: counts differ")
+                  f"phase {phase}: {kid} {name} pass {j}: counts differ")
             m = valid_slots(k_cnt, spec)
             err = 0
             for a, b_ in zip(k_out, p_out):
                 check(same_bits(a[m], b_[m]),
-                      f"phase 34: {kid} {name} pass {j}: slots differ")
+                      f"phase {phase}: {kid} {name} pass {j}: slots differ")
                 err = max(err, max_abs_err(a[m], b_[m]))
             n_ops = len(pl) + len(va)
-            row = f"{kid} {mode} (merge, pass {j})"
+            row = f"{kid} {mode} ({body}, pass {j})"
             del k_out, p_out, m
             tk, tp = time_alt(kernel, plain)
             nvalid = int(k_cnt.sum())
             results[row] = (err, tk, tp,
-                            2 * nvalid * n_ops + cin.numel() + T * kw["r"],
-                            nvalid * log2(K))
-            launches[row] = modes.get((kid, nk, nv, "merge"), 0)
-            log(f"{row}: ({T}, {K}) q {kw['q_in']} run {geo.run}, "
+                            2 * nvalid * n_ops + (0 if cin is None
+                                                  else cin.numel())
+                            + T * kw["r"], nvalid * log2(K))
+            launches[row] = modes.get((kid, nk, nv, body), 0)
+            log(f"{row}: ({T}, {K}) q {kw.get('q_in')} run {geo.run}, "
                 f"{geo.threads} threads: kernel {fmt(tk)} vs plain "
                 f"{fmt(tp)}, bound {bound(*results[row][3:5])[0]:.3f} ms")
             del k_cnt, p_cnt, pl, va, cin, kw, pkw, kernel, plain
         torch.cuda.empty_cache()
-    del xu, eu, ids
+    del xu, eu, ids, u64k
     log("phase 34 ok: K1's and K1b's merge body == plain bit for bit on "
         "passes 1 and 2 of the 2^28 keys, pairs, entropy-3 keys and "
-        "entropy-3 pairs calls, each call exact with one network launch and "
-        "two merged")
+        "entropy-3 pairs calls and the 2^27 u64 keys call, each call exact "
+        "with one runs-body launch and two merged")
+    log("phase 35 ok: K1's and K1b's runs body == plain bit for bit on pass "
+        "0 of the same five calls")
 
     for name, (err, tk, tp, words, ops, *lib) in results.items():
         extra = f" vs library {fmt(lib[0])}" if lib else ""

@@ -315,7 +315,7 @@ def test_pair_and_64bit_sorts_on_card(gen, call):
 def test_stable_pairs_with_all_ones_keys_at_2p28(gen):
     """Stable ``sort_pairs`` of 2^28 uniform keys with a block of 16
     0xFFFFFFFF keys and one in every 1,000,003, values 0..n-1: the key
-    plane alone through K1 (pass 0 on the network, the rest on the merge
+    plane alone through K1 (pass 0 on the runs body, the rest on the merge
     body) and K2 (no position plane), no fallback, and keys and values
     equal to ``torch.sort(stable=True)``.  (Equal keys
     share a run, so a block must fit beside the uniform keys of its digit
@@ -332,7 +332,7 @@ def test_stable_pairs_with_all_ones_keys_at_2p28(gen):
     c, modes = tm.counters(), tm.mode_counters()
     assert c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0
     assert c["equidepth_runs"] == 0
-    assert set(modes) == {("K1", 1, 1), ("K1", 1, 1, "merge"),
+    assert set(modes) == {("K1", 1, 1, "runs"), ("K1", 1, 1, "merge"),
                           ("K2", 1, 1, "merge")}, modes
     want = torch.sort(x.to(torch.int64) & 0xFFFFFFFF, stable=True)
     del x
@@ -344,10 +344,11 @@ def test_stable_pairs_with_all_ones_keys_at_2p28(gen):
 def test_u64_keys_at_2p27_on_the_two_plane_merge_route(gen):
     """``sort`` of 2^27 uniform uint64 keys, the call of the benchmark's
     cell ``keys64.uniform``: bit-identical to the benchmark's plain
-    reference; the radix tier with no fallback; K1's pass 0 on the network
+    reference; the radix tier with no fallback; K1's pass 0 on the runs
     body and passes 1-2 on the merge body, and K2 on the merge body, all
     on two key planes with no payload; ``merge_bytes`` moved by 8 B for
-    each key and operand word of those three launches."""
+    each key and operand word of the three merge launches (the runs body
+    adds none)."""
     from portbench import reference
 
     n = 1 << 27
@@ -358,7 +359,7 @@ def test_u64_keys_at_2p27_on_the_two_plane_merge_route(gen):
     c, modes = tm.counters(), tm.mode_counters()
     assert (c["radix_tiers"], c["overflow_fallbacks"], c["reference_routes"],
             c["equidepth_runs"]) == (1, 0, 0, 0), c
-    assert modes == {("K1", 2, 0): 1, ("K1", 2, 0, "merge"): 2,
+    assert modes == {("K1", 2, 0, "runs"): 1, ("K1", 2, 0, "merge"): 2,
                      ("K2", 2, 0, "merge"): 1}, modes
     words = sum((m[1] + m[2]) * k for m, k in modes.items()
                 if m[-1] == "merge")
@@ -832,7 +833,7 @@ def _k1_edge_inputs(gen, T, K, nk, nv, run):
 
 @pytest.mark.parametrize("nv", [0, 1, 2, 8])
 @pytest.mark.parametrize("nk", [1, 2, 3])
-@pytest.mark.parametrize("K", [1 << lk for lk in range(11, 15)])
+@pytest.mark.parametrize("K", [1 << lk for lk in range(9, 15)])
 def test_partition_k1_edges(gen, K, nk, nv):
     """K1 on the register network against its plain version, bit for bit on
     the counts and every valid slot, payloads included (ties keep their
@@ -858,7 +859,7 @@ def test_partition_k1_edges(gen, K, nk, nv):
 
 @pytest.mark.parametrize("nv", [0, 1])
 @pytest.mark.parametrize("nk", [1, 2])
-@pytest.mark.parametrize("K", [1 << lk for lk in range(11, 15)])
+@pytest.mark.parametrize("K", [1 << lk for lk in range(9, 15)])
 def test_partition_k1b_zipf_edges(gen, K, nk, nv):
     """K1b against its plain version on Zipf 1.1 keys cut at the keys' own
     quantiles (the same splitters in every tile, random tie fractions),
@@ -901,7 +902,7 @@ def test_partition_k1b_zipf_edges(gen, K, nk, nv):
             assert torch.equal(g[m], w[m]), run
 
 
-# K1's and K1b's merge body (csrc/partition.cu: partition_merged): the
+# K1's and K1b's merge body (csrc/partition.cu: partition_sorted): the
 # 2^28 plans' passes 1 and 2 (K = 16,384, R = 32, S = 512, counts tables of
 # q = 256 and 512), T cut down; (planes, payloads): keys, key + value,
 # composite + value, 2 planes
@@ -1001,7 +1002,8 @@ def test_partition_merge_body_end_to_end(gen, route):
     torch.sort(stable=True): the radix tier at 2^22 (two passes, the
     second merged) and the skew tier on entropy-3 keys at 2^24, the
     planner's floor (keys: two K1b passes; stable pairs, composite +
-    value: three); every pass after the first in the "merge" mode."""
+    value: three); the first pass in the "runs" mode, every pass after it
+    in the "merge" mode."""
     skew = route.startswith("skew")
     n = 1 << (24 if skew else 22)
     x = _rand(gen, n)
@@ -1025,8 +1027,132 @@ def test_partition_merge_body_end_to_end(gen, route):
     passes = 3 if route == "skew_pairs" else 2
     if skew:
         assert c["equidepth_runs"] == 1, c
-    assert k1 == {("K1b" if skew else "K1", *mode): 1,
+    assert k1 == {("K1b" if skew else "K1", *mode, "runs"): 1,
                   ("K1b" if skew else "K1", *mode, "merge"): passes - 1}, k1
+
+
+# K1's and K1b's runs body (csrc/partition.cu: sort_runs): the pass-0
+# shapes of the 2^28 and 2^27 plans (K = 16,384, R = 32, S = 768), T cut
+# down; (kernel, planes, payloads): keys, key + value and 2 planes (u64
+# keys) on K1, keys and composite + value on K1b
+RUNS_MODES = [("K1", 1, 0), ("K1", 1, 1), ("K1", 2, 0), ("K1b", 1, 0),
+              ("K1b", 2, 1)]
+
+
+def _runs_pass_inputs(gen, nk, nv, kind, feed):
+    """Eight pass-0 tiles of K = 16,384 slots: keys of one kind ("edge":
+    16 distinct words with a block of all-ones, unique keys in tiles 6-7;
+    "equal"; "presorted" and "reversed" as unsigned; "ones": half the
+    keys all-ones, beside the pads they tie but for the slot index), a
+    second plane random, payloads, and the validity: "n" (the radix tier's
+    pass 0: n % K != 0, the last tile partial) or "counts" (the skew
+    tier's strided feed, q_in = 128: invalid slots in every chunk of tiles
+    2-7, tile 0 empty and full chunks, tile 1 none valid).  Returns
+    (planes, values, counts or None, n or None)."""
+    T, K, q = 8, 16384, 128
+    if kind == "edge":
+        x = _edge_keys(gen, T, K)
+        x[6:] = _unique(gen, 2, K)
+    elif kind == "equal":
+        x = torch.full((T, K), 0x5A5A5A5A, dtype=torch.int32, device="cuda")
+    elif kind in ("presorted", "reversed"):
+        x = torch.sort(_rand(gen, T, K) ^ dtypes.INT32_MIN, dim=1).values \
+            ^ dtypes.INT32_MIN
+        if kind == "reversed":
+            x = torch.flip(x, [1])
+    else:
+        x = torch.where(torch.rand(T, K, device="cuda", generator=gen) < 0.5,
+                        -1, _rand(gen, T, K))
+    planes = [x.contiguous()] + [_rand(gen, T, K) for _ in range(nk - 1)]
+    vals = [_rand(gen, T, K) for _ in range(nv)]
+    if feed == "n":
+        return planes, vals, None, T * K - 999
+    cin = torch.randint(1, q, (T, K // q), dtype=torch.int32, device="cuda",
+                        generator=gen)
+    cin[0, ::3] = 0
+    cin[0, 1::3] = q
+    cin[1] = 0
+    return planes, vals, cin, None
+
+
+@pytest.mark.parametrize("feed", ["n", "counts"])
+@pytest.mark.parametrize("kind", ["edge", "equal", "presorted", "reversed",
+                                  "ones"])
+@pytest.mark.parametrize("k,nk,nv", RUNS_MODES)
+def test_partition_runs_body(gen, k, nk, nv, kind, feed):
+    """K1's and K1b's runs body against the plain versions, bit for bit on
+    the counts and every valid slot of every operand, on the tiles of
+    :func:`_runs_pass_inputs` (runs over S where keys tie: a digit or cut
+    range of tied keys holds more than S; K1 on the top five bits).  K1b:
+    splitters from each tile's own keys (cuts inside tie ranges), random
+    tie fractions, an all-ones splitter in tile 0 (its rank counts the
+    network's sentinels) and tile 7 poisoned (every key below its first
+    splitter: count 0 = K + 1).  One launch in the "runs" mode."""
+    R, S, t_seg, K = 32, 768, 2, 16384
+    assert tp.partition_runs_geometry(K, None, nk, nv) is not None
+    planes, vals, cin, n = _runs_pass_inputs(gen, nk, nv, kind, feed)
+    kw = dict(q_in=None if cin is None else 128, n=n, r=R, s=S, t_seg=t_seg)
+    tm.reset_counters()
+    if k == "K1":
+        kw.update(lo_bit=32 * nk - 5, width=5)
+        got, counts = tp.partition_pass_fused(planes, vals, cin,
+                                              unstable=True, **kw)
+        want, pcounts = tp.partition_pass_fused_plain(planes, vals, cin,
+                                                      **kw)
+    else:
+        planes[0][7] &= 0x0FFFFFFF
+        words, f = _splitters(gen, planes, R, None)
+        for w in words:
+            w[0, -1] = -1                     # the all-ones splitter
+            w[7] = 0x7FFFFFFF
+        got, counts = tp.partition_pass_fused(
+            planes, vals, cin, unstable=True, splitters=words,
+            splitter_fracs=f, lo_bit=0, width=1, **kw)
+        want, pcounts = tp.partition_pass_splitter_plain(
+            planes, vals, cin, splitters=words, splitter_fracs=f, **kw)
+        assert int(counts[7, 0]) == K + 1
+    assert tm.mode_counters() == {(k, nk, nv, "runs"): 1}
+    assert torch.equal(counts, pcounts)
+    if k == "K1" and kind in ("edge", "equal", "ones"):
+        assert int(counts.max()) > S         # runs over S were cut at S
+    m = _valid_slots(counts, R, S, t_seg)
+    for j, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g[m], w[m]), j
+
+
+@pytest.mark.parametrize("route", ["keys", "pairs", "u64_keys"])
+def test_partition_runs_body_end_to_end(gen, route):
+    """``sort`` and stable ``sort_pairs`` at 2^22 on the radix tier (32-bit
+    keys, key + value, and 64-bit keys on two planes) against
+    ``torch.sort(stable=True)``: K1's pass 0 on the runs body, once, and
+    every later pass on the merge body.  The skew tier's routes are
+    :func:`test_partition_merge_body_end_to_end`'s."""
+    n = 1 << 22
+    tm.reset_counters()
+    if route == "u64_keys":
+        x = torch.stack([_rand(gen, n), _rand(gen, n)], 1).view(
+            torch.int64)[:, 0]
+        got = tpusort_torch.sort(x.view(torch.uint64))
+        flip = torch.tensor(-(1 << 63), dtype=torch.int64, device="cuda")
+        want = torch.sort(x ^ flip, stable=True).values ^ flip
+        assert torch.equal(got.view(torch.int64), want)
+        mode = (2, 0)
+    else:
+        x = _rand(gen, n)
+        want = torch.sort(x.to(torch.int64) & 0xFFFFFFFF, stable=True)
+        if route == "pairs":
+            ids = torch.arange(n, dtype=torch.int32, device="cuda")
+            ko, vo = tpusort_torch.sort_pairs(x.view(torch.uint32), ids)
+            assert torch.equal(vo.to(torch.int64), want.indices)
+        else:
+            ko = tpusort_torch.sort(x.view(torch.uint32))
+        assert torch.equal(ko.view(torch.int32), want.values.to(torch.int32))
+        mode = (1, int(route == "pairs"))
+    c = tm.counters()
+    assert c["overflow_fallbacks"] == 0 and c["radix_tiers"] == 1, c
+    k1 = {m: v for m, v in tm.mode_counters().items() if m[0] == "K1"}
+    assert k1.pop(("K1", *mode, "runs")) == 1, k1
+    assert set(k1) <= {("K1", *mode, "merge")}, k1
 
 
 @pytest.mark.parametrize("n", [0, 1, 5, 1000, (1 << 20) + 4321])

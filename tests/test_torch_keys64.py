@@ -150,13 +150,17 @@ def test_sort_of_64_bit_keys_matches_the_jax_engine(two_passes, kind):
 
 # K1 and K2 launches on (2, 2048) tiles holding 3,000 valid keys: on the
 # merge body where the tiles arrive as sorted runs of 128 with a counts
-# table, else on the network; as (wrapper, key planes, payload words,
+# table, on K1's runs body where no sorted run arrives (one or two
+# planes), else on the network; as (wrapper, key planes, payload words,
 # keyword arguments, the mode's tag, merge bytes counted)
 T, K, Q, NV = 2, 2048, 128, 3000
 LAUNCHES = {
     "k1_merge": ("k1", 2, 0, dict(sorted_run=128), "merge", 8 * NV * 2),
-    "k1_network": ("k1", 2, 0, dict(counts_in=None, sorted_run=None), None,
+    "k1_network": ("k1", 3, 0, dict(counts_in=None, sorted_run=None), None,
                    0),
+    "k1_runs": ("k1", 2, 0, dict(counts_in=None, sorted_run=None), "runs",
+                0),
+    "k1b_runs": ("k1b", 2, 1, dict(sorted_run=None), "runs", 0),
     "k1_emit_only": ("k1", 2, 0, dict(sorted_run=K), "emit-only", 0),
     "k1_merge_no_n": ("k1", 2, 0, dict(sorted_run=128, n=None), "merge", 0),
     "k1b_merge": ("k1b", 2, 1, dict(sorted_run=128), "merge", 8 * NV * 3),
@@ -169,9 +173,9 @@ LAUNCHES = {
 def test_merge_bytes_are_counted_at_the_launch(monkeypatch, case):
     """A merge-body launch of K1, K1b or K2 adds 8 B for each of its valid
     keys and each operand word to ``merge_bytes``, counted by the wrapper
-    from its arguments; a network or emit-only launch adds nothing, nor
-    does a K1 launch whose caller names no valid count.  The kernels are
-    stood in for by a library that launches nothing."""
+    from its arguments; a network, runs or emit-only launch adds
+    nothing, nor does a K1 launch whose caller names no valid count.  The
+    kernels are stood in for by a library that launches nothing."""
     which, nk, nv, kw, tag, want = LAUNCHES[case]
     stub = SimpleNamespace(**{f: lambda *a: 0 for f in (
         "tpusort_partition_raw", "tpusort_partition_splitter",

@@ -1,5 +1,5 @@
 """K1's and K1b's two bodies on the CPU: the wrappers' choice between the
-merge body (``csrc/partition.cu: partition_merged`` on
+merge body (``csrc/partition.cu: partition_sorted`` on
 ``csrc/merge_runs.cuh``) and the network body.
 
 The choice, :func:`tpusort_torch.kernels.partition.partition_merge_geometry`,

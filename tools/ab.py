@@ -15,10 +15,11 @@ that THIS makes once.
 Cases (all of them by default; name some to run only those):
 
 - ``k1``: K1 and K1b (``partition_pass_fused``) on the inputs of every
-  pass after the first (passes 1 and 2, which arrive as sorted runs) that
-  THIS tree's ``sort`` and stable ``sort_pairs`` of 2^28 uniform and
-  entropy-3 keys make (the benchmark's four 32-bit cells), a traced
-  call's device time and each tree's mode tags beside each;
+  pass (pass 0, on the runs body, and passes 1 and 2, which arrive as
+  sorted runs) that THIS tree's ``sort`` and stable ``sort_pairs`` of
+  2^28 uniform and entropy-3 keys and ``sort`` of 2^27 uniform uint64
+  keys make (the benchmark's five K1 and K1b cells), a traced call's
+  device time and each tree's mode tags beside each;
 - ``k2``: K2 (``sort_tiles_counts_collapsed``) on the leaf inputs that
   THIS tree's ``sort`` and stable ``sort_pairs`` of 2^28 uniform and
   entropy-3 keys hand ``msd.raw_leaf`` (the benchmark's four 32-bit
@@ -71,6 +72,7 @@ BATCH = 20               # calls queued between two events (short calls)
 SEED = 20261016
 MAIN_N = 1 << 28
 RAGGED_N = MAIN_N - 12345
+U64_N = 1 << 27          # the keys64.uniform cell's call
 
 
 def _take_package() -> dict:
@@ -247,16 +249,14 @@ def _leaf_inputs(this: Tree, call) -> list:
 
 def _pass_inputs(this: Tree, call) -> list:
     """(planes, values, counts_in, keyword arguments) of every K1 and K1b
-    call with a ``sorted_run`` that ``call`` makes in THIS tree through
-    the engines' partition passes (``ops.msd.run_passes``, the equi-depth
-    pipeline)."""
+    call that ``call`` makes in THIS tree through the engines' partition
+    passes (``ops.msd.run_passes``, the equi-depth pipeline)."""
     seen = []
     mods = [this.mod("ops.msd"), this.mod("ops.equidepth")]
     real = mods[0].partition_pass_fused
 
     def spy(planes, values, counts_in, **kw):
-        if kw.get("sorted_run"):
-            seen.append((planes, values, counts_in, kw))
+        seen.append((planes, values, counts_in, kw))
         return real(planes, values, counts_in, **kw)
 
     for m in mods:
@@ -297,20 +297,23 @@ def case_k1(b: Bench, gen: torch.Generator) -> None:
     x = _rand(MAIN_N, gen)
     e3 = x & _rand(MAIN_N, gen) & _rand(MAIN_N, gen)
     ids = torch.arange(MAIN_N, dtype=torch.int32, device=gen.device)
+    u64 = x[:U64_N * 2].view(torch.uint64)
     for name, keys, vals in (("keys uniform", x, None),
                              ("pairs uniform", x, ids),
                              ("keys entropy-3", e3, None),
-                             ("pairs entropy-3", e3, ids)):
+                             ("pairs entropy-3", e3, ids),
+                             ("u64 keys uniform", u64, None)):
         with b.this.active():
             api = b.this.mod("api")
-            u = keys.view(torch.uint32)
+            u = keys if keys.dtype == torch.uint64 else keys.view(
+                torch.uint32)
             call = (lambda: api.sort(u)) if vals is None else \
                 (lambda: api.sort_pairs(u, vals))
             call()                           # the tier cache, warm
             # the sort's own passes (not the skew tier's sample sort)
             seen = [a for a in _pass_inputs(b.this, call)
-                    if a[0][0].numel() >= MAIN_N]
-        for j, (planes, values, cin, kw) in enumerate(seen, start=1):
+                    if a[0][0].numel() >= u.numel()]
+        for j, (planes, values, cin, kw) in enumerate(seen):
             T, K = planes[0].shape
             what = "K1b" if kw.get("splitters") is not None else "K1"
             row = (f"{what} {name} pass {j} {len(planes)} planes + "

@@ -1,9 +1,12 @@
 // The merge body of K2 (csrc/bitonic.cu), and of K1 and K1b
-// (csrc/partition.cu: partition_merged): a tile that arrives as sorted
+// (csrc/partition.cu: partition_sorted): a tile that arrives as sorted
 // runs is merged over the runs' valid prefixes, where the network body
 // sorts the whole tile padded to a power of two.  Steps 1-3 below are
 // merge_tile, which both kernels run; step 4 is K2's (K1 histograms or
-// cuts the merged slots and emits its runs from them).
+// cuts the merged slots and emits its runs from them).  K1's and K1b's
+// runs body (pass 0, whose tile arrives unsorted: csrc/partition.cu:
+// sort_runs) fills the same buffer with each warp's sorted run in place of
+// step 1 and then runs steps 2 and 3.
 //
 // A CTA owns one tile of K slots, cut into runs = K / L runs of L slots (L
 // the wrapper's merge run: a power of two of at least 128 dividing the
@@ -126,18 +129,31 @@ struct MergeTile {
     for (int p = 0; p < NK; ++p) key[p][w] = v[p];
     if (IDX) idx[w] = i;
   }
+
+  // slot s from a register element (the index under the last plane)
+  __device__ __forceinline__ void put(int s, const Elem& e) const {
+    const int w = merge_word(s);
+#pragma unroll
+    for (int p = 0; p < NK - 1; ++p) key[p][w] = e.hi[p];
+    if constexpr (IDX) {
+      key[NK - 1][w] = (uint32_t)(e.lo >> 16);
+      idx[w] = (uint16_t)e.lo;
+    } else {
+      key[NK - 1][w] = e.lo;
+    }
+  }
 };
 
-// Step 1: the runs' starts, then each run's valid prefix from the planes
-// at src[p] + first (run j at tile slots [j * L, j * L + L), L = 2^log_l,
-// count(j) its valid slots in [0, L]).  Returns nv; ends synchronised.
-template <int E, int NK, bool IDX, class Count>
-__device__ int load_runs(const MergeTile<NK, IDX>& t,
-                         const uint32_t* const* src, size_t first, int K,
-                         int log_l, int runs, Count count) {
+// One warp (the block's first) writes the runs' starts in the compact
+// buffer: starts[j] = count(0) + ... + count(j - 1) for j <= runs (at most
+// kMergeMaxRuns).  Each lane reads its runs' counts before it writes their
+// starts, so count may read the starts array itself.  Does not
+// synchronise.
+template <int NK, bool IDX, class Count>
+__device__ __forceinline__ void scan_starts(const MergeTile<NK, IDX>& t,
+                                            int runs, Count count) {
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  if (tid < 32) {                       // one warp scans up to 8 runs a lane
+  if (tid < 32) {                       // up to 8 runs a lane
     constexpr int kPer = kMergeMaxRuns / 32;
     const int per = (runs + 31) >> 5;
     const int j0 = tid * per;
@@ -162,6 +178,18 @@ __device__ int load_runs(const MergeTile<NK, IDX>& t,
     }
     if (tid == 31) t.starts[runs] = incl;
   }
+}
+
+// Step 1: the runs' starts, then each run's valid prefix from the planes
+// at src[p] + first (run j at tile slots [j * L, j * L + L), L = 2^log_l,
+// count(j) its valid slots in [0, L]).  Returns nv; ends synchronised.
+template <int E, int NK, bool IDX, class Count>
+__device__ int load_runs(const MergeTile<NK, IDX>& t,
+                         const uint32_t* const* src, size_t first, int K,
+                         int log_l, int runs, Count count) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  scan_starts(t, runs, count);
   __syncthreads();
   const int mask = (1 << log_l) - 1;
   bool vec = true;

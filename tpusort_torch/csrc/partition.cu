@@ -5,13 +5,22 @@
 // Replaces the raw-key branch of the Pallas kernel _fused_kernel behind
 // tpusort/kernels/partition.py:partition_pass_fused, with and without its
 // splitter mode.  One CTA owns one K-element tile (K = 16384 on the main
-// path).  The kernel has two bodies, one __global__ (a template flag), and
-// the wrapper picks one from the call's shape alone
-// (kernels/partition.py:partition_merge_geometry):
+// path).  The kernel has three bodies, one __global__ (two template
+// flags, RUNS before MERGE), and the wrapper picks one from the call's
+// shape alone (kernels/partition.py: partition_runs_geometry, then
+// partition_merge_geometry):
 //
-// * the network body, where the tile does not arrive as sorted runs under
-//   a counts table (pass 0, the strided feed's pass 0, the emit-only mode)
-//   or the merge does not fit (3 planes at 16,384 slots), laid out as the
+// * the runs body (sort_runs), where the tile does not arrive as sorted
+//   runs (pass 0, the strided feed's pass 0) and has one or two key
+//   planes: each warp sorts its own 32 E slots in registers and on
+//   shuffles (reg_sort.cuh: warp_sort, no shared-memory step), keeps its
+//   run's valid prefix in the merge buffer (the invalid slots sort to the
+//   run's end and are dropped), and merge_runs.cuh's chain_runs and
+//   merge_levels merge the runs as the merge body does;
+// * the network body, where a tile neither arrives as sorted runs under a
+//   counts table nor fits the runs body (3 planes; the emit-only mode,
+//   sorted_run = K; a sorted run without a counts table) or the merge
+//   does not fit (3 planes at 16,384 slots), laid out as the
 //   row tile sorts lay a row out (kernels/bitonic.py:tile_sort_geometry:
 //   threads x E slots a thread x chunks = K; 512 x 32 for one plane):
 //   1. load the tile's key planes (reg_sort.cuh:load_row, 16-byte loads)
@@ -30,22 +39,22 @@
 //      the tile's order is the stable one (the contract allows any order
 //      of ties; the plain version is stable too, so payloads equal it even
 //      on tied keys);
-// * the merge body (partition_merged), where a later pass's tile arrives
-//   as the previous pass's sorted runs (sorted_run > 0 with a counts
-//   table): steps 1 and 2 become K2's merge (merge_runs.cuh: merge_tile):
+// * the merge body, where a later pass's tile arrives as the previous
+//   pass's sorted runs (sorted_run > 0 with a counts table): steps 1 and
+//   2 become K2's merge (merge_runs.cuh: merge_tile):
 //   each run's valid prefix alone loaded into a compact buffer, runs that
 //   continue each other chained, and pairwise merges by merge path, the
 //   slot index under the last plane; no sentinel enters, and the nv
 //   merged slots are the network's first nv slots, bit for bit.
 //
-// Both then:
+// All three then (partition_sorted for the runs and merge bodies):
 //   3. K1: histogram the digit bits [lo_bit, lo_bit + width) of the sorted
 //      tile, counted across the planes (plane 0 the most significant 32
 //      bits), with warp-aggregated shared atomics (sorted input gives ~one
 //      atomic per warp step); start[d] = #(digit < d), count[d] = start[d+1]
-//      - start[d] and, for the top digit, n_valid - start[R-1].  The merge
-//      body counts its nv slots and adds the network's K - nv sentinels to
-//      the all-ones digit.
+//      - start[d] and, for the top digit, n_valid - start[R-1].  The runs
+//      and merge bodies count their nv slots and add the network's K - nv
+//      sentinels to the all-ones digit.
 //      K1b (splitter_cuts): run d holds the keys between splitters d and
 //      d+1, so the sorted tile's runs are contiguous and only the R-1 cut
 //      points are chosen, as the Pallas kernel chooses them (bit for bit:
@@ -78,13 +87,18 @@
 // only the valid slots and walks only them: passes 1-2 take 3.8-4.0 ms
 // for keys (6x the bound), 8.2-8.4 for key + value and 10.6-10.9 for 2
 // planes + value on K1b, where its buffer (135 KB and 203 KB) leaves one
-// CTA an SM.  K1b's cut points add two binary searches per boundary and
-// one thread's O(R) walk, next to nothing.  Shared memory: the network
-// body 64 KB a key plane plus 32 KB of slot index at K = 16384, so 3
-// planes with payloads (224 KB) is its largest mode; the merge body (K +
-// K / 32) * (4 * planes + 4 if payloads) bytes and the runs' starts; K1b
-// reads its splitters from global memory and keeps its cut points in the
-// histogram's arrays, so it needs no more.
+// CTA an SM.  The runs body sorts 55 of the network's 105 steps (45 at E
+// = 16), all in registers and on shuffles, then merges 4-5 levels and
+// walks the valid slots: pass 0 at 2^28 takes 3.9 ms for keys (5.0 on
+// the network), 9.8 for key + value (12.2), 14.2 for 2 planes + value
+// (20.1), and 5.0 for 2^27 u64 keys (7.0).  K1b's cut points add two
+// binary searches per boundary and one thread's O(R) walk, next to
+// nothing.  Shared memory: the network body 64 KB a key plane plus 32 KB
+// of slot index at K = 16384, so 3 planes with payloads (224 KB) is its
+// largest mode; the merge and runs bodies (K + K / 32) * (4 * planes + 4
+// if payloads) bytes and the runs' starts; K1b reads its splitters from
+// global memory and keeps its cut points in the histogram's arrays, so it
+// needs no more.
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -260,33 +274,29 @@ __device__ void digit_counts(int* hist, int* start, int R, int n_valid,
   __syncthreads();
 }
 
-// The merge body (steps 1-2 of merge_runs.cuh: merge_tile in place of
-// load_row and the network): tile t's runs of 2^log_l slots, each a sorted
-// valid prefix under counts_in, merged into nv slots with no sentinel
-// among them; then steps 3 and 4 over those nv slots, with the outputs of
-// the network body bit for bit (the same (key, slot) order; K1's counts
-// and K1b's cuts as the network, with its K - nv sentinels, gives them).
-// Where the runs lie end to end over [0, nv) (every tile but a poisoned
-// one, or one whose sentinels have a digit below the top one), each
-// thread walks the merged slots i = tid, tid + threads, ... with a cursor
-// d on the run that holds i, and slot i goes to its run's place when i -
-// start[d] < S; else the R x S walk of the network body, slots past nv
-// all-ones as its sentinels are.
+// Steps 3 and 4 over a filled merge buffer m: the nv sorted slots of tile
+// t = blockIdx.x, with no sentinel among them, each at merge_word(s), its
+// input slot at m.idx.  The runs body and the merge body differ only in how
+// they fill m, and give the outputs of the network body bit for bit (the
+// same (key, slot) order; K1's counts and K1b's cuts as the network, with
+// its K - nv sentinels, gives them).  Where the runs lie end to end over
+// [0, nv) (every tile but a poisoned one, or one whose sentinels have a
+// digit below the top one), each thread walks the merged slots i = tid,
+// tid + threads, ... with a cursor d on the run that holds i, and slot i
+// goes to its run's place when i - start[d] < S; else the R x S walk of the
+// network body, slots past nv all-ones as its sentinels are.  E and
+// chunks stage the payloads (threads * E * chunks >= K).
 template <int E, int NK, bool IDX, bool SPL>
-__device__ void partition_merged(uint32_t* smem, const Planes& planes,
-                                 const Values& vals, const Splitters& spl,
-                                 const int32_t* counts_in, int q_in, int K,
-                                 int log_l, int R, int S, int lo_bit,
-                                 int width, int t_seg, int chunks,
-                                 int32_t* counts_out, int* hist, int* start) {
+__device__ void partition_sorted(const MergeTile<NK, IDX>& m, int nv,
+                                 const Planes& planes, const Values& vals,
+                                 const Splitters& spl, int K, int R, int S,
+                                 int lo_bit, int width, int t_seg,
+                                 int chunks, int32_t* counts_out, int* hist,
+                                 int* start) {
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const size_t first = (size_t)t * K;
-  int nv;
-  const MergeTile<NK, IDX> m = merge_tile<E, NK, IDX>(
-      smem, planes.in, first, counts_in + (size_t)t * (K / q_in), q_in, K,
-      log_l, &nv);
   const auto key = [&](int p, int s) { return m.key[p][merge_word(s)]; };
   int32_t* row = counts_out + (size_t)t * R;
   if constexpr (SPL) {
@@ -356,22 +366,181 @@ __device__ void partition_merged(uint32_t* smem, const Planes& planes,
   }
 }
 
+// The runs body's slots a thread, E: 32 where a slot is one word in
+// registers (one plane, no payload), 16 where it is two or three (a plane
+// and the index packed under it, two planes, or two planes and the index).
+// A thread sorts its E slots of the tile in its warp's run of 32 E (1,024
+// or 512 slots) and holds E outputs in each merge level, so a tile takes K
+// / E threads.  Either way a thread gets 64 registers (kRunsMaxTile / E
+// threads a CTA, and two CTAs an SM at E = 32): on an H100 at 2^28, more
+// registers (half the threads, or one CTA where two fit the shared memory)
+// cost more than what they saved, and so did runs of 1,024 on two words
+// (a merge level less, at 128 registers a thread).
+__host__ __device__ constexpr int runs_slots(int nk, bool idx) {
+  return nk + (idx ? 1 : 0) == 1 ? 32 : 16;
+}
+constexpr int kRunsMaxTile = 16384;   // the runs body's largest tile
+__host__ __device__ constexpr int runs_min_blocks(int e) {
+  return e == 32 ? 2 : 1;
+}
+
+// The input key planes of a tile, passed by value: the address of the
+// kernel's parameter Planes, passed to a call, would make the kernel copy
+// it to local memory (a stack frame, and a spill of its out pointers).
+template <int NK>
+struct PlanesIn {
+  const uint32_t* in[NK];
+};
+
+// The runs body's step 1 (pass 0: the tile does not arrive as sorted
+// runs) in place of merge_runs.cuh's load_runs: tile t's K slots at
+// src.in[p] + first are sorted run by run into the merge buffer t, which
+// then holds what load_runs leaves: the runs' starts, and the valid slots
+// as ascending runs with no sentinel among them.
+// Validity is load_row's rule: with a counts table cin (the tile's row)
+// slot i is valid iff i % q < cin[i / q], else iff i < left (n less the
+// tile's first slot); so the valid slots among [b, b + len), len <= 32
+// dividing b, are a prefix of them, valid(b, len) many.
+//   a. every word of the tile's planes to its slot's word merge_word(i) of
+//      the buffer, in 16-byte loads (4-byte ones where a plane's row is not
+//      16-byte aligned), a vector with no valid slot not read: load_runs'
+//      loop with another destination, kept apart, since one loader shared
+//      by the two changed the register allocation of every merge instance
+//      (K2's keys-only merge body 2.8 -> 3.4 ms on an H100);
+//   b. each warp counts the valid slots of its run (warp j's run is slots
+//      [32 E j, 32 E (j + 1))), and one warp scans the counts into the
+//      runs' starts;
+//   c. each thread reads its E slots (blocked, lane l's slots l E ..) as
+//      register elements, an invalid slot all-ones in every plane with the
+//      index kPadIndex (reg_sort.cuh's order: it sorts after every valid
+//      slot, a valid all-ones key included; keys alone, it ties only
+//      all-ones keys, whose words it equals), sorts the warp's run
+//      (reg_sort.cuh: warp_sort), and after a barrier, so that no write
+//      lands on a slot still to be read, writes the run's valid prefix,
+//      the first count slots, to the run's start.
+// Returns nv, the tile's valid slots; ends synchronised.  Not inlined: on
+// its own it keeps within 64 registers what, inlined beside the merge,
+// spilled (an H100 at 2^28: 2 planes + value 16.6 ms inlined, 15.4 not);
+// so the caller holds nothing across the call that it can recompute (the
+// buffer's pointers), which would take registers the call saves.
+template <int E, int NK, bool IDX>
+__device__ __noinline__ int sort_runs(uint32_t* smem, PlanesIn<NK> src,
+                                      size_t first, int K,
+                                      const int32_t* cin, int q,
+                                      long long left) {
+  const MergeTile<NK, IDX> t(smem, K);
+  const auto valid = [=](int b, int len) {
+    return cin != nullptr
+               ? min(max(cin[b / q] - b % q, 0), len)
+               : (int)min(max(left - b, 0LL), (long long)len);
+  };
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int runs = K / (32 * E);
+  bool vec = true;
+#pragma unroll
+  for (int p = 0; p < NK; ++p) {
+    vec = vec &&
+          ((reinterpret_cast<uintptr_t>(src.in[p] + first) & 15) == 0);
+  }
+  if (vec) {
+    // E / 4 vectors a thread, a batch in flight before any is written
+    constexpr int kB = 4 >> (NK - 1);
+    for (int g = 0; g * nt * 4 < K; g += kB) {
+      uint4 w[NK][kB];
+      bool ok[kB];
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        const int i = ((g + b) * nt + tid) * 4;
+        ok[b] = i < K && valid(i, 4) > 0;
+        if (ok[b]) {
+#pragma unroll
+          for (int p = 0; p < NK; ++p) {
+            w[p][b] =
+                *reinterpret_cast<const uint4*>(src.in[p] + first + i);
+          }
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        const int i = ((g + b) * nt + tid) * 4;
+        if (ok[b]) {
+#pragma unroll
+          for (int p = 0; p < NK; ++p) {
+            const int at = merge_word(i);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              t.key[p][at + kk] = word(w[p][b], kk);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    for (int i = tid; i < K; i += nt) {
+      if (valid(i, 1) > 0) {
+#pragma unroll
+        for (int p = 0; p < NK; ++p) {
+          t.key[p][merge_word(i)] = src.in[p][first + i];
+        }
+      }
+    }
+  }
+  const int b = tid * E;
+  const int cnt = valid(b, E);
+  const int sum = __reduce_add_sync(0xFFFFFFFFu, cnt);
+  if (lane == 0) t.starts[tid >> 5] = sum;
+  __syncthreads();
+  scan_starts(t, runs, [&](int j) { return t.starts[j]; });
+  __syncthreads();
+  RegElem<NK, IDX> v[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const bool ok = r < cnt;
+    const int w = merge_word(b + r);
+#pragma unroll
+    for (int p = 0; p < NK - 1; ++p) {
+      v[r].hi[p] = ok ? t.key[p][w] : kSentinel;
+    }
+    const uint32_t lo = ok ? t.key[NK - 1][w] : kSentinel;
+    if constexpr (IDX) {
+      v[r].lo = (uint64_t)lo << 16 | (ok ? (uint16_t)(b + r) : kPadIndex);
+    } else {
+      v[r].lo = lo;
+    }
+  }
+  warp_sort<E>(v, lane);
+  __syncthreads();              // every slot of the tile is in registers
+  const int st = t.starts[tid >> 5];
+  const int n = t.starts[(tid >> 5) + 1] - st;
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    if (lane * E + r < n) t.put(st + lane * E + r, v[r]);
+  }
+  __syncthreads();
+  return t.starts[runs];
+}
+
 // The most threads an instance takes: the row sorts' limit, and with
 // payloads at most 512 (the emission holds more state than a row sort; the
-// geometry never gives a tile with payloads more threads); the merge
-// body's, kMergeThreads.
+// geometry never gives a tile with payloads more threads); the runs
+// body's, kRunsMaxTile / E; the merge body's, kMergeThreads.
 __host__ __device__ constexpr int partition_threads(int nk, bool idx, int e,
-                                                    bool merge) {
-  return merge ? kMergeThreads
+                                                    bool runs, bool merge) {
+  return merge  ? kMergeThreads
+         : runs ? kRunsMaxTile / e
          : idx && max_threads(nk, idx, e) > kThreads / 2
              ? kThreads / 2
              : max_threads(nk, idx, e);
 }
 
-// MERGE: the merge body (log_run the merge run's log2, E merge_slots(NK));
-// else the network body (log_run the sorted run's log2, 0 for none).
-template <int NK, bool IDX, bool SPL, int E, bool MERGE>
-__global__ void __launch_bounds__(partition_threads(NK, IDX, E, MERGE))
+// RUNS: the runs body (E runs_slots(NK, IDX)); MERGE: the merge body
+// (log_run the merge run's log2, E merge_slots(NK)); else the network body
+// (log_run the sorted run's log2, 0 for none).
+template <int NK, bool IDX, bool SPL, int E, bool RUNS, bool MERGE>
+__global__ void __launch_bounds__(partition_threads(NK, IDX, E, RUNS, MERGE),
+                                  RUNS ? runs_min_blocks(E) : 1)
 partition_raw_kernel(Planes planes, Values vals, Splitters spl,
                      const int32_t* __restrict__ counts_in, int q_in,
                      long long n, int K, int log_k, int R, int S, int lo_bit,
@@ -388,13 +557,34 @@ partition_raw_kernel(Planes planes, Values vals, Splitters spl,
   if (tid == 0) n_valid = 0;
   __syncthreads();
 
-  if constexpr (MERGE) {
-    partition_merged<E, NK, IDX, SPL>(smem, planes, vals, spl, counts_in,
-                                      q_in, K, log_run, R, S, lo_bit, width,
-                                      t_seg, chunks, counts_out, hist, start);
+  const size_t first = (size_t)t * K;
+  if constexpr (RUNS || MERGE) {
+    int nv;
+    MergeTile<NK, IDX> m(smem, K);
+    if constexpr (MERGE) {
+      m = merge_tile<E, NK, IDX>(smem, planes.in, first,
+                                 counts_in + (size_t)t * (K / q_in), q_in, K,
+                                 log_run, &nv);
+    } else {
+      // the runs body: the sorted runs in place of merge_tile's load_runs,
+      // then its chain_runs and merge_levels
+      PlanesIn<NK> src;
+#pragma unroll
+      for (int p = 0; p < NK; ++p) src.in[p] = planes.in[p];
+      nv = sort_runs<E, NK, IDX>(
+          smem, src, first, K,
+          counts_in == nullptr ? nullptr
+                               : counts_in + (size_t)t * (K / q_in),
+          q_in, n - (long long)first);
+      m = MergeTile<NK, IDX>(smem, K);
+      const int runs = K / (32 * E);
+      m = merge_levels<E>(m, chain_runs(m, runs, nv), nv, K);
+    }
+    partition_sorted<E, NK, IDX, SPL>(
+        m, nv, planes, vals, spl, K, R, S, lo_bit, width, t_seg, chunks,
+        counts_out, hist, start);
   } else {
     const RegTile<NK, IDX> tile(smem, K);
-    const size_t first = (size_t)t * K;
     int mine = 0;
     if (counts_in != nullptr) {
       const int32_t* cin = counts_in + (size_t)t * (K / q_in);
@@ -455,11 +645,14 @@ partition_raw_kernel(Planes planes, Values vals, Splitters spl,
 // The dynamic shared memory an instance is allowed, once per device: its
 // tile at the largest K (a power of two up to 32768) that fits a CTA beside
 // the static arrays, which is every tile the wrapper's check_fits takes;
-// the merge body's buffer at 32768 slots, or all a CTA has beside them.
-template <int NK, bool IDX, bool MERGE>
+// the runs body's buffer at its largest tile, kRunsMaxTile slots; the
+// merge body's buffer at 32768 slots, or all a CTA has beside them.
+template <int NK, bool IDX, int E, bool RUNS, bool MERGE>
 constexpr int partition_smem_cap() {
-  if (MERGE) {
-    const size_t b = MergeTile<NK, IDX>::bytes(32768, kMergeMaxRuns);
+  if (RUNS || MERGE) {
+    const int k = RUNS ? kRunsMaxTile : 32768;
+    const size_t b =
+        MergeTile<NK, IDX>::bytes(k, RUNS ? k / (32 * E) : kMergeMaxRuns);
     return b + kStaticSmem < (size_t)kMaxSmem ? (int)b
                                               : kMaxSmem - kStaticSmem;
   }
@@ -468,7 +661,7 @@ constexpr int partition_smem_cap() {
   return (int)RegTile<NK, IDX>::bytes(k);
 }
 
-template <int NK, bool IDX, bool SPL, int E, bool MERGE>
+template <int NK, bool IDX, bool SPL, int E, bool RUNS, bool MERGE>
 int launch_partition(const Planes& planes, const Values& vals,
                      const Splitters& spl, const int32_t* counts_in, int q_in,
                      long long n, int T, int K, int R, int S, int lo_bit,
@@ -478,29 +671,72 @@ int launch_partition(const Planes& planes, const Values& vals,
   const int log_k = 31 - __builtin_clz(K);
   static std::atomic<bool> smem_set[kMaxDevices];
   cudaError_t err = allow_smem_once(
-      (const void*)partition_raw_kernel<NK, IDX, SPL, E, MERGE>,
-      partition_smem_cap<NK, IDX, MERGE>(), smem_set);
+      (const void*)partition_raw_kernel<NK, IDX, SPL, E, RUNS, MERGE>,
+      partition_smem_cap<NK, IDX, E, RUNS, MERGE>(), smem_set);
   if (err != cudaSuccess) return (int)err;
-  partition_raw_kernel<NK, IDX, SPL, E, MERGE><<<T, threads, smem, stream>>>(
-      planes, vals, spl, counts_in, q_in, n, K, log_k, R, S, lo_bit, width,
-      t_seg, log_run, chunks, counts_out);
+  partition_raw_kernel<NK, IDX, SPL, E, RUNS, MERGE>
+      <<<T, threads, smem, stream>>>(planes, vals, spl, counts_in, q_in, n, K,
+                                     log_k, R, S, lo_bit, width, t_seg,
+                                     log_run, chunks, counts_out);
   return (int)cudaGetLastError();
 }
 
+// Host side: true if (warp_run, threads, slots, smem) is the runs body's
+// geometry for tiles of K slots (kernels/partition.py:
+// partition_runs_geometry): one or two key planes, runs_slots a thread and
+// warp runs of 32 of them, at most kMergeMaxRuns a tile, K / slots threads
+// from a warp up, K at most kRunsMaxTile, and smem the merge buffer's
+// bytes, beside the static arrays within a CTA.
+inline bool runs_geometry_ok(int K, int warp_run, int n_planes,
+                             bool has_values, int threads, int slots,
+                             size_t smem) {
+  if (n_planes < 1 || n_planes > 2 || K <= 0 ||
+      slots != runs_slots(n_planes, has_values) || warp_run != 32 * slots ||
+      K % warp_run || K / warp_run > kMergeMaxRuns || K > kRunsMaxTile ||
+      threads * slots != K || threads < 32) {
+    return false;
+  }
+  const size_t bytes =
+      (size_t)merge_word(K) * (4 * n_planes + (has_values ? 4 : 0)) +
+      (size_t)(K / warp_run + 2) * 4;
+  return smem == bytes && smem + kStaticSmem <= (size_t)kMaxSmem;
+}
+
 // Host side: the instance for (n_planes, has values, slots a thread) with
-// SPL, launched at (threads, chunks, smem): the merge body where merge_run
-// > 0 (a geometry of merge_geometry_ok, with counts_in), else the network
+// SPL, launched at (threads, chunks, smem): the runs body where warp_run >
+// 0 (a geometry of runs_geometry_ok), the merge body where merge_run > 0
+// (a geometry of merge_geometry_ok, with counts_in), else the network
 // body; cudaErrorInvalidValue for a geometry no instance was built for.
 template <bool SPL>
 int dispatch_partition(const Planes& planes, const Values& vals,
                        const Splitters& spl, int n_planes,
                        const int32_t* counts_in, int q_in, long long n,
                        int T, int K, int R, int S, int lo_bit, int width,
-                       int t_seg, int sorted_run, int merge_run, int threads,
-                       int slots, size_t smem, int32_t* counts_out,
-                       cudaStream_t stream) {
+                       int t_seg, int sorted_run, int merge_run, int warp_run,
+                       int threads, int slots, size_t smem,
+                       int32_t* counts_out, cudaStream_t stream) {
   if (R < 1 || R > kMaxRadix || (K & (K - 1)) != 0) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (warp_run > 0) {
+    if (merge_run > 0 || sorted_run > 0 ||
+        (counts_in != nullptr && (q_in <= 0 || K % q_in)) ||
+        !runs_geometry_ok(K, warp_run, n_planes, vals.count > 0, threads,
+                          slots, smem)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return dispatch_mode(n_planes, vals.count > 0, [&](auto nk, auto idx) {
+      constexpr int kNk = decltype(nk)::value;
+      constexpr bool kIdx = decltype(idx)::value;
+      if constexpr (kNk > 2) {
+        return (int)cudaErrorInvalidValue;
+      } else {
+        return launch_partition<kNk, kIdx, SPL, runs_slots(kNk, kIdx), true,
+                                false>(
+            planes, vals, spl, counts_in, q_in, n, T, K, R, S, lo_bit, width,
+            t_seg, 0, threads, 1, smem, counts_out, stream);
+      }
+    });
   }
   if (merge_run > 0) {
     if (counts_in == nullptr ||
@@ -512,7 +748,7 @@ int dispatch_partition(const Planes& planes, const Values& vals,
     return dispatch_mode(n_planes, vals.count > 0, [&](auto nk, auto idx) {
       constexpr int kNk = decltype(nk)::value;
       return launch_partition<kNk, decltype(idx)::value, SPL,
-                              merge_slots(kNk), true>(
+                              merge_slots(kNk), false, true>(
           planes, vals, spl, counts_in, q_in, n, T, K, R, S, lo_bit, width,
           t_seg, log_l, threads, 1, smem, counts_out, stream);
     });
@@ -532,10 +768,10 @@ int dispatch_partition(const Planes& planes, const Values& vals,
       if constexpr (!fits_registers(kNk, kIdx, kE)) {
         return (int)cudaErrorInvalidValue;
       } else {
-        if (threads > partition_threads(kNk, kIdx, kE, false)) {
+        if (threads > partition_threads(kNk, kIdx, kE, false, false)) {
           return (int)cudaErrorInvalidValue;
         }
-        return launch_partition<kNk, kIdx, SPL, kE, false>(
+        return launch_partition<kNk, kIdx, SPL, kE, false, false>(
             planes, vals, spl, counts_in, q_in, n, T, K, R, S, lo_bit, width,
             t_seg, log_run, threads, chunks, smem, counts_out, stream);
       }
@@ -546,19 +782,22 @@ int dispatch_partition(const Planes& planes, const Values& vals,
 }  // namespace tpusort
 
 // keys_in/keys_out: n_planes (1-3) device pointers each; vals_in/vals_out:
-// n_vals (0-8) device pointers each.  K a power of two.  merge_run 0 runs
-// the network body, with threads, slots (E) and smem the geometry of
-// kernels/bitonic.py:tile_sort_geometry(K, n_planes, n_vals); merge_run >
-// 0 the merge body on runs of merge_run slots, with the geometry of
-// kernels/partition.py:partition_merge_geometry (merge_geometry_ok).
-// Returns a cudaError_t (cudaErrorInvalidValue for a geometry no instance
-// was built for).
+// n_vals (0-8) device pointers each.  K a power of two.  warp_run > 0 runs
+// the runs body on warp runs of warp_run slots, with the geometry of
+// kernels/partition.py:partition_runs_geometry (runs_geometry_ok);
+// merge_run > 0 the merge body on runs of merge_run slots, with the
+// geometry of kernels/partition.py:partition_merge_geometry
+// (merge_geometry_ok); both 0 the network body, with threads, slots (E)
+// and smem the geometry of kernels/bitonic.py:tile_sort_geometry(K,
+// n_planes, n_vals).  Returns a cudaError_t (cudaErrorInvalidValue for a
+// geometry no instance was built for).
 extern "C" int tpusort_partition_raw(
     const void* const* keys_in, void* const* keys_out, int n_planes,
     const void* const* vals_in, void* const* vals_out, int n_vals,
     const void* counts_in, int q_in, long long n, int T, int K, int R, int S,
     int lo_bit, int width, int t_seg, int sorted_run, int merge_run,
-    int threads, int slots, int smem, void* counts_out, void* stream) {
+    int warp_run, int threads, int slots, int smem, void* counts_out,
+    void* stream) {
   using namespace tpusort;
   Planes planes;
   Values vals;
@@ -568,8 +807,9 @@ extern "C" int tpusort_partition_raw(
   }
   return dispatch_partition<false>(
       planes, vals, Splitters{}, n_planes, (const int32_t*)counts_in, q_in, n,
-      T, K, R, S, lo_bit, width, t_seg, sorted_run, merge_run, threads,
-      slots, (size_t)smem, (int32_t*)counts_out, (cudaStream_t)stream);
+      T, K, R, S, lo_bit, width, t_seg, sorted_run, merge_run, warp_run,
+      threads, slots, (size_t)smem, (int32_t*)counts_out,
+      (cudaStream_t)stream);
 }
 
 // K1b: as tpusort_partition_raw, with the runs cut at splitters (n_planes
@@ -579,9 +819,9 @@ extern "C" int tpusort_partition_splitter(
     const void* const* keys_in, void* const* keys_out, int n_planes,
     const void* const* vals_in, void* const* vals_out, int n_vals,
     const void* counts_in, int q_in, long long n, int T, int K, int R, int S,
-    int t_seg, int sorted_run, int merge_run, const void* const* splitters,
-    const void* fracs, int threads, int slots, int smem, void* counts_out,
-    void* stream) {
+    int t_seg, int sorted_run, int merge_run, int warp_run,
+    const void* const* splitters, const void* fracs, int threads, int slots,
+    int smem, void* counts_out, void* stream) {
   using namespace tpusort;
   Planes planes;
   Values vals;
@@ -597,7 +837,7 @@ extern "C" int tpusort_partition_splitter(
   spl.frac = static_cast<const uint32_t*>(fracs);
   return dispatch_partition<true>(
       planes, vals, spl, n_planes, (const int32_t*)counts_in, q_in, n, T, K,
-      R, S, 0, 1, t_seg, sorted_run, merge_run, threads, slots,
+      R, S, 0, 1, t_seg, sorted_run, merge_run, warp_run, threads, slots,
       (size_t)smem, (int32_t*)counts_out, (cudaStream_t)stream);
 }
 

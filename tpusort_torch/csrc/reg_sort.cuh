@@ -258,6 +258,24 @@ __device__ __forceinline__ void local_levels(RegElem<NK, IDX> (&v)[E],
   }
 }
 
+// The warp tier alone: the 32 E slots that a warp holds E a lane
+// (blocked: lane l's slots are l E .. l E + E - 1) sorted ascending, every
+// level up to log2(32 E) in registers and on shuffles, none in shared
+// memory.  K1's and K1b's runs body (csrc/partition.cu) sorts its runs so.
+// The five shuffle levels run as a loop, one level a trip, as
+// reg_block_sort runs them: unrolled into one stretch, the compiler keeps
+// more of the levels' shuffles in flight than the registers hold.
+template <int E, int NK, bool IDX>
+__device__ __forceinline__ void warp_sort(RegElem<NK, IDX> (&v)[E],
+                                          int lane) {
+  constexpr int kLogE = log2_slots(E);
+  reg_levels<E>(v, 1, kLogE);
+#pragma unroll 1
+  for (int lk = kLogE + 1; lk <= kLogE + 5; ++lk) {
+    local_levels<E>(v, lane, lk, lk);
+  }
+}
+
 // ---- the shared-memory tier ---------------------------------------------
 
 // One step over the whole row: pair p of [0, P / 2) compares slots

@@ -41,16 +41,16 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts_in,
     # q_in, n, T, K, R, S, lo_bit, width, t_seg, sorted_run, merge_run,
-    # threads, slots, smem, counts_out, stream
+    # warp_run, threads, slots, smem, counts_out, stream
     "tpusort_partition_raw": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _LL, _I,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _P, _P],
+                              _I, _P, _P],
     # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts_in,
-    # q_in, n, T, K, R, S, t_seg, sorted_run, merge_run, splitters, fracs,
-    # threads, slots, smem, counts_out, stream
+    # q_in, n, T, K, R, S, t_seg, sorted_run, merge_run, warp_run,
+    # splitters, fracs, threads, slots, smem, counts_out, stream
     "tpusort_partition_splitter": [_PP, _PP, _I, _PP, _PP, _I, _P, _I, _LL,
-                                   _I, _I, _I, _I, _I, _I, _I, _PP, _P, _I,
-                                   _I, _I, _P, _P],
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _PP, _P,
+                                   _I, _I, _I, _P, _P],
     # keys_in, keys_out, n_planes, vals_in, vals_out, n_vals, counts, q,
     # offsets, n_out, T, K, P, sorted_run, merge_run, threads, slots, smem,
     # stream

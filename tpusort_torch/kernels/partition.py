@@ -6,13 +6,16 @@ PyTorch port of ``tpusort/kernels/partition.py:partition_pass_fused``:
 * the raw-key branch (K1) sorts each tile by 1-3 key planes, with payload
   words riding along; on a CUDA tensor it launches
   ``csrc/partition.cu``: the register network of ``csrc/reg_sort.cuh``
-  per tile, laid out by ``kernels/bitonic.py:tile_sort_geometry``, or,
+  per tile, laid out by ``kernels/bitonic.py:tile_sort_geometry``; or,
   where the tile arrives as sorted runs under a counts table (passes 1
   and 2), K2's merge of the runs' valid prefixes
-  (:func:`partition_merge_geometry`, ``csrc/merge_runs.cuh``).  With
-  payloads equal keys keep their slot order, by a slot index under the
-  last plane, and invalid slots sort after every valid one: the tile's
-  order is the stable one, in both versions and both bodies;
+  (:func:`partition_merge_geometry`, ``csrc/merge_runs.cuh``); or, where
+  no sorted run arrives (pass 0), each warp's run sorted in registers and
+  on shuffles and the runs merged as passes 1 and 2 merge them
+  (:func:`partition_runs_geometry`).  With payloads equal keys keep their
+  slot order, by a slot index under the last plane, and invalid slots
+  sort after every valid one: the tile's order is the stable one, in both
+  versions and all three bodies;
 * its splitter mode (K1b, the equi-depth skew tier) sorts each tile the
   same way and cuts the runs at per-tile splitters instead of digit
   boundaries; on a CUDA tensor it launches the same kernel's splitter
@@ -312,11 +315,11 @@ def partition_merge_geometry(K: int, q_in: Optional[int],
                              n_vals: int):
     """The geometry of K1's and K1b's merge body for (T, K) tiles with a
     counts table of ``q_in``-slot chunks and the caller's ``sorted_run``
-    (``kernels/bitonic.MergeGeometry``), or None where they run the
-    network body.  Pure: it reads only the call's shape, so every caller
-    gets the same body on the same shape.
+    (``kernels/bitonic.MergeGeometry``), or None where they run another
+    body.  Pure: it reads only the call's shape, so every caller gets the
+    same body on the same shape.
 
-    The merge body (``csrc/partition.cu: partition_merged`` on K2's
+    The merge body (``csrc/partition.cu: partition_sorted`` on K2's
     ``csrc/merge_runs.cuh``) loads each run's valid prefix alone and
     merges the runs, where the network sorts the whole padded tile.  It
     runs where the tile arrives as sorted runs under a counts table (a
@@ -327,9 +330,9 @@ def partition_merge_geometry(K: int, q_in: Optional[int],
     tile, the fewest threads that cover K at the planes' merge slots, at
     most 768), with the buffer beside K1's static arrays within a CTA.
     So at 2^28 passes 1 and 2 (K = 16,384, runs of 256 then 512) merge
-    for keys, key + value and 2 planes + value (704 threads, about 205 KB),
-    and pass 0, emit-only and 3 planes (1,024 threads at 16 slots) take
-    the network."""
+    for keys, key + value and 2 planes + value (704 threads, about 205 KB);
+    pass 0 takes the runs body (:func:`partition_runs_geometry`), and
+    emit-only and 3 planes (1,024 threads at 16 slots) the network."""
     if not q_in or not sorted_run or sorted_run >= K:
         return None
     from tpusort_torch.kernels.bitonic import leaf_merge_geometry
@@ -337,6 +340,66 @@ def partition_merge_geometry(K: int, q_in: Optional[int],
     if geo is None or geo.smem_bytes + K1_STATIC_SMEM > SMEM_MAX:
         return None
     return geo
+
+
+# csrc/partition.cu: the runs body's largest tile (kRunsMaxTile)
+RUNS_MAX_TILE = 1 << 14
+
+
+@functools.lru_cache(maxsize=None)
+def partition_runs_geometry(K: int, sorted_run: Optional[int],
+                            num_keys: int, n_vals: int):
+    """The geometry of K1's and K1b's runs body for (T, K) tiles with the
+    caller's ``sorted_run`` (``kernels/bitonic.MergeGeometry``: each
+    warp's sorted run of ``run`` slots, ``threads``, ``slots`` a thread,
+    the buffer's ``smem_bytes``), or None where they run another body.
+    Pure: it reads only the call's shape, so every caller gets the same
+    body on the same shape.
+
+    The runs body (``csrc/partition.cu: sort_runs``) takes a tile that does
+    not arrive as sorted runs (``sorted_run`` None or 0, with a counts
+    table or without: pass 0 and the strided feed's pass 0): each warp
+    sorts 32 x ``slots`` slots with ``csrc/reg_sort.cuh``'s register and
+    shuffle steps alone, keeps its run's valid prefix in K2's merge buffer,
+    and the runs are merged as the merge body merges them
+    (``csrc/merge_runs.cuh``), where the network sorts the whole padded
+    tile.  A thread sorts ``slots`` slots and holds as many outputs in each
+    merge level: 32 where a slot is one register word (one plane, no
+    payload), else 16; so a tile takes K / slots threads, from a warp up,
+    and K is at most ``RUNS_MAX_TILE`` (64 registers a thread).  The warp
+    runs are 1,024 or 512 slots, at most ``MERGE_MAX_RUNS`` a tile; one or
+    two key planes (three would hold 48 key words of outputs a thread,
+    past the registers); and the buffer,
+    :func:`kernels.bitonic.merge_smem_bytes`, beside K1's static arrays
+    within a CTA.  At 2^28 and 2^27 (K = 16,384) pass 0 runs here for keys
+    (512 threads), key + value, 2 planes and 2 planes + value (1,024);
+    emit-only (``sorted_run`` = K) and the later passes' sorted runs do
+    not."""
+    from tpusort_torch.kernels.bitonic import (MERGE_MAX_RUNS,
+                                               MergeGeometry,
+                                               merge_smem_bytes)
+    if sorted_run or not 1 <= num_keys <= 2:
+        return None
+    slots = 32 if num_keys == 1 and not n_vals else 16
+    run = 32 * slots
+    threads = K // slots
+    if K % run or K // run > MERGE_MAX_RUNS or K > RUNS_MAX_TILE \
+            or threads < 32:
+        return None
+    smem = merge_smem_bytes(K, num_keys, n_vals > 0, K // run)
+    if smem + K1_STATIC_SMEM > SMEM_MAX:
+        return None
+    return MergeGeometry(run, threads, slots, smem)
+
+
+def _bodies(K: int, q_in: Optional[int], sorted_run: Optional[int],
+            num_keys: int, n_vals: int):
+    """(runs geometry, merge geometry, the launch's geometry) of a K1 or
+    K1b launch: the runs body, else the merge body, else the network."""
+    runs = partition_runs_geometry(K, sorted_run, num_keys, n_vals)
+    merge = None if runs else partition_merge_geometry(
+        K, q_in, sorted_run, num_keys, n_vals)
+    return runs, merge, runs or merge or _raw_geometry(K, num_keys, n_vals)
 
 
 def _partition_pass_cuda(
@@ -365,22 +428,22 @@ def _partition_pass_cuda(
             for _ in range(len(planes) + len(values))]
     counts = torch.empty(T, r, dtype=torch.int32, device=dev)
     np_ = len(planes)
-    merge = partition_merge_geometry(K, q_in if counts_in is not None
-                                     else None, sorted_run, np_, len(values))
-    geo = merge or _raw_geometry(K, np_, len(values))
+    runs, merge, geo = _bodies(K, q_in if counts_in is not None else None,
+                               sorted_run, np_, len(values))
     err = _build.library().tpusort_partition_raw(
         _build.pointers(planes), _build.pointers(outs[:np_]), np_,
         _build.pointers(values), _build.pointers(outs[np_:]), len(values),
         None if counts_in is None else counts_in.data_ptr(),
         q_in or 0, -1 if n is None else n, T, K, r, s, lo_bit, width,
-        t_seg, sorted_run or 0, merge.run if merge else 0, geo.threads,
-        geo.slots, geo.smem_bytes, counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        t_seg, sorted_run or 0, merge.run if merge else 0,
+        runs.run if runs else 0, geo.threads, geo.slots, geo.smem_bytes,
+        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "partition_pass_fused")
     # a tile that is one sorted run skips the network: K1 only emits
     _build.count_launch(partition_pass_fused, np_, len(values),
-                        *(("emit-only",) if sorted_run == K else
+                        *(("runs",) if runs else
+                          ("emit-only",) if sorted_run == K else
                           ("merge",) if merge else ()))
     if merge and n is not None:
         count("merge_bytes", 8 * n * (np_ + len(values)))
@@ -413,22 +476,22 @@ def _partition_pass_splitter_cuda(
             for _ in range(len(planes) + len(values))]
     counts = torch.empty(T, r, dtype=torch.int32, device=dev)
     np_ = len(planes)
-    merge = partition_merge_geometry(K, q_in if counts_in is not None
-                                     else None, sorted_run, np_, len(values))
-    geo = merge or _raw_geometry(K, np_, len(values))
+    runs, merge, geo = _bodies(K, q_in if counts_in is not None else None,
+                               sorted_run, np_, len(values))
     err = _build.library().tpusort_partition_splitter(
         _build.pointers(planes), _build.pointers(outs[:np_]), np_,
         _build.pointers(values), _build.pointers(outs[np_:]), len(values),
         None if counts_in is None else counts_in.data_ptr(),
         q_in or 0, -1 if n is None else n, T, K, r, s, t_seg,
-        sorted_run or 0, merge.run if merge else 0,
+        sorted_run or 0, merge.run if merge else 0, runs.run if runs else 0,
         _build.pointers(splitters), splitter_fracs.data_ptr(), geo.threads,
         geo.slots, geo.smem_bytes, counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "partition_pass_fused (splitters)")
     _build.count_launch(_partition_pass_splitter_cuda, np_, len(values),
-                        *(("merge",) if merge else ()))
+                        *(("runs",) if runs else
+                          ("merge",) if merge else ()))
     if merge and n is not None:
         count("merge_bytes", 8 * n * (np_ + len(values)))
     return outs, counts

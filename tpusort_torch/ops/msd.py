@@ -370,7 +370,8 @@ def mode_counters() -> dict:
     (1, data operands).  K1's emit-only launches (tiles that are one sorted
     run, the windows finish's pass 0) carry the tag "emit-only"; K1's, K1b's
     and K2's merge-body launches (tiles that arrive as sorted runs, merged
-    from their valid prefixes) the tag "merge"."""
+    from their valid prefixes) the tag "merge"; K1's and K1b's runs-body
+    launches (a pass 0 sorted by warp runs, then merged) the tag "runs"."""
     return {("K" + k[1:k.index("_")], *mode): c
             for k, fn in _KERNELS.items()
             for mode, c in fn.modes.items() if c}
