@@ -55,10 +55,16 @@ non-zero:
     uint32 [0, 24) pairs plan (a key and a value), the 2^28 keys-only
     [8, 32) plan, the 2^27 stable uint64 pairs plan (2 planes + 2 value
     words) and the 2^24 int64 argsort plan (2 planes + the index);
-14. the packed leaf of the first two: K3 on the packed (segment, remainder,
-    position) rows at (32768, 12288), then K4 (``collapse_segments``) on
-    K3's output, each vs its plain version, and the dense result equal to
-    the stable sort of the input; then K4 on 64 segments of 2^21 slots,
+14. the packed leaf of the first two on the rows: K3 on the packed
+    (segment, remainder, position) rows at (32768, 12288), then K4
+    (``collapse_segments``) on K3's output, each vs its plain version, and
+    the dense result equal to the stable sort of the input (no call takes
+    the rows at these shapes since K3's runs body); 14b. K3's runs body
+    (``msd.packed_leaf``: ``sort_tiles_kernel<NK>`` after the offsets) on
+    the same leaves, one launch tagged "runs" each, vs its plain version
+    (the rows' composite) bit for bit and vs the stable sort, timed in
+    turns with plain and the library call and traced once (``trace:``);
+    then K4 on 64 segments of 2^21 slots,
     the shape the TPU sends to its chunked kernel (K4c), vs plain; each
     packed leaf's K4 call traced once (device ms by kernel, printed beside
     its CUDA-event time);
@@ -199,7 +205,8 @@ non-zero:
     times its kernel modes itself;
 30. K3, K9 and K10 at the edge shapes of their geometry
     (``kernels/bitonic.py:tile_sort_geometry``): the ``-Xptxas -v`` lines
-    of every instance in ``sort_tiles.cu`` (29; none may spill); K3 vs
+    of every instance in ``sort_tiles.cu`` (29 row sorts and the runs
+    body's 2; none may spill); K3 vs
     plain bit for bit at every P from 128 to 32768, K = P and P - 128,
     keys of 16 distinct words with a block of 0xFFFFFFFF, 0, 1 and 8
     payloads (index ties make it stable, so the payloads compare too), one
@@ -351,7 +358,8 @@ def main() -> None:
     from tpusort_torch.configs import get_config
     from tpusort_torch.kernels import _build
     from tpusort_torch.kernels.bitonic import (
-        leaf_merge_geometry, sort_tiles, sort_tiles_counts,
+        leaf_merge_geometry, leaf_runs_geometry, sort_tiles,
+        sort_tiles_counts,
         sort_tiles_counts_collapsed,
         sort_tiles_counts_collapsed_plain, sort_tiles_counts_plain,
         sort_tiles_masked, sort_tiles_masked_plain, sort_tiles_plain)
@@ -781,6 +789,72 @@ def main() -> None:
               f"{name}: the packed leaf's output is not the stable sort")
         return (err3, *t3[:2], w3, o3, t3[2]), \
             (err4, *t4[:2], w4, 0, t4[2])
+
+    def packed_runs_vs_plain(name, planes, values, plan, n, range_bits):
+        """K3's runs body (``msd.packed_leaf`` on the card) on the last
+        K1c pass's runs at the shapes ``plan`` gives, against its plain
+        version (the row build, K3's and K4's plain versions), bit for bit
+        on every output word, and the stable sort of the input by
+        ``range_bits``.  Returns (max abs err, kernel times, plain times,
+        words, operations, library times); the library call is a stable
+        ``torch.sort`` of each segment's remainder words (made before the
+        timing, invalid slots all-ones), a gather per operand and the
+        valid prefixes by boolean mask indexing."""
+        np_ = len(planes)
+        data, ctable, q = general_leaf_inputs(name, planes, values, plan, n)
+        nseg, seg = plan.n_segments, plan.seg
+        geo = leaf_runs_geometry(seg, q, np_, len(data))
+        check(geo is not None, f"{name}: no runs body for ({nseg}, {seg}) "
+              f"q {q}")
+
+        def kernel():
+            return msd.packed_leaf(list(data), np_, ctable, q, plan, n)
+
+        def plain():
+            return msd.packed_leaf_plain(data, np_, ctable, q, plan, n)
+
+        msd.reset_counters()
+        k_dense = kernel()
+        check(msd.mode_counters() == {("K3", np_, len(values), "runs"): 1},
+              f"K3 runs {name}: {msd.mode_counters()}")
+        p_dense = plain()
+        err = 0
+        for k, p in zip(k_dense, p_dense):
+            check(same_bits(k, p), f"K3 runs {name}: dense outputs differ")
+            err = max(err, max_abs_err(k, p))
+        del p_dense
+        want = reference_sort(planes[0][:n].view(torch.uint32),
+                              tuple(v[:n] for v in values),
+                              begin_bit=range_bits[0], end_bit=range_bits[1])
+        wk, wv = want if values else (want, ())
+        check(same_bits(k_dense[0], wk)
+              and all(same_bits(a, b) for a, b in zip(k_dense[1:], wv)),
+              f"K3 runs {name}: the output is not the stable sort")
+        del k_dense, want, wk, wv
+        ct = ctable.reshape(nseg, seg // q)
+        keep = (torch.arange(q, device=dev)[None, None, :]
+                < ct[:, :, None]).reshape(nseg, seg)
+        rem = (data[0].reshape(nseg, seg) >> plan.rem_lo) \
+            & ((1 << plan.rem_width) - 1)
+        rem = torch.where(keep, rem, (1 << 31) - 1)
+        rows = [o.reshape(nseg, seg) for o in data]
+
+        def library():
+            order = torch.sort(rem, dim=1, stable=True).indices
+            return [torch.gather(o, 1, order)[keep.sum(1)[:, None] > torch
+                    .arange(seg, device=dev)[None, :]] for o in rows]
+
+        times = time_alt(kernel, plain, library)
+        dev_ms, kernels = device_ms(kernel)
+        print(f"trace: K3 runs body at {name}: CUDA-event median "
+              f"{statistics.median(times[0]):.3f} ms, device {dev_ms:.3f} ms "
+              f"({kernels}) on {card}", flush=True)
+        log(f"K3 runs body {name} == plain at ({nseg}, {seg}) q {q}, "
+            f"{geo.threads} threads, {len(data)} operand(s); max_abs_err "
+            f"{err}")
+        del data, ctable, ct, keep, rem, rows
+        return (err, *times[:2], 2 * n * (np_ + len(values)) + nseg * seg // q
+                + nseg, n * log2(seg), times[2])
 
     def wide_leaf_vs_plain(name, planes, values, plan, n):
         """K2 on the wide leaf's operands (range-masked planes + position
@@ -1348,6 +1422,14 @@ def main() -> None:
     results["K3 packed leaf + value"], results["K4 1 operand"] = \
         packed_leaf_vs_plain("[8, 32) keys only (2^28)", [w8_key], [],
                              w8_plan, RAGGED_N, (8, 32))
+    # ---- phase 14b: the packed leaf's runs body ------------------------
+    results["K3 runs leaf + value"] = packed_runs_vs_plain(
+        "[0, 24) key + value (2^28 pairs)", [r24_key], [r24_val], r24_plan,
+        RAGGED_N, (0, 24))
+    results["K3 runs leaf"] = packed_runs_vs_plain(
+        "[8, 32) keys only (2^28)", [w8_key], [], w8_plan, RAGGED_N, (8, 32))
+    log("phase 14b ok: K3's runs body equals its plain version (the rows) "
+        "and the stable sort at the 2^28 plans' leaves")
     del r24_key, r24_val, w8_key
     # segments over 2^20 slots, which the TPU sends to its chunked kernel
     # (K4c); no path of the port runs this shape yet
@@ -1392,13 +1474,15 @@ def main() -> None:
     # ---- phase 16: the general path end to end -------------------------
     def through_general(name, fn, wide):
         got, c, modes = drive(fn)
+        runs = sum(k for m, k in modes.items() if m[-1] == "runs")
         check(c["k1c_launches"] == 3 and c["k1_launches"] == 0
               and c["k2_launches"] == int(wide)
-              and c["k3_launches"] == c["k4_launches"] == int(not wide)
+              and c["k3_launches"] == runs == int(not wide)
+              and c["k4_launches"] == 0
               and c["overflow_fallbacks"] == 0
               and c["reference_routes"] == 0,
               f"{name}: did not run K1c x3 and the "
-              f"{'wide' if wide else 'packed'} leaf: {c}")
+              f"{'wide leaf' if wide else 'runs body'}: {c} {modes}")
         log(f"{name} counters: {c} {modes}")
         return got, modes
 
@@ -1409,8 +1493,7 @@ def main() -> None:
     check(same_bits(ko, wk) and same_bits(vo, wv),
           "sort_pairs [0, 24) 2^28: differs from the stable reference")
     launches["K1c key+value"] = modes.get(("K1c", 1, 1), 0)
-    launches["K3 packed leaf + 2 values"] = modes.get(("K3", 1, 2), 0)
-    launches["K4 2 operands"] = modes.get(("K4", 0, 2), 0)
+    launches["K3 runs leaf + value"] = modes.get(("K3", 1, 1, "runs"), 0)
     del ko, vo, wk, wv
     log("phase 16 ok: sort_pairs(end_bit=24) at 2^28 == stable reference")
     got, modes = through_general(
@@ -1423,8 +1506,7 @@ def main() -> None:
     check(not same_bits(got, reference_sort(x)),
           "sort [8, 32) 2^28: no ties in the window, order unchecked")
     launches["K1c key"] = modes.get(("K1c", 1, 0), 0)
-    launches["K3 packed leaf + value"] = modes.get(("K3", 1, 1), 0)
-    launches["K4 1 operand"] = modes.get(("K4", 0, 1), 0)
+    launches["K3 runs leaf"] = modes.get(("K3", 1, 0, "runs"), 0)
     del got
     log("phase 16 ok: keys-only sort(begin_bit=8) at 2^28 == stable "
         "reference, ties in input order")
@@ -2742,16 +2824,23 @@ def main() -> None:
         _build.BUILD_DIR / "build.log",
         lambda f: "sort_tiles_kernel" in f or "sort_tiles_valid_kernel" in f,
         lambda f: "sort_tiles.cu")
+    # the packed leaf's runs body (sort_tiles_kernel<NK>, whose parameters
+    # begin with an Operands): one instance for 1 and 2 key planes
+    runs_inst = {k: v for k, v in instances.items() if "8Operands" in k}
+    for k in runs_inst:
+        del instances[k]
     # every (planes, payloads, slots a thread) whose slots fit 64 registers
     # (csrc/reg_sort.cuh: fits_registers): K3 has one plane, K9/K10 1-3
     n_inst = sum(e * (nk + idx) <= 64 for e in (4, 8, 16, 32)
                  for idx in (0, 1) for nk in (1, 1, 2, 3))
-    check(len(instances) == n_inst,
-          f"sort_tiles.cu: {len(instances)} kernel instances in the "
-          f"build log, expected {n_inst}")
-    check(not any(sum(v) for v in instances.values()),
+    check(len(instances) == n_inst and len(runs_inst) == 2,
+          f"sort_tiles.cu: {len(instances)} row instances and "
+          f"{len(runs_inst)} of the runs body in the build log, expected "
+          f"{n_inst} and 2")
+    check(not any(sum(v) for v in (*instances.values(),
+                                   *runs_inst.values())),
           "sort_tiles.cu: an instance spills: "
-          f"{[k for k, v in instances.items() if sum(v)]}")
+          f"{[k for k, v in {**instances, **runs_inst}.items() if sum(v)]}")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     def rows_to_fill(p_: int) -> int:

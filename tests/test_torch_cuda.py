@@ -375,11 +375,12 @@ def test_u32_pairs_by_bits_0_24_on_the_general_route(gen, log2n, passes):
     bits [0, 24), the call of the benchmark's cell
     ``pairs32.bits24.uniform`` (2^28) and a smaller one: bit-identical to
     the cell's ranged reference; the radix tier with no fallback; K1c on
-    key + value once a pass of the plan (two at 2^22, three at 2^28), K3
-    once on the packed rows with key and value riding, K4 once on two
-    operands, and no K1, K1b or K2; ``general_bytes`` 8 B for each key
-    and operand word of every K1c launch, ``packed_leaf_bytes`` 8 B for
-    each key and operand of K3 (3) and K4 (2)."""
+    key + value once a pass of the plan (two at 2^22, three at 2^28), K3's
+    runs body once on key + value (segments of 6,144 and 12,288 slots
+    under a counts table of 512), no K4, and no K1, K1b or K2;
+    ``general_bytes`` 8 B for each key and operand word of every K1c
+    launch, ``packed_leaf_bytes`` 8 B for each key and operand of the
+    rows' K3 (3) and K4 (2), as the rows would move them."""
     from portbench.entries import sort_pairs_bits as entry
 
     n = 1 << log2n
@@ -391,8 +392,8 @@ def test_u32_pairs_by_bits_0_24_on_the_general_route(gen, log2n, passes):
     c, modes = tm.counters(), tm.mode_counters()
     assert (c["radix_tiers"], c["overflow_fallbacks"], c["reference_routes"],
             c["equidepth_runs"]) == (1, 0, 0, 0), c
-    assert modes == {("K1c", 1, 1): passes, ("K3", 1, 2): 1,
-                     ("K4", 0, 2): 1}, modes
+    assert modes == {("K1c", 1, 1): passes, ("K3", 1, 1, "runs"): 1}, modes
+    assert c["k4_launches"] == 0, c
     assert c["general_bytes"] == 8 * n * 2 * passes, c
     assert c["packed_leaf_bytes"] == 40 * n, c
     assert c["merge_bytes"] == 0, c
@@ -545,8 +546,8 @@ def test_sort_tiles_packed_leaf_sentinel(gen):
                                   "lsb_in_value"])
 def test_general_path_on_card(gen, call):
     """The general (digit, idx) path end to end: K1c passes, then the
-    packed leaf (K3 + K4) or the wide leaf (K2), against the stable
-    reference sort."""
+    packed leaf (K3's runs body on the 3,072-slot segments of 2^20 keys)
+    or the wide leaf (K2), against the stable reference sort."""
     n = (1 << 20) + 4321
     x32 = _rand(gen, n)
     x64 = torch.stack([_rand(gen, n), _rand(gen, n)], 1).view(torch.int64)[:, 0]
@@ -594,9 +595,119 @@ def test_general_path_on_card(gen, call):
             else:
                 assert torch.equal(vo, rv[0])
     c = tm.counters()
+    runs = sum(k for m, k in tm.mode_counters().items() if m[-1] == "runs")
     assert c["k1c_launches"] >= 1 and c["k1_launches"] == 0
-    assert c["k2_launches"] + c["k4_launches"] == 1
+    assert c["k2_launches"] + runs == 1 and c["k4_launches"] == 0
+    assert runs == c["k3_launches"] == int(call in ("keys_8_32",
+                                                    "pairs_0_24"))
     assert c["overflow_fallbacks"] == 0 and c["reference_routes"] == 0
+
+
+def _leaf_runs_input(gen, nseg, seg, q, nk, nv, kind, rem=(0, 9)):
+    """The last pass's runs as the packed leaf reads them: (nseg, seg)
+    operands (``nk`` key planes, ``nv`` payload words) and a (nseg, seg /
+    q) counts table in [0, q], adversarial by ``kind``; "ties" sets the
+    remainder bits ``rem`` = (lo, width) of every key alike."""
+    ct = torch.randint(0, q + 1, (nseg, seg // q), dtype=torch.int32,
+                       device="cuda", generator=gen)
+    if kind == "empty_full":               # whole segments empty or full
+        ct[0::3] = 0
+        ct[1::3] = q
+    elif kind == "alternating":            # chunks empty and full in turns
+        ct[:, 0::2] = 0
+        ct[:, 1::2] = q
+    elif kind == "sparse":                 # a few slots a chunk, often none
+        ct = torch.where(ct < q // 4, ct % 5, 0).to(torch.int32)
+    ops = [_rand(gen, nseg * seg) for _ in range(nk + nv)]
+    if kind == "ties":                     # every remainder equal
+        lo, width = rem
+        for p in range(nk):
+            base = 32 * (nk - 1 - p)
+            a, b = max(lo, base) - base, min(lo + width, base + 32) - base
+            if b > a:
+                m = ((1 << (b - a)) - 1) << a
+                m -= (m >> 31) << 32               # as an int32
+                ops[p] = (ops[p] & ~m) | (0x5A5A5A5A & m)
+    return ops, ct
+
+
+# (nseg, seg, q, key planes, payload words, rem_lo, rem_width, kind): the
+# 2^28 [0, 24) pairs' leaf (the cell's) and [8, 32) keys', the 2^22 and
+# 2^20 pairs' segments, q below the warp run, two planes with the
+# remainder across them, 16,384-slot segments, adversarial tables, and the
+# widest remainder the packed leaf leaves (the word's top bit its last
+# clear one)
+LEAF_RUNS = [
+    (32768, 12288, 512, 1, 1, 0, 9, "uniform"),
+    (32768, 12288, 512, 1, 0, 8, 9, "uniform"),
+    (1024, 6144, 512, 1, 1, 0, 14, "uniform"),
+    (1024, 3072, 512, 1, 2, 0, 14, "empty_full"),
+    (512, 2048, 128, 1, 1, 4, 14, "alternating"),
+    (300, 2048, 256, 2, 1, 20, 14, "uniform"),
+    (300, 2048, 256, 2, 0, 26, 14, "empty_full"),
+    (64, 16384, 512, 1, 3, 0, 15, "uniform"),
+    (700, 1024, 512, 1, 1, 0, 9, "sparse"),
+    (700, 1024, 32, 1, 1, 0, 20, "uniform"),
+    (256, 12288, 512, 1, 1, 8, 12, "ties"),
+    (256, 12288, 512, 2, 1, 28, 8, "ties"),
+]
+
+
+@pytest.mark.parametrize("nseg,seg,q,nk,nv,rem_lo,rem_width,kind", LEAF_RUNS)
+def test_packed_leaf_runs_body(gen, nseg, seg, q, nk, nv, rem_lo, rem_width,
+                               kind):
+    """K3's runs body (``msd.packed_leaf`` on a card) against its plain
+    version, the row build, K3's and K4's plain versions, bit for bit on
+    every output word (the key planes whole, ties in input order, zeros
+    past the valid total, a cut n_out); one launch with the tag "runs"
+    and no K4."""
+    ops, ct = _leaf_runs_input(gen, nseg, seg, q, nk, nv, kind,
+                               (rem_lo, rem_width))
+    plan = tm.MsdPlan(m1=nseg * seg, passes=(), seg=seg, n_segments=nseg,
+                      m_final=nseg * seg, rem_lo=rem_lo, rem_width=rem_width)
+    assert not tm.leaf_is_wide(plan)
+    n = int(ct.sum())
+    for n_out in (n, n + 37, max(n - 1000, 0)):
+        tm.reset_counters()
+        got = tm.packed_leaf(list(ops), nk, ct.reshape(-1), q, plan, n_out)
+        assert tm.mode_counters() == {("K3", nk, nv, "runs"): 1}
+        want = tm.packed_leaf_plain(ops, nk, ct.reshape(-1), q, plan, n_out)
+        for g, w in zip(got, want):
+            assert g.shape == (n_out,) and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seg,q,nk,nv", [
+    (768, 256, 1, 1),        # the 2^24 pairs' segments: not a warp run's multiple
+    (1536, 512, 1, 1),       # nor 1,536
+    (24576, 512, 1, 0),      # the 2^24 keys': over 16,384 slots
+])
+def test_packed_leaf_rows_elsewhere(gen, seg, q, nk, nv):
+    """Where the runs body does not take the segment, the leaf stays on
+    the rows (K3 on the packed rows, K4), equal to the plain version."""
+    nseg = 64
+    ops, ct = _leaf_runs_input(gen, nseg, seg, q, nk, nv, "uniform")
+    plan = tm.MsdPlan(m1=nseg * seg, passes=(), seg=seg, n_segments=nseg,
+                      m_final=nseg * seg, rem_lo=0, rem_width=9)
+    n = int(ct.sum())
+    tm.reset_counters()
+    got = tm.packed_leaf(list(ops), nk, ct.reshape(-1), q, plan, n)
+    modes = tm.mode_counters()
+    assert modes == {("K3", 1, nk + nv): 1, ("K4", 0, nk + nv): 1}, modes
+    want = tm.packed_leaf_plain(ops, nk, ct.reshape(-1), q, plan, n)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k3_row_callers_keep_the_rows(gen):
+    """``sort_batched``'s rows and the single tile launch K3's row sort,
+    never the runs body: their launches carry no tag."""
+    tm.reset_counters()
+    tpusort_torch.sort_batched(_rand(gen, 64, 2048).view(torch.uint32))
+    tpusort_torch.sort(_unique(gen, 4096).view(torch.uint32),
+                       torch.arange(4096, dtype=torch.int32, device="cuda"),
+                       stable=False)
+    k3 = {m: k for m, k in tm.mode_counters().items() if m[0] == "K3"}
+    assert k3 == {("K3", 1, 0): 1, ("K3", 1, 1): 1}, k3
 
 
 def _splitters(gen, planes, R, fracs):

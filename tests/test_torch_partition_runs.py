@@ -167,10 +167,13 @@ def test_partition_runs_limits_match_csrc():
     body end in the same steps 3-4."""
     part = (CSRC / "partition.cu").read_text()
     reg = (CSRC / "reg_sort.cuh").read_text()
+    # the tile and the slots, shared with the packed leaf's runs body
+    merge = (CSRC / "merge_runs.cuh").read_text()
     tile = int(re.search(r"constexpr int kRunsMaxTile = (\d+);",
-                         part).group(1))
+                         merge).group(1))
     assert tile == tp.RUNS_MAX_TILE
-    assert re.search(r"return nk \+ \(idx \? 1 : 0\) == 1 \? 32 : 16;", part)
+    assert re.search(r"return nk \+ \(idx \? 1 : 0\) == 1 \? 32 : 16;",
+                     merge)
     assert "inline bool runs_geometry_ok(" in part
     assert re.search(r"n_planes > 2", part)
     assert re.search(r"K / warp_run > kMergeMaxRuns", part)

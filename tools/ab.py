@@ -36,6 +36,10 @@ Cases (all of them by default; name some to run only those):
 - ``k4``: K4 (``collapse_segments``) at those plans' packed leaves (2^28 -
   12345 keys), at the global sort's collapse finish ((8, capacity)
   segments holding 2^25 words) and at (64, 2^21);
+- ``leaf``: the general path's narrow leaf (``msd._leaf_sort``) on the
+  last K1c pass's runs of those plans: each tree's leaf (the parent's
+  rows, K3 and K4, or K3's runs body), a traced call's device time by
+  kernel and each tree's mode tags beside it;
 - ``walls``: the host walls of ``sort_pairs(end_bit=24)`` at 2^28 and of
   the 2^28 global sort over 8 in-process shards with the collapse finish;
 - ``phases``: ``profile_msd_phases(2^28)``, once a tree in the order
@@ -65,7 +69,7 @@ from pathlib import Path
 import torch
 
 PKG = "tpusort_torch"
-CASES = ("k1", "k2", "k8", "k1c", "k6", "k4", "walls", "phases")
+CASES = ("k1", "k2", "k8", "k1c", "k6", "k4", "leaf", "walls", "phases")
 REPS = 5
 WALL_REPS = 9            # host walls spread more than CUDA-event times
 BATCH = 20               # calls queued between two events (short calls)
@@ -541,6 +545,46 @@ def case_k4(b: Bench, gen: torch.Generator) -> None:
                            device=dev, generator=gen)
     _k4_rows(b, "K4c (64, 2^21) 2 operands", segs, counts,
              int(counts.sum()) - 1000)
+
+
+def case_leaf(b: Bench, gen: torch.Generator) -> None:
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for name, cfg_row, bits, nv in GENERAL:
+        with b.this.active():
+            msd = b.this.mod("ops.msd")
+            gp = _general_plan(b.this, cfg_row, *bits)
+            ops = [_rand(gp.m1, gen) for _ in range(1 + nv)]
+            data, (ctable, q), _ = msd.run_passes(ops, 1, RAGGED_N, gp,
+                                                  general=True)
+            del ops
+        row = (f"general leaf {name} ({gp.n_segments}, {gp.seg}) q {q}, "
+               f"bits {bits}")
+
+        def make(tr):
+            fn = tr.mod("ops.msd")._leaf_sort
+            return lambda: fn(list(data), 1, ctable, q, gp, RAGGED_N)
+
+        b.row(row, make)
+        for t in b.trees:
+            with t.active():
+                fn = make(t)
+                fn()
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=acts) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                by_name = sorted(b.device_ms_by_name(prof).items(),
+                                 key=lambda kv: -kv[1])
+                modes = t.mod("ops.msd")
+                modes.reset_counters()
+                fn()
+                tags = modes.mode_counters()
+            b.print(f"ab: {row} {t.label}: traced device "
+                    f"{sum(ms for _, ms in by_name):.3f} ms: "
+                    + "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in by_name)
+                    + f"; modes {tags}")
+        del data, ctable
+        torch.cuda.empty_cache()
 
 
 def case_walls(b: Bench, gen: torch.Generator) -> None:

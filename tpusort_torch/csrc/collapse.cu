@@ -204,6 +204,20 @@ collapse_kernel(Operands ops, const long long* __restrict__ off, int nseg,
   }
 }
 
+// The offsets launch of either entry point below.
+inline cudaError_t launch_offsets(const void* counts, int counts_64,
+                                  int nseg, long long seg, long long* off,
+                                  cudaStream_t st) {
+  if (counts_64) {
+    collapse_offsets_kernel<<<1, kOffsetThreads, 0, st>>>(
+        static_cast<const long long*>(counts), nseg, seg, off);
+  } else {
+    collapse_offsets_kernel<<<1, kOffsetThreads, 0, st>>>(
+        static_cast<const int32_t*>(counts), nseg, seg, off);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace tpusort
 
 // ops_in/ops_out: n_ops (1-16) device pointers each, inputs (nseg, seg)
@@ -227,16 +241,23 @@ extern "C" int tpusort_collapse(const void* const* ops_in,
   if (blocks == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   long long* off = static_cast<long long*>(offsets);
-  if (counts_64) {
-    collapse_offsets_kernel<<<1, kOffsetThreads, 0, st>>>(
-        static_cast<const long long*>(counts), nseg, seg, off);
-  } else {
-    collapse_offsets_kernel<<<1, kOffsetThreads, 0, st>>>(
-        static_cast<const int32_t*>(counts), nseg, seg, off);
-  }
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_offsets(counts, counts_64, nseg, seg, off, st);
   if (err != cudaSuccess) return (int)err;
   collapse_kernel<<<(unsigned)blocks, kCollapseThreads, 0, st>>>(
       ops, off, nseg, seg, n_out);
   return (int)cudaGetLastError();
+}
+
+// The first launch alone: offsets (nseg + 1 int64) the exclusive cumsum of
+// the (nseg,) counts (int32, or int64 with counts_64) clamped to [0, seg],
+// for a kernel that writes the segments dense itself (the packed leaf's
+// runs body, sort_tiles.cu).  Returns a cudaError_t.
+extern "C" int tpusort_collapse_offsets(const void* counts, int counts_64,
+                                        void* offsets, int nseg, int seg,
+                                        void* stream) {
+  using namespace tpusort;
+  if (nseg < 0 || seg < 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_offsets(counts, counts_64, nseg, seg,
+                             static_cast<long long*>(offsets),
+                             (cudaStream_t)stream);
 }

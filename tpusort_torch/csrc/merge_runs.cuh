@@ -64,6 +64,17 @@ namespace tpusort {
 constexpr int kMergeMinRun = 128;    // the shortest run the merge body takes
 constexpr int kMergeMaxRuns = 256;   // the most runs a tile (one warp's scan)
 
+// The slots a thread sorts in its warp's run of 32 of them, where a tile
+// arrives unsorted (K1's and K1b's runs body, csrc/partition.cu:
+// sort_runs; the packed leaf's, csrc/sort_tiles.cu): 32 where a slot is
+// one word in registers (one plane, no payload), 16 where it is two or
+// three (a plane and the index packed under it, two planes, or two planes
+// and the index); and the largest tile those bodies take.
+__host__ __device__ constexpr int runs_slots(int nk, bool idx) {
+  return nk + (idx ? 1 : 0) == 1 ? 32 : 16;
+}
+constexpr int kRunsMaxTile = 16384;
+
 // The word of compact slot s in each plane of the merge buffer.
 __host__ __device__ constexpr int merge_word(int s) { return s + (s >> 5); }
 

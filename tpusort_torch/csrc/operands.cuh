@@ -107,6 +107,25 @@ inline bool aligned16(void* const* out, int n) {
   return true;
 }
 
+// Bits [lo, lo + width) of slot s's NK-plane key (plane 0 the most
+// significant), width <= 31; key(p, s) is plane p's word of slot s.  K1's
+// digits (partition.cu) and the packed leaf's remainders (sort_tiles.cu).
+template <int NK, class Key>
+__device__ inline int digit_of(Key key, int s, int lo, int width) {
+  uint32_t d = 0;
+#pragma unroll
+  for (int p = 0; p < NK; ++p) {
+    const int base = 32 * (NK - 1 - p);
+    const int ov_lo = max(lo, base);
+    const int ov_hi = min(lo + width, base + 32);
+    if (ov_hi > ov_lo) {
+      const uint32_t m = (1u << (ov_hi - ov_lo)) - 1u;
+      d |= ((key(p, s) >> (ov_lo - base)) & m) << (ov_lo - lo);
+    }
+  }
+  return (int)d;
+}
+
 constexpr int kMaxSmem = 232448;   // dynamic shared memory of a CTA, sm_90
 constexpr int kMaxDevices = 64;
 

@@ -115,24 +115,6 @@ constexpr int kMaxRadix = 256;
 // it out
 constexpr int kStaticSmem = 2064;
 
-// Bits [lo, lo + width) of the sorted slot s's NK-plane key, width <= 8;
-// key(p, s) is plane p's word of sorted slot s.
-template <int NK, class Key>
-__device__ inline int digit_of(Key key, int s, int lo, int width) {
-  uint32_t d = 0;
-#pragma unroll
-  for (int p = 0; p < NK; ++p) {
-    const int base = 32 * (NK - 1 - p);
-    const int ov_lo = max(lo, base);
-    const int ov_hi = min(lo + width, base + 32);
-    if (ov_hi > ov_lo) {
-      const uint32_t m = (1u << (ov_hi - ov_lo)) - 1u;
-      d |= ((key(p, s) >> (ov_lo - base)) & m) << (ov_lo - lo);
-    }
-  }
-  return (int)d;
-}
-
 // K1b's splitters: one (T, R-1) word array per key plane, plus the (T, R-1)
 // tie fractions, 16-bit fixed point in [0, 65536].
 struct Splitters {
@@ -366,20 +348,14 @@ __device__ void partition_sorted(const MergeTile<NK, IDX>& m, int nv,
   }
 }
 
-// The runs body's slots a thread, E: 32 where a slot is one word in
-// registers (one plane, no payload), 16 where it is two or three (a plane
-// and the index packed under it, two planes, or two planes and the index).
-// A thread sorts its E slots of the tile in its warp's run of 32 E (1,024
+// The runs body's slots a thread, E: merge_runs.cuh's runs_slots.  A
+// thread sorts its E slots of the tile in its warp's run of 32 E (1,024
 // or 512 slots) and holds E outputs in each merge level, so a tile takes K
 // / E threads.  Either way a thread gets 64 registers (kRunsMaxTile / E
 // threads a CTA, and two CTAs an SM at E = 32): on an H100 at 2^28, more
 // registers (half the threads, or one CTA where two fit the shared memory)
 // cost more than what they saved, and so did runs of 1,024 on two words
 // (a merge level less, at 128 registers a thread).
-__host__ __device__ constexpr int runs_slots(int nk, bool idx) {
-  return nk + (idx ? 1 : 0) == 1 ? 32 : 16;
-}
-constexpr int kRunsMaxTile = 16384;   // the runs body's largest tile
 __host__ __device__ constexpr int runs_min_blocks(int e) {
   return e == 32 ? 2 : 1;
 }

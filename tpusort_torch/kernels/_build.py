@@ -66,6 +66,12 @@ _SIGNATURES = {
     # ops_in, ops_out, n_ops, counts, counts_64, offsets, n_out, nseg, seg,
     # stream
     "tpusort_collapse": [_PP, _PP, _I, _P, _I, _P, _LL, _I, _I, _P],
+    # counts, counts_64, offsets, nseg, seg, stream
+    "tpusort_collapse_offsets": [_P, _I, _P, _I, _I, _P],
+    # ops_in, ops_out, n_ops, n_planes, counts, q, offsets, n_out, nseg, K,
+    # rem_lo, rem_width, warp_run, threads, smem, stream
+    "tpusort_sort_leaf_runs": [_PP, _PP, _I, _I, _P, _I, _P, _LL, _I, _I, _I,
+                               _I, _I, _I, _I, _P],
     # in, out, scratch (tile aggregates, group anchors, the tile counter),
     # n, is_float, exclusive, stream
     "tpusort_prefix_sum": [_P, _P, _P, _LL, _I, _I, _P],

@@ -25,7 +25,8 @@ import torch
 
 from tpusort_torch.kernels import _build
 from tpusort_torch.kernels.partition import (
-    MAX_TILE, SMEM_MAX, _valid, check_fits, sort_valid_rows, tile_smem_bytes)
+    MAX_OPERANDS, MAX_TILE, RUNS_MAX_TILE, SMEM_MAX, _valid, check_fits,
+    sort_valid_rows, tile_smem_bytes)
 from tpusort_torch.ops.reference import sort_rows_lex
 from tpusort_torch.utils.log import count
 
@@ -165,6 +166,109 @@ def leaf_merge_geometry(K: int, q: int, sorted_run: int, num_keys: int,
     if smem > SMEM_MAX:
         return None
     return MergeGeometry(run, threads, slots, smem)
+
+
+# csrc/merge_runs.cuh: runs_slots(1, false), the slots a thread sorts in
+# its warp's run where a slot is one word (the packed leaf's remainder with
+# its compact index under it)
+LEAF_RUNS_SLOTS = 32
+
+
+def leaf_runs_smem_bytes(seg: int) -> int:
+    """Dynamic shared memory of the packed leaf's runs body
+    (``csrc/sort_tiles.cu``: ``leaf_smem_bytes``): the merge buffer of one
+    plane and no index, then ``seg`` uint16 sorted indices."""
+    return merge_smem_bytes(seg, 1, False, seg // (32 * LEAF_RUNS_SLOTS)) \
+        + 2 * seg
+
+
+@functools.lru_cache(maxsize=None)
+def leaf_runs_geometry(seg: int, q: int, num_keys: int,
+                       n_ops: int) -> Optional[MergeGeometry]:
+    """The geometry of the packed leaf's runs body (``csrc/sort_tiles.cu``:
+    ``sort_tiles_kernel<NK>``) for final segments of ``seg`` slots under
+    a counts table of q-slot chunks, with ``num_keys`` key planes among
+    ``n_ops`` operands, or None where the leaf stays on the rows (the row
+    build, K3's network over the padded rows, K4).  Pure: it reads only
+    the call's shape.
+
+    The body sorts one segment a CTA by one word a slot, its remainder
+    with its compact index under it (``LEAF_RUNS_SLOTS`` slots a thread in
+    warp runs of 32 of them, ``run``), merges the runs (``MERGE_SLOTS[1]``
+    outputs a thread, ``slots``, as many) and writes the segment dense.
+    It takes one or two key planes, at most ``MAX_OPERANDS`` operands, a
+    ``seg`` that is a multiple of the warp run and at most
+    ``RUNS_MAX_TILE`` (its index is 16 bits), a q that is a multiple of
+    ``LEAF_RUNS_SLOTS`` dividing ``seg``, and at most ``MERGE_MAX_RUNS``
+    chunks (one warp scans their counts); ``seg / LEAF_RUNS_SLOTS``
+    threads, and :func:`leaf_runs_smem_bytes`.  So the 2^28 bit-range
+    pairs' leaf (12,288, 512, one plane) takes it with 384 threads; the
+    2^24 pairs' (768-slot segments) and the 2^24 keys' (24,576) stay on
+    the rows."""
+    run = 32 * LEAF_RUNS_SLOTS
+    if not 1 <= num_keys <= 2 or n_ops > MAX_OPERANDS or seg <= 0 \
+            or seg % run or seg > RUNS_MAX_TILE or q <= 0 \
+            or q % LEAF_RUNS_SLOTS or seg % q or seg // q > MERGE_MAX_RUNS:
+        return None
+    return MergeGeometry(run, seg // LEAF_RUNS_SLOTS, MERGE_SLOTS[1],
+                         leaf_runs_smem_bytes(seg))
+
+
+def sort_leaf_runs(ops: Sequence[torch.Tensor], counts: torch.Tensor, q: int,
+                   n_out: int, *, num_keys: int, rem_lo: int,
+                   rem_width: int) -> list:
+    """The packed leaf's runs body on a card: each (nseg, seg) row of the
+    int32 operands (``num_keys`` key planes, then payload words: the last
+    partition pass's runs, slot i of a row valid iff i % q < counts[s,
+    i // q], the counts in [0, q]) sorted stably by bits [rem_lo, rem_lo +
+    rem_width) of its key (``rem_width`` and the bits of ``seg - 1`` at
+    most 31 together, as the packed leaf leaves them) and written dense,
+    the rows' valid prefixes in row order, to (n_out,) outputs, one per
+    operand; words past the valid total are zero.  The key planes come back whole.  Two launches:
+    ``csrc/collapse.cu``'s offsets over the rows' valid counts, then one
+    CTA a row (``csrc/sort_tiles.cu``).  Its shapes are those of
+    :func:`leaf_runs_geometry`; the plain version is the composite of
+    ``ops.msd.packed_leaf_plain``.  Counts one launch of K3 with the tag
+    "runs"."""
+    nseg, seg = _check_ops(ops, "sort_leaf_runs")
+    geo = leaf_runs_geometry(seg, q, num_keys, len(ops))
+    if geo is None or ops[0].device.type != "cuda":
+        raise ValueError(f"sort_leaf_runs: no runs body for ({nseg}, {seg}) "
+                         f"q={q} with {num_keys} key plane(s) of {len(ops)} "
+                         f"operand(s) on {ops[0].device}")
+    if tuple(counts.shape) != (nseg, seg // q) \
+            or counts.device != ops[0].device:
+        raise ValueError(f"counts must be ({nseg}, {seg // q}) on the "
+                         "operands' device")
+    if rem_width < 0 or rem_width + (seg - 1).bit_length() > 31 \
+            or rem_lo < 0 or rem_lo + rem_width > 32 * num_keys:
+        raise ValueError(f"bits [{rem_lo}, {rem_lo + rem_width}) of "
+                         f"{num_keys} plane(s)")
+    return _sort_leaf_runs_cuda([o.contiguous() for o in ops],
+                                counts.to(torch.int32).contiguous(), q,
+                                n_out, num_keys, rem_lo, rem_width, geo)
+
+
+def _sort_leaf_runs_cuda(ops: Sequence[torch.Tensor], counts: torch.Tensor,
+                         q: int, n_out: int, num_keys: int, rem_lo: int,
+                         rem_width: int, geo: MergeGeometry) -> list:
+    nseg, seg = ops[0].shape
+    dev = ops[0].device
+    seg_counts = counts.sum(dim=1, dtype=torch.int32)
+    offsets = torch.empty(nseg + 1, dtype=torch.int64, device=dev)
+    outs = [torch.empty(n_out, dtype=torch.int32, device=dev) for _ in ops]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.library()
+    _build.check(lib.tpusort_collapse_offsets(
+        seg_counts.data_ptr(), 0, offsets.data_ptr(), nseg, seg, stream),
+        "sort_leaf_runs")
+    _build.check(lib.tpusort_sort_leaf_runs(
+        _build.pointers(ops), _build.pointers(outs), len(ops), num_keys,
+        counts.data_ptr(), q, offsets.data_ptr(), n_out, nseg, seg, rem_lo,
+        rem_width, geo.run, geo.threads, geo.smem_bytes, stream),
+        "sort_leaf_runs")
+    _build.count_launch(sort_tiles, num_keys, len(ops) - num_keys, "runs")
+    return outs
 
 
 def _check_ops(ops, what: str) -> Tuple[int, int]:

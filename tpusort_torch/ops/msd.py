@@ -24,9 +24,12 @@ of multi-plane keys.
 * the raw leaf, K2 (``kernels.bitonic.sort_tiles_counts_collapsed``),
   sorts packed tiles of whole final segments and writes each tile's valid
   prefix to its dense output offset.  The general leaf (:func:`_leaf_sort`)
-  sorts each segment stably by its remaining bits: a packed (segment,
-  remainder, position) word on K3 followed by the collapse K4 where the
-  word fits 32 bits, else K2 on the masked planes plus the position;
+  sorts each segment stably by its remaining bits where (remainder,
+  position) fits 32 bits (:func:`packed_leaf`): on a card K3's runs body
+  reads the segment from the last pass's runs and writes it dense, else a
+  packed (segment, remainder, position) word on K3 followed by the
+  collapse K4; where it does not fit, K2 on the masked planes plus the
+  position;
 * a run that overflows its capacity (count > S) raises a flag on the
   device, which :func:`sort_twiddled_msd` returns with its output and
   never reads: the caller's chain of attempts (``ops/tiers.py``) reads it
@@ -53,9 +56,11 @@ import torch
 
 from tpusort_torch.kernels import _build
 from tpusort_torch.kernels.bitonic import (
-    leaf_merge_geometry, leaf_tile_cap, sort_tiles, sort_tiles_counts,
-    sort_tiles_counts_collapsed, sort_tiles_masked)
-from tpusort_torch.kernels.collapse import collapse_segments
+    leaf_merge_geometry, leaf_runs_geometry, leaf_tile_cap, sort_leaf_runs,
+    sort_tiles, sort_tiles_counts, sort_tiles_counts_collapsed,
+    sort_tiles_masked, sort_tiles_plain)
+from tpusort_torch.kernels.collapse import (
+    collapse_segments, collapse_segments_plain)
 from tpusort_torch.kernels.partition import (
     MAX_PLANES, _histogram, _partition_pass_general_cuda,
     _partition_pass_splitter_cuda, extract_bits, partition_pass_fused,
@@ -374,7 +379,9 @@ def mode_counters() -> dict:
     run, the windows finish's pass 0) carry the tag "emit-only"; K1's, K1b's
     and K2's merge-body launches (tiles that arrive as sorted runs, merged
     from their valid prefixes) the tag "merge"; K1's and K1b's runs-body
-    launches (a pass 0 sorted by warp runs, then merged) the tag "runs"."""
+    launches (a pass 0 sorted by warp runs, then merged) the tag "runs",
+    and so do K3's (the packed leaf read from the last pass's runs,
+    :func:`packed_leaf`; K3's row sorts carry no tag)."""
     return {("K" + k[1:k.index("_")], *mode): c
             for k, fn in _KERNELS.items()
             for mode, c in fn.modes.items() if c}
@@ -694,14 +701,14 @@ def _leaf_sort(
 
     Within a segment the valid slots hold input order (K1c is stable), so
     the segment-local position breaks ties in input order.  Where
-    (remainder, position) fits one word with a bit to spare,
-    :func:`sort_segments` sorts the packed rows on K3 and K4 collapses
-    them.  Otherwise (the wide remainder) K2 sorts each segment by the
-    range-masked planes plus the position (:func:`wide_leaf_operands`),
-    which is unique, and writes the dense output itself.  The packed
-    branch counts ``packed_leaf_bytes``: 8 B a valid key for each of K3's
-    operands (the word, then every operand but a key plane rebuilt from
-    the word) and each of K4's.
+    (remainder, position) fits one word with a bit to spare, the packed
+    leaf (:func:`packed_leaf`) sorts each segment.  Otherwise (the wide
+    remainder) K2 sorts each segment by the range-masked planes plus the
+    position (:func:`wide_leaf_operands`), which is unique, and writes the
+    dense output itself.  The packed branch counts ``packed_leaf_bytes``
+    as the rows move them, whichever body runs: 8 B a valid key for each
+    of K3's operands on the rows (the word, then every operand but a key
+    plane rebuilt from the word) and each of K4's.
     """
     if leaf_is_wide(plan):
         operands, ct = wide_leaf_operands(ops, nplanes, ctable, q, plan)
@@ -710,8 +717,49 @@ def _leaf_sort(
         return outs[nplanes + 1:]
     k3_ops = 1 + len(ops) - key_from_sortkey(plan, nplanes)
     count("packed_leaf_bytes", 8 * n * (k3_ops + len(ops)))
+    return packed_leaf(ops, nplanes, ctable, q, plan, n)
+
+
+def packed_leaf(
+    ops: List[torch.Tensor], nplanes: int, ctable: torch.Tensor, q: int,
+    plan: MsdPlan, n: int,
+) -> List[torch.Tensor]:
+    """The narrow general leaf: each final segment sorted stably by its
+    remainder bits and the segments' valid prefixes written dense, as
+    :func:`_leaf_sort` takes them (``ops`` emptied).  On a card, where
+    :func:`kernels.bitonic.leaf_runs_geometry` takes the segment's shape,
+    K3's runs body (:func:`kernels.bitonic.sort_leaf_runs`) reads each
+    segment straight from the last pass's runs, sorts its valid slots by
+    the remainder word and their compact index, which rises with input
+    order as the position does, and writes it dense: the order of the
+    rows, bit for bit, with no row built.  Elsewhere, and on the CPU, the
+    rows: :func:`sort_segments` (the row build, K3 on the rows), then
+    K4."""
+    nseg, seg = plan.n_segments, plan.seg
+    if ops[0].device.type == "cuda" and \
+            leaf_runs_geometry(seg, q, nplanes, len(ops)):
+        tiled = [o.reshape(nseg, seg) for o in ops]
+        ops.clear()
+        return sort_leaf_runs(tiled, ctable.reshape(nseg, seg // q), q, n,
+                              num_keys=nplanes, rem_lo=plan.rem_lo,
+                              rem_width=plan.rem_width)
     return collapse_segments(*sort_segments(ops, nplanes, ctable, q, plan),
                              n)
+
+
+def packed_leaf_plain(
+    ops: Sequence[torch.Tensor], nplanes: int, ctable: torch.Tensor, q: int,
+    plan: MsdPlan, n: int,
+) -> List[torch.Tensor]:
+    """Plain PyTorch :func:`packed_leaf` on any device, the version its
+    runs body is held to: :func:`packed_leaf_rows`, K3's and K4's plain
+    versions (``ops`` is not emptied)."""
+    rows, seg_counts = packed_leaf_rows(list(ops), nplanes, ctable, q, plan)
+    out = sort_tiles_plain(rows)
+    del rows
+    return collapse_segments_plain(
+        [o.reshape(plan.n_segments, plan.seg) for o in out[1:]], seg_counts,
+        n)
 
 
 @spanned("tpusort.leaf")
